@@ -1,0 +1,112 @@
+"""Model API of the port — the serving CLI, ``chip_smoke.py`` and the
+tests go through these entry points:
+
+    init_model(cfg, seed=, device=)              → params
+    prefill(params, adapters, batch, cfg, peft)  → (cache, last logits)
+    pad_cache(cache, cfg, max_len)               → cache with room to decode
+    decode_step(params, adapters, cache, tokens, cfg, peft) → (logits, cache)
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no such request they raise (never move to the CPU on
+their own).  Logits are (B, 1, V) float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.transforms import PEFTConfig
+from repro_torch.models import backbone
+from repro_torch.models.backbone import ModelConfig
+
+Params = dict[str, Any]
+
+
+class DeviceUnavailableError(RuntimeError):
+    """The requested device is not present."""
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch device for ``device``; raises if it is a CUDA device and
+    this process sees no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceUnavailableError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run on the CPU")
+    return dev
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+    """Random params from ``seed`` on ``device`` (see backbone.init)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return backbone.init(gen, cfg, dev)
+
+
+def validate_true_lens(true_lens, seq_len: int) -> np.ndarray:
+    """Host-side guard for right-padded prefill: every length must lie in
+    [1, seq_len] — 0 would gather the last padded column and > seq_len the
+    wrong token.  Returns int32 numpy."""
+    if isinstance(true_lens, torch.Tensor):
+        true_lens = true_lens.cpu().numpy()
+    arr = np.asarray(true_lens)
+    if arr.size and not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(f"true_lens must be integers, got {arr.dtype}")
+    bad = arr[(arr < 1) | (arr > seq_len)] if arr.size else arr
+    if bad.size:
+        raise ValueError(f"true_lens {sorted(set(bad.tolist()))} out of "
+                         f"range [1, {seq_len}] — 0 would gather the "
+                         f"last padded column, > seq_len the wrong "
+                         f"token")
+    return arr.astype(np.int32)
+
+
+@torch.no_grad()
+def prefill(params: Params, adapters: Optional[Params], batch: dict,
+            cfg: ModelConfig, peft: Optional[PEFTConfig], true_lens=None):
+    """Build the serving cache from a full prompt ``batch['tokens']``
+    (B, P); returns (cache, logits (B, 1, V) f32 at each row's last real
+    token: position ``true_lens[b] - 1``, or P - 1 without true_lens)."""
+    tokens = batch["tokens"]
+    hidden, cache = backbone.forward(params, cfg, tokens=tokens,
+                                     adapters=adapters, peft=peft,
+                                     mode="prefill")
+    if true_lens is None:
+        return cache, backbone.logits_fn(params, cfg, hidden[:, -1:])
+    idx = torch.as_tensor(validate_true_lens(true_lens, tokens.shape[1]),
+                          dtype=torch.long, device=hidden.device) - 1
+    last = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                  idx][:, None]                               # (B, 1, d)
+    return cache, backbone.logits_fn(params, cfg, last)
+
+
+@torch.no_grad()
+def pad_cache(cache: Params, cfg: ModelConfig, max_len: int) -> Params:
+    """Grow a prefill-sized KV cache to ``max_len`` positions (zero
+    padded on the time axis) so decode can append."""
+    k = cache["pos0"]["k"]                                 # (L, B, H, T, D)
+    t = k.shape[-2]
+    if t >= max_len:
+        return cache
+    out = backbone.init_cache(cfg, k.shape[1], max_len, k.device)
+    for name, leaf in cache["pos0"].items():
+        out["pos0"][name][..., :t, :] = leaf
+    out["cursor"] = cache["cursor"]
+    return out
+
+
+@torch.no_grad()
+def decode_step(params: Params, adapters: Optional[Params], cache: Params,
+                tokens: torch.Tensor, cfg: ModelConfig,
+                peft: Optional[PEFTConfig]):
+    """One serving step: (B, 1) new tokens against the cache.  The KV of
+    the new tokens is written into ``cache`` in place; returns
+    (logits (B, 1, V) f32, cache with its cursor advanced)."""
+    hidden, new_cache = backbone.forward(params, cfg, tokens=tokens,
+                                         adapters=adapters, peft=peft,
+                                         mode="decode", cache=cache)
+    return backbone.logits_fn(params, cfg, hidden), new_cache

@@ -1,0 +1,209 @@
+"""Decoder-only LM backbone of the port: dense attention layers
+(``block_pattern=("attn",)``) with a swiglu or gelu MLP.
+
+Params keep the JAX package's stacked layout: every per-layer leaf of
+``units/pos0/...`` carries a leading ``n_layers`` axis, and so do the
+adapters and the KV cache (``pos0/k``: (L, B, Hkv, T, D)).  ``forward``
+walks the layers in a Python loop over views of those stacks.  Other
+block types, MoE and the frontends are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import NotPortedError
+from repro_torch.common.dtypes import torch_dtype
+from repro_torch.core.peft import get_adapter
+from repro_torch.models import layers as L
+from repro_torch.models.attention import apply_attention, init_attention
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Field for field the JAX package's ``ModelConfig``."""
+    name: str = "model"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv: int = 4
+    d_ff: int = 1024
+    vocab: int = 1024
+    head_dim: int = 0                      # 0 → d_model // n_heads
+    block_pattern: tuple[str, ...] = ("attn",)
+    mlp_type: str = "swiglu"               # swiglu | gelu | moe | none
+    act: str = "silu"
+    qkv_bias: bool = False
+    rope_theta: Optional[float] = 10000.0
+    norm: str = "rmsnorm"
+    window: Optional[int] = None           # local_attn sliding window
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_headdim: int = 64
+    ssm_state: int = 128
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+    # RG-LRU
+    rnn_width: int = 0                     # 0 → d_model
+    rnn_heads: int = 0                     # 0 → n_heads
+    # frontends
+    frontend: Optional[str] = None         # "vision" | None
+    n_img_tokens: int = 0
+    d_frontend: int = 1024
+    # misc
+    tie_embeddings: bool = True
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    remat: str = "full"                    # full | none
+    q_chunk: int = 512
+    loss_chunk: int = 0                    # 0 = unchunked CE
+    scan_layers: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def pdt(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def cdt(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotPortedError for what this backbone does not run yet."""
+    if tuple(cfg.block_pattern) != ("attn",):
+        raise NotPortedError(f"block pattern {cfg.block_pattern}")
+    if cfg.mlp_type not in ("swiglu", "gelu"):
+        raise NotPortedError(f"mlp_type {cfg.mlp_type!r}")
+    if cfg.frontend is not None:
+        raise NotPortedError(f"the {cfg.frontend!r} frontend")
+    if cfg.window is not None:
+        raise NotPortedError("sliding-window attention")
+    if not cfg.tie_embeddings:
+        raise NotPortedError("untied output heads")
+    if cfg.norm != "rmsnorm":
+        raise NotPortedError(f"norm {cfg.norm!r}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """Random weights of the JAX package's distributions (lecun-normal
+    kernels, 0.02·normal embedding, unit norms) from ``generator``, which
+    must live on ``device``."""
+    check_supported(cfg)
+    pdt, stack = cfg.pdt(), (cfg.n_layers,)
+    layer: Params = {
+        "norm1": L.init_rmsnorm(cfg.d_model, pdt, device, stack),
+        "mixer": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                cfg.hd, pdt, device, qkv_bias=cfg.qkv_bias,
+                                stack=stack),
+        "norm2": L.init_rmsnorm(cfg.d_model, pdt, device, stack),
+    }
+    if cfg.mlp_type == "swiglu":
+        layer["mlp"] = L.init_glu_mlp(generator, cfg.d_model, cfg.d_ff, pdt,
+                                      device, stack)
+    else:
+        layer["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, pdt,
+                                  device, stack=stack)
+    return {"embed": L.init_embedding(generator, cfg.vocab, cfg.d_model, pdt,
+                                      device),
+            "final_norm": L.init_rmsnorm(cfg.d_model, pdt, device),
+            "units": {"pos0": layer}}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+    """Preallocated serving cache for the whole stack; the cursor is a
+    Python int (the next position to write)."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch, cfg.n_kv, max_len, cfg.hd)
+    return {"cursor": 0,
+            "pos0": {"k": torch.zeros(shape, dtype=cfg.cdt(), device=device),
+                     "v": torch.zeros(shape, dtype=cfg.cdt(), device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _unstack(tree, n: int) -> list:
+    """n per-layer trees of views into a tree of stacked tensors."""
+    if tree is None:
+        return [None] * n
+    if not isinstance(tree, dict):
+        return list(torch.unbind(tree, 0))
+    per_key = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in tree} for i in range(n)]
+
+
+def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
+                 rope=None, cache=None, cache_pos=None, adapters=None,
+                 peft=None):
+    """Pre-norm residual block: attention + MLP.  Returns (x, layer cache)."""
+    h = L.rmsnorm(p["norm1"], x)
+    mixed, new_cache = apply_attention(
+        p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+        positions=positions, causal=True, rope=rope,
+        cache=cache, cache_pos=cache_pos, q_chunk=cfg.q_chunk,
+        adapters=get_adapter(adapters, "mixer"), peft=peft)
+    x = x + mixed
+    h2 = L.rmsnorm(p["norm2"], x)
+    a_mlp = get_adapter(adapters, "mlp")
+    if cfg.mlp_type == "swiglu":
+        out = L.glu_mlp(p["mlp"], h2, cfg.act, adapters=a_mlp, peft=peft)
+    else:
+        out = L.mlp(p["mlp"], h2, cfg.act, adapters=a_mlp, peft=peft)
+    return x + out, new_cache
+
+
+def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
+            adapters=None, peft=None, mode: str = "prefill", cache=None):
+    """Run the backbone.
+
+    mode='prefill': tokens (B, S) from position 0; returns the prompt's
+    KV as a new cache.  mode='decode': tokens (B, S) against ``cache``,
+    written in place at its cursor.  Returns (hidden (B, S, d), cache)."""
+    if mode not in ("prefill", "decode"):
+        raise NotPortedError(f"backbone mode {mode!r}")
+    check_supported(cfg)
+    x = L.embed(params["embed"], tokens, cfg.cdt())
+    B, S = x.shape[:2]
+    start = cache["cursor"] if mode == "decode" else 0
+    positions = (start + torch.arange(S, device=x.device)).expand(B, S)
+    rope = (None if cfg.rope_theta is None
+            else L.rope_tables(positions, cfg.hd, cfg.rope_theta))
+
+    n = cfg.n_layers
+    layer_params = _unstack(params["units"]["pos0"], n)
+    layer_adapters = _unstack(get_adapter(adapters, "units", "pos0"), n)
+    layer_caches = _unstack(cache["pos0"] if mode == "decode" else None, n)
+    ks, vs = [], []
+    for i in range(n):
+        x, lc = _apply_layer(layer_params[i], x, cfg, positions=positions,
+                             rope=rope, cache=layer_caches[i],
+                             cache_pos=start if mode == "decode" else None,
+                             adapters=layer_adapters[i], peft=peft)
+        ks.append(lc["k"])
+        vs.append(lc["v"])
+    x = L.rmsnorm(params["final_norm"], x)
+    if mode == "decode":
+        return x, {"cursor": start + S, "pos0": cache["pos0"]}
+    return x, {"cursor": S, "pos0": {"k": torch.stack(ks),
+                                     "v": torch.stack(vs)}}
+
+
+def logits_fn(params: Params, cfg: ModelConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    return L.logits_out(params["embed"], hidden)

@@ -19,6 +19,9 @@ def pytest_configure(config):
         "markers",
         "chaos: fault-injected serving degradation tests (DESIGN.md §12); "
         "run in isolation with `pytest -m chaos`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips where there is none (README.md)")
 
 
 @pytest.fixture

@@ -1,0 +1,114 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+the serving slice on the card against the same run on the CPU.
+
+Every test here needs a CUDA device and skips without one.  This file
+imports neither JAX nor the JAX package, so it also runs on a machine
+that has only PyTorch (there, without tests/conftest.py, which imports
+the JAX package):
+
+    PYTHONPATH=src python3 -m pytest -q --noconftest tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, peft_targets
+from repro_torch.core import execute
+from repro_torch.core.peft import init_adapters, merge_params
+from repro_torch.core.transforms import PEFTConfig
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
+from repro_torch.models.api import init_model
+
+pytestmark = pytest.mark.cuda
+
+# (T, d, f, n): decode and prefill rows at smollm-360m widths, the paper's
+# n = 32, and ragged edges (db = 12, 15)
+SHAPES = [(4, 960, 2560, 8), (128, 2560, 960, 8), (128, 960, 320, 32),
+          (5, 96, 96, 8), (67, 120, 70, 8)]
+# normalised max error: float32 sums in another order; bf16 one output
+# rounding (2^-8) apart
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the H100 (see README.md)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(device, t, d, f, n, dtype):
+    rng = np.random.default_rng(t * d + f + n)
+    x = torch.from_numpy(rng.standard_normal((t, d), np.float32))
+    w = torch.from_numpy(rng.standard_normal((d, f), np.float32) / d ** .5)
+    u = torch.from_numpy(rng.standard_normal((n, d // n), np.float32))
+    return x.to(device, dtype), w.to(device, dtype), u.to(device)
+
+
+def _max_err(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f,n", SHAPES)
+def test_kernels_match_plain_versions(cuda_device, t, d, f, n, dtype):
+    x, w, u = _inputs(cuda_device, t, d, f, n, dtype)
+    ops.reset_launches()
+    y = ops.householder_gemm(x, w, u)
+    m = ops.ether_merge(w, u)
+    torch.cuda.synchronize()
+    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 1}
+    assert y.dtype == dtype and m.dtype == dtype and y.shape == (t, f)
+    assert _max_err(y, ref.ref_householder_gemm(x, w, u)) < TOL[dtype]
+    assert _max_err(m, ref.ref_ether_merge(w, u)) < TOL[dtype]
+
+
+def test_wrappers_refuse_on_the_card_without_fallback(cuda_device):
+    x, w, u = _inputs(cuda_device, 4, 96, 64, 8, torch.float32)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="float32 or bfloat16"):
+        ops.householder_gemm(x.half(), w.half(), u)
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.householder_gemm(x, w.cpu(), u)
+    with pytest.raises(ops.KernelInputError, match="contiguous"):
+        ops.ether_merge(w.t().contiguous().t(), u)
+    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0}
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_smoke_serving_on_the_card_matches_the_cpu(cuda_device, merged):
+    # one set of weights, drawn on the CPU (the CPU and CUDA generators
+    # give different numbers for one seed), served on both devices
+    cfg = get_config("smollm-360m", "smoke")
+    peft = PEFTConfig(n_blocks=8, targets=peft_targets("smollm-360m"))
+    params = init_model(cfg, seed=0, device="cpu")
+    adapters = init_adapters(torch.Generator().manual_seed(1), params, peft)
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p, a = _to(params, dev), _to(adapters, dev)
+        execute.reset_counters()
+        if merged:
+            p, a, pc = merge_params(p, a, peft), None, None
+        else:
+            pc = peft
+        runs[str(dev)] = (serve.generate(p, a, tokens.to(dev), cfg, pc, 4),
+                          execute.counters())
+    (card, calls), (cpu, _) = runs["cuda"], runs["cpu"]
+    if merged:
+        assert calls == {"ether_merge.cuda": 7 * cfg.n_layers}
+    else:
+        assert calls == {"householder_gemm.cuda":
+                         7 * cfg.n_layers * card["forwards"]}
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])
