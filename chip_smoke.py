@@ -18,6 +18,27 @@
    versions, holds merged against unmerged and the kernels' path against
    the plain path, and prints prefill ms, decode ms per token and peak
    memory.
+4. Train: smollm-360m at full width (32 layers, bf16, remat "full",
+   random weights from a seed) with ETHER n_blocks=32 on all seven
+   linears, B=8, S=128, AdamW lr 2e-3 with a cosine schedule and warmup
+   2, through the port's ``Trainer``: TRAIN_STEPS steps on the kernels'
+   path (counted: every adapted linear's forward, remat recompute and
+   backward on the CUDA kernels, nothing on the plain versions), the
+   same steps on the plain path on the card (per-step losses and
+   gradient norms, read from each Trainer's JSONL log, and the adapter
+   updates held to TRAIN_TOL), and a restore from the step-TRAIN_CKPT checkpoint
+   run to the end again, bitwise equal to the uninterrupted run under
+   ``torch.use_deterministic_algorithms(True)``.  Prints step ms,
+   tokens/s, peak memory and, from a torch.profiler trace of the step,
+   the device's busy time and the host's top-level ops.
+
+Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
+against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
+and times them beside ``torch.matmul`` of the GEMM inside each.
+
+Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
+compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
+cuBLAS is deterministic in phase 4.
 
 Any failure raises and exits non-zero; the last line is the device JSON
 object.  Full tables go to ``chiprun_out/chip_smoke.json``.
@@ -26,6 +47,7 @@ object.  Full tables go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,6 +73,26 @@ LAYER = {(960, 960): 2, (960, 320): 2, (960, 2560): 2, (2560, 960): 1}
 ROWS = (4, 128, 2048)
 BLOCKS = (8, 32)
 ARCH, B, P, GEN, N_BLOCKS = "smollm-360m", 4, 32, 16, 8
+# backward kernels: the train step's B·S = 8·128 rows, a longer 2048, and
+# a ragged 1000 at smollm-360m's linears with n = 32 (db = 30 and 80)
+BWD_ROWS = (1024, 2048)
+BWD_RAGGED = 1000
+# du: relative Frobenius, the same f32 math in another sum order
+DU_TOL = 1e-4
+TRAIN_B, TRAIN_S, TRAIN_BLOCKS, TRAIN_STEPS, TRAIN_CKPT = 8, 128, 32, 8, 4
+TRAIN_LR, TRAIN_WARMUP = 2e-3, 2
+# kernels' path vs plain path after TRAIN_STEPS bf16 steps: per-step
+# relative difference of the loss and of the gradient's global norm, and
+# relative Frobenius of the adapters' total update (final − initial).
+# Both paths compute the same f32 math and round dx to bf16 once; the
+# sums' order differs and a bf16 rounding of dx can flip.  The loss moves
+# 2.2e-3 relative over the 8 steps, and the paths differed by 2.63e-5
+# (PERF.md), so 1e-4 catches adapters that do not move.  grad_norm is not
+# scale-free as Adam's update is, so it catches a du off by a factor:
+# 1.13e-3 measured, limit 5e-3.  The update carries bf16 flips through
+# Adam's sign-like first steps into small-gradient elements: 3.48e-2
+# measured, limit 5e-2
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3, "update": 5e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -193,12 +235,88 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
-def layer_summary(rows, kernel):
-    """Sum over one smollm-360m decode layer's seven linears (T = B = 4,
-    bf16, n = 8): the kernel work of one layer of one decode step."""
+def bwd_kernel_rows(torch, ops, ref, kdx, kdw):
+    """Phase 2, backward: reflect_gemm_dx (dx, du) and reflect_gemm_dw
+    against their plain versions, through the wrapper; then each kernel
+    timed through its own launcher (``kdx``, ``kdw``: the dW kernel runs
+    alone there) beside its plain version and torch.matmul of the GEMM
+    inside it (G·Wᵀ and xᵀ·G)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    shapes = [(arch, d, f, n, t) for arch, lin in LINEARS.items()
+              for d, f in lin for n in BLOCKS for t in BWD_ROWS]
+    shapes += [(ARCH, d, f, 32, BWD_RAGGED) for d, f in LINEARS[ARCH]]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for arch, d, f, n, t in shapes:
+            w = (torch.randn(d, f, generator=gen, device="cuda")
+                 / d ** .5).to(dt)
+            x = torch.randn(t, d, generator=gen, device="cuda").to(dt)
+            g = torch.randn(t, f, generator=gen, device="cuda").to(dt)
+            u = torch.randn(n, d // n, generator=gen, device="cuda")
+            ops.reset_launches()
+            dx, dw, du = ops.householder_gemm_bwd(x, w, u, g, need_dw=True)
+            torch.cuda.synchronize()
+            check(ops.launches()["reflect_gemm_dx"] == 1
+                  and ops.launches()["reflect_gemm_dw"] == 1,
+                  f"householder_gemm_bwd launched {ops.launches()}")
+            pdx, pdu = ref.ref_reflect_gemm_dx(x, w, u, g)
+            pdw = ref.ref_reflect_gemm_dw(x, u, g, dt)
+            err = {k: ((a.float() - b.float()).abs().max().item(),
+                       (a.float() - b.float()).abs().max().item()
+                       / b.float().abs().max().item())
+                   for k, a, b in (("dx", dx, pdx), ("dw", dw, pdw))}
+            du_rel = ((du - pdu).norm() / pdu.norm()).item()
+            check(err["dx"][1] <= TOL[dtype] and err["dw"][1] <= TOL[dtype]
+                  and du_rel <= DU_TOL,
+                  f"backward kernels disagree with their plain versions at "
+                  f"{dtype} T={t} d={d} f={f} n={n}: dx {err['dx'][1]:.3e}, "
+                  f"dw {err['dw'][1]:.3e} (tol {TOL[dtype]:g}), du "
+                  f"{du_rel:.3e} (tol {DU_TOL:g})")
+            dx_b = bound((2 * t * d + d * f + t * f) * es + 8 * d,
+                         2 * t * d * f + 8 * t * d, dtype)
+            dw_b = bound((t * d + t * f + d * f) * es + 4 * d,
+                         2 * t * d * f + 4 * t * d, dtype)
+            common = dict(arch=arch, dtype=dtype, t=t, d=d, f=f, n=n,
+                          tol=TOL[dtype])
+            rows.append(dict(
+                kernel="reflect_gemm_dx", **common, max_abs_err=max(
+                    err["dx"][0], (du - pdu).abs().max().item()),
+                rel_err=err["dx"][1], du_rel_frob=du_rel,
+                ms=timed_ms(torch, [lambda: kdx.launch(x, w, u, g)]),
+                plain_ms=timed_ms(torch, [
+                    lambda: ref.ref_reflect_gemm_dx(x, w, u, g)]),
+                matmul_ms=timed_ms(torch, [lambda: torch.matmul(g, w.T)]),
+                bound_ms=dx_b[0], bound_by=dx_b[1]))
+            rows.append(dict(
+                kernel="reflect_gemm_dw", **common,
+                max_abs_err=err["dw"][0], rel_err=err["dw"][1],
+                ms=timed_ms(torch, [lambda: kdw.launch(x, u, g)]),
+                plain_ms=timed_ms(torch, [
+                    lambda: ref.ref_reflect_gemm_dw(x, u, g, dt)]),
+                matmul_ms=timed_ms(torch, [lambda: torch.matmul(x.T, g)]),
+                bound_ms=dw_b[0], bound_by=dw_b[1]))
+            for r in rows[-2:]:
+                print("  {kernel:16s} {arch:11s} {dtype:8s} T={t:4d} "
+                      "d={d:5d} f={f:5d} n={n:2d}  err {rel_err:.2e} (tol "
+                      "{tol:g})  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                      "matmul {matmul_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                      "({bound_by})".format(**r)
+                      + (f"  du {r['du_rel_frob']:.2e}" if "du_rel_frob" in r
+                         else ""), flush=True)
+            del w, x, g, dx, dw, pdx, pdw
+    torch.cuda.synchronize()
+    return rows
+
+
+def layer_summary(rows, kernel, n, t):
+    """Sum over one smollm-360m layer's seven linears (bf16, ``n``
+    blocks, ``t`` rows; None for ether_merge): the kernel work of one
+    layer of one decode step (n = 8, t = B) or train step (n = 32,
+    t = B·S)."""
     pick = [r for r in rows if r["kernel"] == kernel and r["arch"] == ARCH
-            and r["dtype"] == "bfloat16" and r["n"] == N_BLOCKS
-            and r["t"] in (None, B)]
+            and r["dtype"] == "bfloat16" and r["n"] == n and r["t"] == t]
     out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "matmul_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
     for r in pick:
@@ -226,38 +344,27 @@ def run_path(torch, execute, ops, serve, **kw):
     return r
 
 
-def profile_decode(torch, serve, api, steps, **kw):
-    """torch.profiler trace of ``steps`` greedy decode steps of the model
-    ``serve.build(**kw)`` makes, after as many untimed ones.  Returns, per
-    step: the device's busy ms and its busiest kernels, and the host side
-    -- wall ms under the profiler, top-level operators (ATen ops, CUDA
-    runtime calls such as the ctypes kernel launches, others) and their
-    mean CPU µs."""
+def trace_steps(torch, run, steps):
+    """torch.profiler trace of ``run()``, which runs ``steps`` steps and
+    synchronises.  Returns, per step: the device's busy ms and its
+    busiest kernels, and the host side -- wall ms under the profiler,
+    top-level operators (ATen ops, CUDA runtime calls such as the ctypes
+    kernel launches, others) and their mean CPU µs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    m = serve.build(**kw)
-    params, adapters, cfg, peft = (m[k] for k in
-                                   ("params", "adapters", "cfg", "peft"))
-    cache, logits = api.prefill(params, adapters, {"tokens": m["tokens"]},
-                                cfg, peft)
-    cache = api.pad_cache(cache, cfg, m["tokens"].shape[1] + 2 * steps + 1)
-
-    def decode(tok, cache):
-        for _ in range(steps):
-            logits, cache = api.decode_step(params, adapters, cache, tok,
-                                            cfg, peft)
-            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        return tok, cache
-
-    tok, cache = decode(logits[:, -1].argmax(dim=-1, keepdim=True), cache)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()        # the profiler's start and stop
-        decode(tok, cache)              # are left out of the wall time
+        run()                           # are left out of the wall time
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device work: the kernels and copies themselves.  A CPU op's (and a
+    # record_function range's) self device time repeats the time of the
+    # kernels it launched, so summing every event would count them twice
     dev = [(e.key, e.self_device_time_total / 1e3 / steps)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.self_device_time_total > 0]
     top = {"aten": [], "cuda runtime": [], "other": []}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.cpu_parent is None:
@@ -271,6 +378,47 @@ def profile_decode(torch, serve, api, steps, **kw):
             "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
                                  for k, v in top.items()},
             "top_level_cpu_ms": sum(map(sum, top.values())) / 1e3 / steps}
+
+
+def print_trace(name, t, unprofiled_ms):
+    n_ops = sum(t["top_level_ops"].values())
+    print(f"[{name}] profiled step: wall {t['profiled_wall_ms']:.2f} ms, "
+          f"device busy {t['device_busy_ms']:.3f} ms (idle "
+          f"{100 * (1 - t['device_busy_ms'] / t['profiled_wall_ms']):.1f}% "
+          f"of the profiled wall, "
+          f"{100 * (1 - t['device_busy_ms'] / unprofiled_ms):.1f}% of the "
+          f"unprofiled)", flush=True)
+    print(f"    host: {n_ops:.1f} top-level ops per step ("
+          + ", ".join(f"{k} {n:.1f} x {t['top_level_cpu_us'][k]:.1f} us"
+                      for k, n in t["top_level_ops"].items() if n)
+          + f"): {t['top_level_cpu_ms']:.2f} ms CPU in them, "
+          f"{100 * t['top_level_cpu_ms'] / t['profiled_wall_ms']:.1f}% "
+          f"of the profiled wall")
+    print("    busiest device work: " + ", ".join(
+        f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"]))
+
+
+def profile_decode(torch, serve, api, steps, **kw):
+    """The trace of ``steps`` greedy decode steps of the model
+    ``serve.build(**kw)`` makes, after as many untimed ones."""
+    m = serve.build(**kw)
+    params, adapters, cfg, peft = (m[k] for k in
+                                   ("params", "adapters", "cfg", "peft"))
+    cache, logits = api.prefill(params, adapters, {"tokens": m["tokens"]},
+                                cfg, peft)
+    cache = api.pad_cache(cache, cfg, m["tokens"].shape[1] + 2 * steps + 1)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+
+    def decode():
+        nonlocal tok, cache
+        for _ in range(steps):
+            logits, cache = api.decode_step(params, adapters, cache, tok,
+                                            cfg, peft)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+
+    decode()
+    return trace_steps(torch, decode, steps)
 
 
 def phase_serve(torch, execute, ops, serve, api):
@@ -288,12 +436,14 @@ def phase_serve(torch, execute, ops, serve, api):
     # each path's own counts: the unmerged path runs householder_gemm on
     # every adapted linear of every forward and nothing else; the merged
     # path runs ether_merge once per adapted linear and nothing else
+    none = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
+            "reflect_gemm_dw": 0}
     want = {"unmerged": ({"householder_gemm.cuda": per_forward
                           * un["forwards"]},
-                         {"householder_gemm": per_forward * un["forwards"],
-                          "ether_merge": 0}),
+                         {**none, "householder_gemm": per_forward
+                          * un["forwards"]}),
             "merged": ({"ether_merge.cuda": per_forward},
-                       {"householder_gemm": 0, "ether_merge": per_forward})}
+                       {**none, "ether_merge": per_forward})}
     for name, r in (("unmerged", un), ("merged", mg)):
         print(f"[{name}] dispatch counters: {r['counters']}  kernel "
               f"launches: {r['launches']}")
@@ -342,22 +492,7 @@ def phase_serve(torch, execute, ops, serve, api):
         t = traces[name] = profile_decode(torch, serve, api, GEN,
                                           merged=r["merge_s"] is not None,
                                           **kw)
-        n_ops = sum(t["top_level_ops"].values())
-        print(f"[{name}] profiled decode step: wall "
-              f"{t['profiled_wall_ms']:.2f} ms, device busy "
-              f"{t['device_busy_ms']:.3f} ms (idle "
-              f"{100 * (1 - t['device_busy_ms'] / t['profiled_wall_ms']):.1f}"
-              f"% of the profiled wall, "
-              f"{100 * (1 - t['device_busy_ms'] / (r['per_token_s'] * 1e3)):.1f}"
-              f"% of the unprofiled)", flush=True)
-        print(f"    host: {n_ops:.1f} top-level ops per step ("
-              + ", ".join(f"{k} {n:.1f} x {t['top_level_cpu_us'][k]:.1f} us"
-                          for k, n in t["top_level_ops"].items() if n)
-              + f"): {t['top_level_cpu_ms']:.2f} ms CPU in them, "
-              f"{100 * t['top_level_cpu_ms'] / t['profiled_wall_ms']:.1f}% "
-              f"of the profiled wall")
-        print("    busiest device work: " + ", ".join(
-            f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"]))
+        print_trace(name, t, r["per_token_s"] * 1e3)
 
     w_bytes = 2 * cfg.n_layers * sum(m * d * f for (d, f), m in LAYER.items())
     print(f"decode-step bound from reading the adapted weights: "
@@ -373,7 +508,165 @@ def phase_serve(torch, execute, ops, serve, api):
                 traces=traces)
 
 
+def phase_train(torch, execute, ops):
+    """Phase 4: ETHER training of smollm-360m at full width through the
+    port's Trainer; see the module docstring."""
+    import shutil
+    import tempfile
+
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = get_config(ARCH, "full")
+    tokens = TRAIN_B * TRAIN_S
+    print(f"== phase 4: train {ARCH} full width ({cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, remat {cfg.remat!r}), ETHER "
+          f"n_blocks={TRAIN_BLOCKS}, B={TRAIN_B} S={TRAIN_S}, AdamW lr "
+          f"{TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps",
+          flush=True)
+    stream = SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
+                               seq_len=TRAIN_S, seed=0)
+
+    def trainer(backend, name, **kw):
+        peft = PEFTConfig(n_blocks=TRAIN_BLOCKS, targets=peft_targets(ARCH),
+                          backend=backend)
+        opt = adamw(cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
+        return Trainer(cfg, peft, opt, seed=0, device="cuda",
+                       log_path=os.path.join(tmp, f"{name}.jsonl"), **kw)
+
+    def logged(name):
+        """The metrics of every step a Trainer ran, from its JSONL log."""
+        with open(os.path.join(tmp, f"{name}.jsonl")) as fh:
+            return [json.loads(line) for line in fh]
+
+    def snapshot(tree):
+        return {p: t.detach().clone() for p, t in flatten_with_paths(tree)}
+
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the main path, counted: every count set to 0 just before fit
+        tr = trainer("auto", "a", ckpt_dir=os.path.join(tmp, "a"),
+                     ckpt_every=TRAIN_CKPT)
+        init = snapshot(tr.state["adapters"])
+        execute.reset_counters()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.fit(stream, steps=TRAIN_STEPS)
+        fit_s = time.perf_counter() - t0
+        counters, launches = execute.counters(), ops.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        final = {k: snapshot(tr.state[k])
+                 for k in ("adapters", "opt_state", "step")}
+        tr.close()
+        log = logged("a")
+
+        per_step = 7 * cfg.n_layers
+        want = ({"householder_gemm.cuda": 2 * per_step * TRAIN_STEPS,
+                 "householder_gemm_bwd.cuda": per_step * TRAIN_STEPS},
+                {"householder_gemm": 2 * per_step * TRAIN_STEPS,
+                 "ether_merge": 0,
+                 "reflect_gemm_dx": per_step * TRAIN_STEPS,
+                 "reflect_gemm_dw": 0})
+        print(f"[kernels] dispatch counters: {counters}  kernel launches: "
+              f"{launches}")
+        check((counters, launches) == want,
+              f"train path ran {counters} / launched {launches}, want "
+              f"{want[0]} / {want[1]} (forward + remat recompute + backward "
+              f"of {per_step} linears a step, no plain version)")
+        losses = [m["loss"] for m in log]
+        check(len(losses) == TRAIN_STEPS
+              and all(map(math.isfinite, losses + [m["grad_norm"]
+                                                    for m in log])),
+              f"train losses {losses} are not {TRAIN_STEPS} finite values")
+        step_ms = [m["step_time"] * 1e3 for m in log]
+        steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+        print(f"[kernels] losses {[round(x, 4) for x in losses]}")
+        print(f"[kernels] step ms {[round(x, 1) for x in step_ms]} (first "
+              f"includes warm-up); steady {steady_ms:.1f} ms = "
+              f"{tokens / steady_ms * 1e3:.0f} tokens/s; fit {fit_s:.2f} s "
+              f"with checkpoints; peak memory {peak_gb:.3f} GB")
+
+        # the plain path on the card, outside the counted run
+        ref_tr = trainer("torch", "plain")
+        ref_tr.fit(stream, steps=TRAIN_STEPS)
+        ref_final = snapshot(ref_tr.state["adapters"])
+        ref_tr.close()
+        ref_log = logged("plain")
+        ref_losses = [m["loss"] for m in ref_log]
+
+        def rel(key):
+            return max(abs(a[key] - b[key]) / abs(b[key])
+                       for a, b in zip(log, ref_log))
+        loss_rel, gnorm_rel = rel("loss"), rel("grad_norm")
+        num = sum(((final["adapters"][p] - init[p])
+                   - (ref_final[p] - init[p])).float().square().sum().item()
+                  for p in init)
+        den = sum((ref_final[p] - init[p]).float().square().sum().item()
+                  for p in init)
+        upd_rel = math.sqrt(num / den)
+        ref_ms = [m["step_time"] * 1e3 for m in ref_log]
+        print(f"[plain] losses {[round(x, 4) for x in ref_losses]}; steady "
+              f"{sum(ref_ms[1:]) / max(len(ref_ms) - 1, 1):.1f} ms/step")
+        print(f"kernels vs plain path: loss rel. diff max {loss_rel:.3e} "
+              f"(tol {TRAIN_TOL['loss']:g}), grad_norm rel. diff max "
+              f"{gnorm_rel:.3e} (tol {TRAIN_TOL['grad_norm']:g}), adapter "
+              f"update rel. Frobenius {upd_rel:.3e} (tol "
+              f"{TRAIN_TOL['update']:g})")
+        check(len(ref_log) == TRAIN_STEPS and loss_rel <= TRAIN_TOL["loss"]
+              and gnorm_rel <= TRAIN_TOL["grad_norm"]
+              and upd_rel <= TRAIN_TOL["update"],
+              "the kernels' training path disagrees with the plain path")
+
+        # restore from the step-TRAIN_CKPT checkpoint in a new Trainer
+        shutil.copytree(os.path.join(tmp, "a", f"step_{TRAIN_CKPT}"),
+                        os.path.join(tmp, "b", f"step_{TRAIN_CKPT}"))
+        res_tr = trainer("auto", "b", ckpt_dir=os.path.join(tmp, "b"),
+                         ckpt_every=TRAIN_CKPT)
+        check(res_tr.step == TRAIN_CKPT
+              and res_tr.data_state.step == TRAIN_CKPT,
+              f"restored at step {res_tr.step}, want {TRAIN_CKPT}")
+        res_tr.fit(stream, steps=TRAIN_STEPS)
+        mism = [f"{k}/{p}" for k in final
+                for p, t in flatten_with_paths(res_tr.state[k])
+                if not torch.equal(t, final[k][p])]
+        check(not mism and [m["loss"] for m in logged("b")]
+              == losses[TRAIN_CKPT:],
+              f"resumed run differs from the uninterrupted one: {mism[:5]}")
+        print(f"restore from step {TRAIN_CKPT} -> {TRAIN_STEPS}: adapters, "
+              f"optimizer state and step bitwise equal "
+              f"({sum(len(v) for v in final.values())} tensors), losses "
+              f"equal")
+
+        # the train step under torch.profiler, outside the counted runs
+        def two_steps():
+            res_tr.fit(stream, steps=res_tr.step + 2)
+            torch.cuda.synchronize()
+        res_tr.ckpt.close()
+        res_tr.ckpt = None              # no saves inside the trace
+        trace = trace_steps(torch, two_steps, 2)
+        res_tr.close()
+        print_trace("train", trace, steady_ms)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(losses=losses, plain_losses=ref_losses, step_ms=step_ms,
+                steady_ms=steady_ms, plain_step_ms=ref_ms,
+                tokens_per_s=tokens / steady_ms * 1e3, peak_gb=peak_gb,
+                fit_s=fit_s, loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                update_rel=upd_rel, grad_norms=[m["grad_norm"] for m in log],
+                plain_grad_norms=[m["grad_norm"] for m in ref_log],
+                counters=counters, launches=launches, trace=trace)
+
+
 def main() -> int:
+    # before CUDA starts: cuBLAS picks deterministic kernels (phase 4)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -386,39 +679,53 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.core import execute
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import reflect_gemm_dw as kdw
+    from repro_torch.kernels import reflect_gemm_dx as kdx
     from repro_torch.launch import serve
     from repro_torch.models import api
 
     smi = phase_device_and_build(torch, build)
     rows = phase_kernels(torch, ops, ref)
+    rows += bwd_kernel_rows(torch, ops, ref, kdx, kdw)
     served = phase_serve(torch, execute, ops, serve, api)
+    trained = phase_train(torch, execute, ops)
 
-    replaces = {
-        "householder_gemm": "src/repro/kernels/householder_gemm.py:73",
-        "ether_merge": "src/repro/kernels/ether_merge.py:42"}
-    # each kernel's launches from the run of the path that runs it
-    path = {"householder_gemm": "unmerged", "ether_merge": "merged"}
+    # name: (the TPU kernel's pallas_call, its path's launches, the
+    # layer summed in the kernel table: n, T)
+    table = {
+        "householder_gemm": ("src/repro/kernels/householder_gemm.py:73",
+                             served["unmerged_launches"], N_BLOCKS, B,
+                             "one smollm-360m decode layer, T=4, n=8"),
+        "ether_merge": ("src/repro/kernels/ether_merge.py:42",
+                        served["merged_launches"], N_BLOCKS, None,
+                        "one smollm-360m layer's weights, n=8"),
+        "reflect_gemm_dx": ("src/repro/kernels/gemm_bwd.py:151",
+                            trained["launches"], TRAIN_BLOCKS,
+                            TRAIN_B * TRAIN_S,
+                            "one smollm-360m train layer, T=1024, n=32"),
+        "reflect_gemm_dw": ("src/repro/kernels/gemm_bwd.py:246",
+                            trained["launches"], TRAIN_BLOCKS,
+                            TRAIN_B * TRAIN_S,
+                            "one smollm-360m train layer, T=1024, n=32 "
+                            "(PEFT freezes W: the train path launches it "
+                            "0 times)")}
     kernels = []
-    for name in ("householder_gemm", "ether_merge"):
-        s = layer_summary(rows, name)
+    for name, (replaces, launches, n, t, shapes) in table.items():
+        s = layer_summary(rows, name, n, t)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": served[path[name] + "_launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "matmul_ms": s["matmul_ms"] if name == "householder_gemm"
-            else None,
-            "shapes": "sum over one smollm-360m layer's 7 linears, bf16, "
-                      "n=8" + (", T=4" if name == "householder_gemm"
-                               else "")})
+            "matmul_ms": s["matmul_ms"] or None,
+            "shapes": f"sum over the 7 linears of {shapes}, bf16"})
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "rows": rows, "serve": served,
-                   "kernels": kernels}, fh, indent=1)
+                   "train": trained, "kernels": kernels}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ the KV cache is (L, B, Hkv, T, D) and logits are (B, 1, V) float32.
 What is ported so far: ETHER serving of the dense decoders
 (``launch/serve.py``), with every adapted linear on the hand-written
 ``householder_gemm`` CUDA kernel and ``--merged`` on the ``ether_merge``
-CUDA kernel (``csrc/``).  Everything else is queued in ROADMAP.md.
+CUDA kernel, and ETHER training on one device (``launch/train.py``,
+``runtime/trainer.py``), whose backward of every adapted linear runs the
+``reflect_gemm_dx`` kernel (and ``reflect_gemm_dw`` where a weight
+trains) (``csrc/``).  Everything else is queued in ROADMAP.md.
 """
 
 

@@ -5,8 +5,10 @@ they build params and adapters with ``repro``, turn them into nested
 dicts of numpy arrays, and hand those to :func:`to_torch`.  The layout
 needs no change: the port keeps JAX's param paths, its stacked layers
 (``units/pos0/...`` with a leading layer axis, ETHER ``u`` as
-(L, n, db)) and its (d_in, d_out) kernels.  This module imports neither
-``jax`` nor ``repro``.
+(L, n, db)) and its (d_in, d_out) kernels.  A whole train state of
+``repro.launch.steps.init_state`` carries across too: the optimizer
+state's chain tuple stays a tuple, its step counts 0-d int32 tensors.
+This module imports neither ``jax`` nor ``repro``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,6 @@ def _tensor(arr, device) -> torch.Tensor:
 
 
 def to_torch(tree: Any, device="cpu") -> Any:
-    """Nested dicts of numpy arrays → the same nesting of torch tensors
-    on ``device``, dtypes and shapes unchanged."""
+    """Nested dicts (and tuples) of numpy arrays → the same nesting of
+    torch tensors on ``device``, dtypes and shapes unchanged."""
     return map_with_paths(lambda _, leaf: _tensor(leaf, device), tree)

@@ -2,7 +2,9 @@
 
 The port keeps parameters, adapters and caches as nested dicts, as the
 JAX package keeps its pytrees, and addresses a leaf by its '/'-joined
-key path, e.g. ``units/pos0/mixer/q_proj/kernel``.
+key path, e.g. ``units/pos0/mixer/q_proj/kernel``.  Tuples and lists
+(an optimizer chain's state) are nodes too, their items keyed by index
+(``opt_state/1/mu/...``), as JAX's tree paths key them.
 """
 
 from __future__ import annotations
@@ -15,11 +17,16 @@ def path_join(*parts: str) -> str:
 
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """[(path, leaf)] in insertion order; a leaf is anything but a dict."""
-    if not isinstance(tree, dict):
+    """[(path, leaf)] in insertion order; a leaf is anything but a dict,
+    tuple or list."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
         return [(prefix, tree)]
     out: list[tuple[str, Any]] = []
-    for k, v in tree.items():
+    for k, v in items:
         out.extend(flatten_with_paths(v, path_join(prefix, str(k))))
     return out
 
@@ -27,7 +34,10 @@ def flatten_with_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
 def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
                    prefix: str = "") -> Any:
     """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf."""
-    if not isinstance(tree, dict):
-        return fn(prefix, tree)
-    return {k: map_with_paths(fn, v, path_join(prefix, str(k)))
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, v, path_join(prefix, str(k)))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_paths(fn, v, path_join(prefix, str(i)))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)

@@ -18,11 +18,19 @@ maps ``(op, backend)`` to an implementation:
 
 ``counters()`` counts the calls each ``op.backend`` pair ran, so a run
 can show which implementation it went through.
+
+Training differentiates ``householder_gemm`` through
+:class:`HouseholderGemm`, a ``torch.autograd.Function`` whose
+backward dispatches ``householder_gemm_bwd`` on the backend its forward
+resolved (counted as ``householder_gemm_bwd.<backend>``), as the JAX
+package's ``_registry_vjp`` dispatches ``<op>_bwd``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import torch
 
 from repro_torch.kernels import ops, ref
 
@@ -31,6 +39,8 @@ BACKENDS = ("torch", "cuda", "auto")
 _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("householder_gemm", "torch"): ref.ref_householder_gemm,
     ("householder_gemm", "cuda"): ops.householder_gemm,
+    ("householder_gemm_bwd", "torch"): ref.ref_householder_gemm_bwd,
+    ("householder_gemm_bwd", "cuda"): ops.householder_gemm_bwd,
     ("ether_merge", "torch"): ref.ref_ether_merge,
     ("ether_merge", "cuda"): ops.ether_merge,
 }
@@ -56,7 +66,7 @@ def selected_backend(op: str, backend: str, first) -> str:
     return backend
 
 
-def dispatch(op: str, backend: str, *args):
+def dispatch(op: str, backend: str, *args, **kwargs):
     """Run ``op`` on the resolved backend and count the call."""
     be = selected_backend(op, backend, args[0])
     impl = _REGISTRY.get((op, be))
@@ -64,7 +74,30 @@ def dispatch(op: str, backend: str, *args):
         raise KeyError(f"no {be!r} implementation registered for {op!r}")
     key = f"{op}.{be}"
     _COUNTERS[key] = _COUNTERS.get(key, 0) + 1
-    return impl(*args)
+    return impl(*args, **kwargs)
+
+
+class HouseholderGemm(torch.autograd.Function):
+    """y = reflect(x) @ w with the registry's backward, as
+    ``HouseholderGemm.apply(x, w, u, backend)``.  Saves the
+    operands themselves (the backward recomputes û, O(d)), as the JAX
+    package's ``_registry_vjp`` does; dW is computed only when w needs
+    a gradient, the counterpart of XLA dead-coding the dW pass."""
+
+    @staticmethod
+    def forward(ctx, x, w, u, backend):
+        be = selected_backend("householder_gemm", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, u)
+        return dispatch("householder_gemm", be, x, w, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, u = ctx.saved_tensors
+        dx, dw, du = dispatch("householder_gemm_bwd", ctx.backend, x, w, u,
+                              g.contiguous(),
+                              need_dw=ctx.needs_input_grad[1])
+        return dx, dw, du, None
 
 
 def counters() -> dict[str, int]:

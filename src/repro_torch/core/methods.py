@@ -77,8 +77,13 @@ class EtherMethod(PEFTMethod):
                                  device=device)}
 
     def dense(self, x, W, adapter, cfg):
-        return execute.dispatch("householder_gemm", cfg.backend, x, W,
-                                adapter["u"])
+        u = adapter["u"]
+        # serving (no_grad, or nothing to differentiate) calls the forward
+        # itself and pays nothing for autograd
+        if torch.is_grad_enabled() and (x.requires_grad or W.requires_grad
+                                        or u.requires_grad):
+            return execute.HouseholderGemm.apply(x, W, u, cfg.backend)
+        return execute.dispatch("householder_gemm", cfg.backend, x, W, u)
 
     def merge(self, W, adapter, cfg):
         return execute.dispatch("ether_merge", cfg.backend, W, adapter["u"])

@@ -13,6 +13,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import NotPortedError
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.core import methods as _methods
 from repro_torch.core.transforms import (PEFTConfig, adapter_param_count,
@@ -125,3 +126,14 @@ def get_adapter(adapters: Optional[Params], *keys: str) -> Optional[Params]:
             return None
         node = node[k]
     return node
+
+
+def trainable_mask(params: Params, adapters: Params, cfg: PEFTConfig):
+    """(base_mask, adapter_mask): which leaves receive gradients and
+    updates.  PEFT trains only the float adapter leaves; full finetuning
+    (all float base params) comes with the ``full`` method."""
+    if cfg.method == "full":
+        raise NotPortedError("full finetuning (method 'full')")
+    return (map_with_paths(lambda _, leaf: False, params),
+            map_with_paths(lambda _, leaf: leaf.is_floating_point(),
+                           adapters))

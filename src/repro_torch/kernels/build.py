@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/<name>-<hash>.so`` (the hash covers the source and the
-flags, so a stale library is never loaded).  Nothing here runs at
+into ``_build/<name>-<hash>.so`` (the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so a stale library is never
+loaded).  Nothing here runs at
 import: the first wrapper call on a CUDA tensor builds what it needs,
 and :func:`build` builds every source at once, one nvcc process each,
 all started together.
@@ -22,7 +23,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("householder_gemm", "ether_merge")
+SOURCES = ("householder_gemm", "ether_merge", "reflect_gemm_dx",
+           "reflect_gemm_dw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +49,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

@@ -7,9 +7,10 @@ kernel and raises :class:`KernelLaunchError` if the launch is refused;
 on CPU tensors, and only there, it computes the kernel's plain version.
 There is no fallback from a CUDA tensor to the plain version.
 
-``launches()`` counts kernel launches per wrapper (plain-version calls
-are not launches), so a run can show that its path went through the
-kernels.
+``launches()`` counts launches per kernel (plain-version calls are not
+launches; ``householder_gemm_bwd`` launches ``reflect_gemm_dx``, and
+``reflect_gemm_dw`` only when asked for dW), so a run can show that its
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ import torch
 from repro_torch.kernels import ether_merge as _merge
 from repro_torch.kernels import householder_gemm as _hh
 from repro_torch.kernels import ref
+from repro_torch.kernels import reflect_gemm_dw as _dw
+from repro_torch.kernels import reflect_gemm_dx as _dx
 
-_LAUNCHES = {"householder_gemm": 0, "ether_merge": 0}
+_LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
+             "reflect_gemm_dw": 0}
 _F32 = torch.float32
 
 
@@ -33,7 +37,7 @@ class KernelLaunchError(RuntimeError):
 
 
 def launches() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per kernel since the last reset."""
     return dict(_LAUNCHES)
 
 
@@ -54,6 +58,9 @@ def _refuse(op: str, main: torch.Tensor, main_d: int, **tensors) -> None:
         why = "w must be a (d, f) matrix in the activations' dtype"
     elif not w.shape[0] == u.shape[0] * u.shape[1] == main_d:
         why = "need x (..., d), w (d, f) and u (n, db) with n·db = d"
+    elif "g" in tensors and not _g_ok(main, w, tensors["g"]):
+        why = ("g must be (..., f) in the activations' dtype, with x's "
+               "leading dims")
     elif len({t.device for t in tensors.values()}) != 1:
         why = "all operands must be on one device"
     elif main.device.type not in ("cpu", "cuda"):
@@ -79,6 +86,11 @@ def _ok(main: torch.Tensor, main_d: int, w: torch.Tensor,
             and dev.type in ("cpu", "cuda")
             and main.is_contiguous() and w.is_contiguous()
             and u.is_contiguous() and main.numel() > 0 and w.numel() > 0)
+
+
+def _g_ok(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> bool:
+    """The cotangent's dtype and shape: g (..., f) matches y."""
+    return g.dtype == x.dtype and g.shape == (*x.shape[:-1], w.shape[1])
 
 
 def _launched(op: str, err: int) -> None:
@@ -114,3 +126,24 @@ def ether_merge(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     err, out = _merge.launch(w, u)
     _launched("ether_merge", err)
     return out
+
+
+def householder_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                         g: torch.Tensor, *, need_dw: bool):
+    """(dx, dw, du) of y = reflect(x) @ w under cotangent g (..., f);
+    dw is None unless ``need_dw``, and its kernel then does not run.
+    Leading dims of x and g are flattened into the kernels' row axis."""
+    d = x.shape[-1] if x.dim() else -1
+    if not (_ok(x, d, w, u) and _g_ok(x, w, g) and g.device == x.device
+            and g.is_contiguous()):
+        _refuse("householder_gemm_bwd", x, d, x=x, w=w, u=u, g=g)
+    if x.device.type == "cpu":
+        return ref.ref_householder_gemm_bwd(x, w, u, g, need_dw=need_dw)
+    x2, g2 = x.view(-1, d), g.view(-1, w.shape[1])
+    err, dx, du = _dx.launch(x2, w, u, g2)
+    _launched("reflect_gemm_dx", err)
+    dw = None
+    if need_dw:
+        err, dw = _dw.launch(x2, u, g2)
+        _launched("reflect_gemm_dw", err)
+    return dx.view(x.shape), dw, du

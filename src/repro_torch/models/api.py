@@ -1,7 +1,8 @@
-"""Model API of the port — the serving CLI, ``chip_smoke.py`` and the
-tests go through these entry points:
+"""Model API of the port — the serving and training CLIs,
+``chip_smoke.py`` and the tests go through these entry points:
 
     init_model(cfg, seed=, device=)              → params
+    train_loss(params, adapters, batch, cfg, peft) → (loss, metrics)
     prefill(params, adapters, batch, cfg, peft)  → (cache, last logits)
     pad_cache(cache, cfg, max_len)               → cache with room to decode
     decode_step(params, adapters, cache, tokens, cfg, peft) → (logits, cache)
@@ -45,6 +46,19 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return backbone.init(gen, cfg, dev)
+
+
+def train_loss(params: Params, adapters: Optional[Params], batch: dict,
+               cfg: ModelConfig, peft: Optional[PEFTConfig]):
+    """Next-token cross-entropy of ``batch['tokens']`` (B, S) against
+    ``batch['labels']`` (B, S), masked by ``batch['mask']`` if given.
+    Returns (loss, {"loss": loss}); differentiable, so it runs with
+    autograd on."""
+    hidden, _ = backbone.forward(params, cfg, tokens=batch["tokens"],
+                                 adapters=adapters, peft=peft, mode="train")
+    loss = backbone.lm_loss(params, cfg, hidden, batch["labels"],
+                            batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def validate_true_lens(true_lens, seq_len: int) -> np.ndarray:

@@ -4,8 +4,11 @@
 Params keep the JAX package's stacked layout: every per-layer leaf of
 ``units/pos0/...`` carries a leading ``n_layers`` axis, and so do the
 adapters and the KV cache (``pos0/k``: (L, B, Hkv, T, D)).  ``forward``
-walks the layers in a Python loop over views of those stacks.  Other
-block types, MoE and the frontends are queued in ROADMAP.md.
+walks the layers in a Python loop over views of those stacks; in
+training (``mode="train"``) with ``cfg.remat == "full"`` each layer runs
+under ``torch.utils.checkpoint``, the counterpart of the JAX package's
+``jax.checkpoint`` of its scanned layer.  Other block types, MoE and the
+frontends are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import NotPortedError
 from repro_torch.common.dtypes import torch_dtype
@@ -93,6 +98,8 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotPortedError("untied output heads")
     if cfg.norm != "rmsnorm":
         raise NotPortedError(f"norm {cfg.norm!r}")
+    if cfg.remat not in ("full", "none"):
+        raise NotPortedError(f"remat policy {cfg.remat!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -168,14 +175,32 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     return x + out, new_cache
 
 
+def _layer_out(p, x, cfg, positions, rope, adapters, peft):
+    return _apply_layer(p, x, cfg, positions=positions, rope=rope,
+                        adapters=adapters, peft=peft)[0]
+
+
+def _train_layer(p, x, cfg, positions, rope, adapters, peft):
+    """One layer of a training forward; under ``remat="full"`` its
+    activations are dropped and recomputed in the backward."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(_layer_out, p, x, cfg, positions, rope, adapters,
+                          peft, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _layer_out(p, x, cfg, positions, rope, adapters, peft)
+
+
 def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
             adapters=None, peft=None, mode: str = "prefill", cache=None):
     """Run the backbone.
 
     mode='prefill': tokens (B, S) from position 0; returns the prompt's
     KV as a new cache.  mode='decode': tokens (B, S) against ``cache``,
-    written in place at its cursor.  Returns (hidden (B, S, d), cache)."""
-    if mode not in ("prefill", "decode"):
+    written in place at its cursor.  mode='train': the full sequence from
+    position 0, no cache kept (None), each layer rematerialised in the
+    backward when ``cfg.remat == "full"``.  Returns (hidden (B, S, d),
+    cache)."""
+    if mode not in ("prefill", "decode", "train"):
         raise NotPortedError(f"backbone mode {mode!r}")
     check_supported(cfg)
     x = L.embed(params["embed"], tokens, cfg.cdt())
@@ -188,6 +213,11 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
     n = cfg.n_layers
     layer_params = _unstack(params["units"]["pos0"], n)
     layer_adapters = _unstack(get_adapter(adapters, "units", "pos0"), n)
+    if mode == "train":
+        for i in range(n):
+            x = _train_layer(layer_params[i], x, cfg, positions, rope,
+                             layer_adapters[i], peft)
+        return L.rmsnorm(params["final_norm"], x), None
     layer_caches = _unstack(cache["pos0"] if mode == "decode" else None, n)
     ks, vs = [], []
     for i in range(n):
@@ -207,3 +237,36 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
 def logits_fn(params: Params, cfg: ModelConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     return L.logits_out(params["embed"], hidden)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+            labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean next-token cross-entropy on float32 logits.  With
+    ``cfg.loss_chunk`` < S the sequence is taken ``loss_chunk`` positions
+    at a time, each chunk rematerialised in the backward, so the
+    (B, S, V) logits only ever exist (B, chunk, V) at a time."""
+    B, S, _ = hidden.shape
+    mask = (torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+            if mask is None else mask.float())
+    chunk = cfg.loss_chunk
+    if not chunk or S <= chunk:
+        tot, cnt = _ce_sum(params, cfg, hidden, labels, mask)
+        return tot / cnt.clamp_min(1.0)
+    tot = cnt = 0.0
+    for s0 in range(0, S, chunk):
+        args = (params, cfg, hidden[:, s0:s0 + chunk],
+                labels[:, s0:s0 + chunk], mask[:, s0:s0 + chunk])
+        t, c = (checkpoint(_ce_sum, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+                if torch.is_grad_enabled() else _ce_sum(*args))
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)
+
+
+def _ce_sum(params, cfg, h, y, m):
+    """(Σ (logsumexp − gold logit)·mask, Σ mask) over one chunk."""
+    logits = logits_fn(params, cfg, h)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         y.reshape(-1).long(), reduction="none")
+    return (ce * m.reshape(-1)).sum(), m.sum()

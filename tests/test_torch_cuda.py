@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the serving slice on the card against the same run on the CPU.
+the serving and training slices on the card against the same runs on the
+CPU.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute
 from repro_torch.core.peft import init_adapters, merge_params
 from repro_torch.core.transforms import PEFTConfig
+from repro_torch.data.pipeline import SyntheticLMStream
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.models.api import init_model
+from repro_torch.optim import adamw, schedules
 
 pytestmark = pytest.mark.cuda
 
@@ -30,12 +34,20 @@ SHAPES = [(4, 960, 2560, 8), (128, 2560, 960, 8), (128, 960, 320, 32),
 # normalised max error: float32 sums in another order; bf16 one output
 # rounding (2^-8) apart
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (T, d, f, n) of the backward kernels: smollm-360m's linears at n = 32
+# (db = 30 and 80) with a ragged T, and small ragged and tileable shapes
+BWD_SHAPES = [(1000, 960, 2560, 32), (1000, 2560, 960, 32),
+              (67, 120, 70, 8), (128, 256, 128, 4)]
+# du, relative Frobenius: the same f32 math on the same inputs in both
+# dtypes (ĝ sums over T in another order)
+DU_TOL = 1e-4
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the H100 (see README.md)")
+    # plain versions in full f32 on the card, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -61,7 +73,8 @@ def test_kernels_match_plain_versions(cuda_device, t, d, f, n, dtype):
     y = ops.householder_gemm(x, w, u)
     m = ops.ether_merge(w, u)
     torch.cuda.synchronize()
-    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 1}
+    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 1,
+                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
     assert y.dtype == dtype and m.dtype == dtype and y.shape == (t, f)
     assert _max_err(y, ref.ref_householder_gemm(x, w, u)) < TOL[dtype]
     assert _max_err(m, ref.ref_ether_merge(w, u)) < TOL[dtype]
@@ -76,7 +89,81 @@ def test_wrappers_refuse_on_the_card_without_fallback(cuda_device):
         ops.householder_gemm(x, w.cpu(), u)
     with pytest.raises(ops.KernelInputError, match="contiguous"):
         ops.ether_merge(w.t().contiguous().t(), u)
-    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0}
+    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
+                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f,n", BWD_SHAPES)
+def test_backward_kernels_match_plain_versions(cuda_device, t, d, f, n,
+                                               dtype):
+    x, w, u = _inputs(cuda_device, t, d, f, n, dtype)
+    g = torch.randn(t, f, generator=torch.Generator().manual_seed(t)
+                    ).to(cuda_device, dtype)
+    ops.reset_launches()
+    dx, dw, du = ops.householder_gemm_bwd(x, w, u, g, need_dw=True)
+    torch.cuda.synchronize()
+    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
+                              "reflect_gemm_dx": 1, "reflect_gemm_dw": 1}
+    pdx, pdw, pdu = ref.ref_householder_gemm_bwd(x, w, u, g)
+    assert dx.dtype == dw.dtype == dtype and du.dtype == torch.float32
+    assert _max_err(dx, pdx) < TOL[dtype]
+    assert _max_err(dw, pdw) < TOL[dtype]
+    assert ((du - pdu).norm() / pdu.norm()).item() < DU_TOL
+    ops.reset_launches()
+    _, no_dw, du2 = ops.householder_gemm_bwd(x, w, u, g, need_dw=False)
+    assert no_dw is None and torch.equal(du2, du)     # no atomics: same bits
+    assert ops.launches()["reflect_gemm_dw"] == 0
+
+
+def test_backward_with_a_trainable_weight_launches_reflect_gemm_dw(
+        cuda_device):
+    x, w, u = _inputs("cpu", 6, 120, 70, 8, torch.float32)
+    g = torch.randn(2, 3, 70, generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().clone().to(dev).requires_grad_() for t in
+                  (x.reshape(2, 3, 120), w, u)]
+        ops.reset_launches()
+        execute.reset_counters()
+        execute.HouseholderGemm.apply(*leaves, "auto").backward(g.to(dev))
+        grads[str(dev)] = [t.grad for t in leaves]
+    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 0,
+                              "reflect_gemm_dx": 1, "reflect_gemm_dw": 1}
+    assert execute.counters() == {"householder_gemm.cuda": 1,
+                                  "householder_gemm_bwd.cuda": 1}
+    for card, cpu in zip(grads["cuda"], grads["cpu"]):
+        assert _max_err(card, cpu) < TOL[torch.float32]
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
+    # one state drawn on the CPU, one step on each device
+    cfg = get_config("smollm-360m", "smoke")
+    peft = PEFTConfig(n_blocks=8, targets=peft_targets("smollm-360m"))
+    opt = adamw(schedules.cosine(2e-3, 4, 0))
+    state = steps.init_state(cfg, peft, opt, seed=0, device="cpu")
+    batch = {k: torch.from_numpy(v).long() for k, v in SyntheticLMStream(
+        vocab=cfg.vocab, batch=2, seq_len=16).batch_at(0).items()}
+    step = steps.make_train_step(cfg, peft, opt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        moved = map_with_paths(lambda _, t: t.detach().to(dev)
+                               .requires_grad_(t.requires_grad), state)
+        ops.reset_launches()
+        execute.reset_counters()
+        out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
+    per_pass = 7 * cfg.n_layers
+    assert execute.counters() == {"householder_gemm.cuda": per_pass,
+                                  "householder_gemm_bwd.cuda": per_pass}
+    assert ops.launches() == {"householder_gemm": per_pass, "ether_merge": 0,
+                              "reflect_gemm_dx": per_pass,
+                              "reflect_gemm_dw": 0}
+    (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(cm[k].item() - pm[k].item()) <= 1e-4 * abs(pm[k].item())
+    want = dict(flatten_with_paths(cpu["adapters"]))
+    for path, leaf in flatten_with_paths(card["adapters"]):
+        assert _max_err(leaf.detach(), want[path].detach()) < 1e-4, path
 
 
 def _to(tree, device):

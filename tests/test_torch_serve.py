@@ -25,7 +25,8 @@ def test_cli_serves_on_cpu_and_reports_counters(merged, capsys):
     assert res["logits"].shape == (2, 1, 512)
     assert torch.isfinite(res["logits"]).all()
     assert "decode:" in out and "generated:" in out
-    assert "kernel launches: {'householder_gemm': 0, 'ether_merge': 0}" in out
+    assert ("kernel launches: {'householder_gemm': 0, 'ether_merge': 0, "
+            "'reflect_gemm_dx': 0, 'reflect_gemm_dw': 0}") in out
     per_forward = 7 * 4                         # linears × smoke layers
     if merged:
         # each adapted linear merged once, then the plain model served
