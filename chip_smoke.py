@@ -10,7 +10,11 @@
    the card, at T ∈ {4, 128, 2048} rows and the linears of smollm-360m
    and Llama-2-7B, n ∈ {8, 32} blocks, bf16 and float32, and times the
    kernel, its plain version and ``torch.matmul`` on the same product
-   (CUDA events, warmed up, weights rotated past the 50 MB L2).
+   (CUDA events, warmed up, weights rotated past the 50 MB L2).  The
+   ETHER+ kernels (``etherplus_gemm`` one- and two-sided, the left and
+   right ``etherplus_merge`` kernels) run on adapters whose v is drawn
+   apart from u, from their own generator, so the ETHER rows see the
+   inputs they always did.
 3. Serve: smollm-360m at full width (32 layers, bf16, random weights from
    a seed) with ETHER n_blocks=8, B=4, P=32, 16 new tokens, through the
    CLI's ``serve`` entry point, unmerged and then merged; asserts that
@@ -31,17 +35,28 @@
    ``torch.use_deterministic_algorithms(True)``.  Prints step ms,
    tokens/s, peak memory and, from a torch.profiler trace of the step,
    the device's busy time and the host's top-level ops.
+5. Serve ETHER+: phase 3's model and requests with two-sided ETHER+
+   (n_blocks 8), its v1/v2 drawn apart from u1/u2 from a seed (the
+   method's init has H⁺ = I), through ``serve.generate`` unmerged and
+   after ``merge_params``; the same checks, counts and trace as phase 3.
+6. Train ETHER+: phase 4 with two-sided ETHER+ (n_blocks 32), from the
+   method's own init, through ``Trainer``; the same checks, with the
+   ETHER+ backward's counts (the y0 recompute and
+   ``etherplus_reflect_bwd`` in every adapted linear's backward).
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
-and times them beside ``torch.matmul`` of the GEMM inside each.
+rank 1 and, with ETHER+'s v, rank 2, and ``etherplus_reflect_bwd`` on the
+output side, and times them beside ``torch.matmul`` of the GEMM inside
+each.
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
-cuBLAS is deterministic in phase 4.
+cuBLAS is deterministic in phases 4 and 6.
 
 Any failure raises and exits non-zero; the last line is the device JSON
-object.  Full tables go to ``chiprun_out/chip_smoke.json``.
+object, the line before it the kernels' JSON line.  Full tables go to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -93,6 +108,9 @@ TRAIN_LR, TRAIN_WARMUP = 2e-3, 2
 # Adam's sign-like first steps into small-gradient elements: 3.48e-2
 # measured, limit 5e-2
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3, "update": 5e-2}
+# ETHER+ serving (phase 5): how far v1/v2 are drawn from u1/u2, relative
+# to their (unit-variance) entries
+EP_SPREAD = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -123,6 +141,22 @@ def timed_ms(torch, fns) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def compare(got, want, dtype: str, what: str = "kernel"):
+    """(max abs error, normalised max error) of a kernel's result against
+    its plain version's; fails beyond TOL[dtype]."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    check(rel <= TOL[dtype], f"{what} disagrees with its plain version: "
+          f"{rel:.3e} > {TOL[dtype]:g}")
+    return err, rel
+
+
+def launched(result):
+    """A launcher's outputs after its cudaError_t, which must be 0."""
+    check(result[0] == 0, f"launch refused (cudaError_t {result[0]})")
+    return result[1:] if len(result) > 2 else result[1]
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -165,13 +199,6 @@ def phase_kernels(torch, ops, ref):
 
     def copies(nbytes):
         return max(1, min(256, int(100e6 // max(nbytes, 1)) + 1))
-
-    def compare(got, want, dtype):
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / want.float().abs().max().item()
-        check(rel <= TOL[dtype], f"kernel disagrees with its plain version: "
-              f"{rel:.3e} > {TOL[dtype]:g}")
-        return err, rel
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -235,13 +262,128 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
-def bwd_kernel_rows(torch, ops, ref, kdx, kdw):
+def etherplus_kernel_rows(torch, ops, ref, kepm):
+    """Phase 2, ETHER+ forward: etherplus_gemm (two- and one-sided) and
+    the left and right etherplus_merge kernels against their plain
+    versions, on phase 2's shapes, with v1/v2 drawn apart from u1/u2 (a
+    generator of their own).  The merges are held and timed one kernel
+    at a time (``kepm``'s launchers; the left one also through the
+    wrapper), the GEMM through its wrapper beside ``torch.matmul``."""
+    from repro_torch.core.transforms import resolve_blocks
+    print("== phase 2: ETHER+ kernels against their plain versions",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for arch, shapes in LINEARS.items():
+            for d, f in shapes:
+                w0 = randn(d, f) / d ** .5
+                ws = [w0.to(dt).clone() for _ in
+                      range(max(1, min(256, int(100e6 // (d * f * es)) + 1)))]
+                for n in BLOCKS:
+                    n_out = resolve_blocks(n, f)
+                    u1, v1 = randn(n, d // n), randn(n, d // n)
+                    u2, v2 = randn(n_out, f // n_out), randn(n_out, f // n_out)
+                    common = dict(arch=arch, dtype=dtype, d=d, f=f, n=n,
+                                  tol=TOL[dtype], matmul_ms=None)
+                    w = ws[0]
+                    ops.reset_launches()
+                    left = ops.etherplus_merge(w, u1, v1)
+                    check(ops.launches()["etherplus_merge_left"] == 1,
+                          f"etherplus_merge launched {ops.launches()}")
+                    err, rel = compare(left, ref.ref_etherplus_merge_left(
+                        w, u1, v1), dtype, "etherplus_merge_left")
+                    b_ms, b_by = bound(2 * d * f * es + 8 * d,
+                                       8 * d * f + 6 * d, dtype)
+                    rows.append(dict(
+                        kernel="etherplus_merge_left", t=None, **common,
+                        max_abs_err=err, rel_err=rel, bound_ms=b_ms,
+                        bound_by=b_by,
+                        ms=timed_ms(torch, [lambda w=w: kepm.launch_left(
+                            w, u1, v1) for w in ws]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w: ref.ref_etherplus_merge_left(w, u1, v1)
+                            for w in ws])))
+                    err, rel = compare(
+                        launched(kepm.launch_right(w, u2, v2)),
+                        ref.ref_etherplus_merge_right(w, u2, v2), dtype,
+                        "etherplus_merge_right")
+                    b_ms, b_by = bound(2 * d * f * es + 8 * f,
+                                       8 * d * f + 6 * f, dtype)
+                    rows.append(dict(
+                        kernel="etherplus_merge_right", t=None, **common,
+                        max_abs_err=err, rel_err=rel, bound_ms=b_ms,
+                        bound_by=b_by,
+                        ms=timed_ms(torch, [lambda w=w: kepm.launch_right(
+                            w, u2, v2) for w in ws]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w: ref.ref_etherplus_merge_right(
+                                w, u2, v2) for w in ws])))
+                    for r in rows[-2:]:
+                        print("  {kernel:21s} {arch:11s} {dtype:8s} d={d:5d} "
+                              "f={f:5d} n={n:2d}  err {rel_err:.2e} (tol "
+                              "{tol:g})  {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                              "  bound {bound_ms:.4f} ms ({bound_by})"
+                              .format(**r), flush=True)
+                    for t in ROWS:
+                        x = randn(t, d).to(dt)
+                        for two in (True, False):
+                            out = (u2, v2) if two else (None, None)
+                            err, rel = compare(
+                                ops.etherplus_gemm(x, w, u1, v1, *out),
+                                ref.ref_etherplus_gemm(x, w, u1, v1, *out),
+                                dtype, "etherplus_gemm")
+                            b_ms, b_by = bound(
+                                (t * d + d * f + t * f) * es + 8 * d
+                                + (8 * f if two else 0),
+                                2 * t * d * f + 8 * t * d
+                                + (8 * t * f if two else 0), dtype)
+                            rows.append(dict(
+                                common, kernel="etherplus_gemm", t=t,
+                                two_sided=two, max_abs_err=err, rel_err=rel,
+                                bound_ms=b_ms, bound_by=b_by,
+                                ms=timed_ms(torch, [
+                                    lambda w=w: ops.etherplus_gemm(
+                                        x, w, u1, v1, *out) for w in ws]),
+                                plain_ms=timed_ms(torch, [
+                                    lambda w=w: ref.ref_etherplus_gemm(
+                                        x, w, u1, v1, *out) for w in ws]),
+                                matmul_ms=timed_ms(torch, [
+                                    lambda w=w: torch.matmul(x, w)
+                                    for w in ws])))
+                            print("  etherplus_gemm {s:3s}   {arch:11s} "
+                                  "{dtype:8s} d={d:5d} f={f:5d} n={n:2d} "
+                                  "T={t:4d}  err {rel_err:.2e} (tol {tol:g})"
+                                  "  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                                  "matmul {matmul_ms:.4f} ms  bound "
+                                  "{bound_ms:.4f} ms ({bound_by})".format(
+                                      s="2s" if two else "1s", **rows[-1]),
+                                  flush=True)
+                del ws, w
+    torch.cuda.synchronize()
+    return rows
+
+
+def bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb):
     """Phase 2, backward: reflect_gemm_dx (dx, du) and reflect_gemm_dw
     against their plain versions, through the wrapper; then each kernel
     timed through its own launcher (``kdx``, ``kdw``: the dW kernel runs
     alone there) beside its plain version and torch.matmul of the GEMM
-    inside it (G·Wᵀ and xᵀ·G)."""
+    inside it (G·Wᵀ and xᵀ·G).  Then the same at rank 2 (ETHER+'s v,
+    through ``ops.etherplus_gemm_bwd`` one-sided), and
+    ``etherplus_reflect_bwd`` (``krb``) on the output side: y0 (T, f) of
+    the one-sided product and G, with u2/v2 over f.  The ETHER+ operands
+    come from a generator of their own, so the rank-1 rows see the inputs
+    they always did."""
+    from repro_torch.core.transforms import resolve_blocks
     gen = torch.Generator(device="cuda").manual_seed(1)
+    gen2 = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     shapes = [(arch, d, f, n, t) for arch, lin in LINEARS.items()
               for d, f in lin for n in BLOCKS for t in BWD_ROWS]
@@ -279,7 +421,7 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw):
             dw_b = bound((t * d + t * f + d * f) * es + 4 * d,
                          2 * t * d * f + 4 * t * d, dtype)
             common = dict(arch=arch, dtype=dtype, t=t, d=d, f=f, n=n,
-                          tol=TOL[dtype])
+                          tol=TOL[dtype], rank=1)
             rows.append(dict(
                 kernel="reflect_gemm_dx", **common, max_abs_err=max(
                     err["dx"][0], (du - pdu).abs().max().item()),
@@ -297,12 +439,17 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw):
                     lambda: ref.ref_reflect_gemm_dw(x, u, g, dt)]),
                 matmul_ms=timed_ms(torch, [lambda: torch.matmul(x.T, g)]),
                 bound_ms=dw_b[0], bound_by=dw_b[1]))
-            for r in rows[-2:]:
-                print("  {kernel:16s} {arch:11s} {dtype:8s} T={t:4d} "
+            rows += rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen2,
+                                   resolve_blocks(n, f), x, w, g, u,
+                                   dict(common, rank=2), es)
+            for r in rows[-5:]:
+                print("  {kernel:21s} r{rank} {arch:11s} {dtype:8s} T={t:4d} "
                       "d={d:5d} f={f:5d} n={n:2d}  err {rel_err:.2e} (tol "
                       "{tol:g})  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                      "matmul {matmul_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                      "({bound_by})".format(**r)
+                      .format(**r)
+                      + (f"matmul {r['matmul_ms']:.4f} ms  "
+                         if r["matmul_ms"] else "")
+                      + "bound {bound_ms:.4f} ms ({bound_by})".format(**r)
                       + (f"  du {r['du_rel_frob']:.2e}" if "du_rel_frob" in r
                          else ""), flush=True)
             del w, x, g, dx, dw, pdx, pdw
@@ -310,13 +457,84 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw):
     return rows
 
 
-def layer_summary(rows, kernel, n, t):
+def rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen, n_out, x, w, g, u,
+                   common, es):
+    """The ETHER+ rows of one backward shape: rank-2 reflect_gemm_dx and
+    reflect_gemm_dw (v drawn from ``gen``) and etherplus_reflect_bwd with
+    u2/v2 (n_out, f/n_out) on y0 = (H⁺x)·W, each against its plain
+    version, timed beside its plain version (and the matmul inside)."""
+    dtype, t, d, f = common["dtype"], common["t"], common["d"], common["f"]
+    dt = x.dtype
+    v = torch.randn(u.shape, generator=gen, device="cuda")
+    u2, v2 = (torch.randn(n_out, f // n_out, generator=gen, device="cuda")
+              for _ in range(2))
+    ops.reset_launches()
+    dx, dw, du, dv, _, _ = ops.etherplus_gemm_bwd(x, w, u, v, None, None, g,
+                                                  need_dw=True)
+    check(ops.launches()["reflect_gemm_dx"] == 1
+          and ops.launches()["reflect_gemm_dw"] == 1,
+          f"rank-2 backward launched {ops.launches()}")
+    y0 = ref.ref_etherplus_gemm(x, w, u, v)
+    rdx, rdu, rdv = launched(krb.launch(y0, u2, v2, g))
+    torch.cuda.synchronize()
+    pdx, pdu, pdv = ref.ref_reflect_gemm_dx(x, w, u, g, v)
+    pdw = ref.ref_reflect_gemm_dw(x, u, g, dt, v)
+    prdx, prdu, prdv = ref.ref_etherplus_reflect_bwd(y0, u2, v2, g)
+
+    def err(a, b):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / b.float().abs().max().item()
+
+    e = {k: err(a, b) for k, a, b in (("dx", dx, pdx), ("dw", dw, pdw),
+                                       ("rb", rdx, prdx))}
+    fr = {k: frob(a, b) for k, a, b in (("du", du, pdu), ("dv", dv, pdv),
+                                         ("du2", rdu, prdu),
+                                         ("dv2", rdv, prdv))}
+    check(max(r for _, r in e.values()) <= TOL[dtype]
+          and max(fr.values()) <= DU_TOL,
+          f"rank-2 backward kernels disagree with their plain versions at "
+          f"{dtype} T={t} d={d} f={f}: {e}, {fr} (tol {TOL[dtype]:g}, "
+          f"{DU_TOL:g})")
+    dx_b = bound((2 * t * d + d * f + t * f) * es + 16 * d,
+                 2 * t * d * f + 16 * t * d, dtype)
+    dw_b = bound((t * d + t * f + d * f) * es + 8 * d,
+                 2 * t * d * f + 8 * t * d, dtype)
+    rb_b = bound(3 * t * f * es + 16 * f, 20 * t * f, dtype)
+    return [
+        dict(common, kernel="reflect_gemm_dx",
+             max_abs_err=max(e["dx"][0], (du - pdu).abs().max().item(),
+                             (dv - pdv).abs().max().item()),
+             rel_err=e["dx"][1], du_rel_frob=max(fr["du"], fr["dv"]),
+             ms=timed_ms(torch, [lambda: kdx.launch(x, w, u, g, v)]),
+             plain_ms=timed_ms(torch, [
+                 lambda: ref.ref_reflect_gemm_dx(x, w, u, g, v)]),
+             matmul_ms=timed_ms(torch, [lambda: torch.matmul(g, w.T)]),
+             bound_ms=dx_b[0], bound_by=dx_b[1]),
+        dict(common, kernel="reflect_gemm_dw", max_abs_err=e["dw"][0],
+             rel_err=e["dw"][1],
+             ms=timed_ms(torch, [lambda: kdw.launch(x, u, g, v)]),
+             plain_ms=timed_ms(torch, [
+                 lambda: ref.ref_reflect_gemm_dw(x, u, g, dt, v)]),
+             matmul_ms=timed_ms(torch, [lambda: torch.matmul(x.T, g)]),
+             bound_ms=dw_b[0], bound_by=dw_b[1]),
+        dict(common, kernel="etherplus_reflect_bwd",
+             max_abs_err=max(e["rb"][0], (rdu - prdu).abs().max().item(),
+                             (rdv - prdv).abs().max().item()),
+             rel_err=e["rb"][1], du_rel_frob=max(fr["du2"], fr["dv2"]),
+             ms=timed_ms(torch, [lambda: krb.launch(y0, u2, v2, g)]),
+             plain_ms=timed_ms(torch, [
+                 lambda: ref.ref_etherplus_reflect_bwd(y0, u2, v2, g)]),
+             matmul_ms=None, bound_ms=rb_b[0], bound_by=rb_b[1])]
+
+
+def layer_summary(rows, kernel, n, t, **match):
     """Sum over one smollm-360m layer's seven linears (bf16, ``n``
-    blocks, ``t`` rows; None for ether_merge): the kernel work of one
-    layer of one decode step (n = 8, t = B) or train step (n = 32,
-    t = B·S)."""
+    blocks, ``t`` rows; None for the merges; the rows whose other keys
+    equal ``match``): the kernel work of one layer of one decode step
+    (n = 8, t = B) or train step (n = 32, t = B·S)."""
     pick = [r for r in rows if r["kernel"] == kernel and r["arch"] == ARCH
-            and r["dtype"] == "bfloat16" and r["n"] == n and r["t"] == t]
+            and r["dtype"] == "bfloat16" and r["n"] == n and r["t"] == t
+            and all(r.get(k) == v for k, v in match.items())]
     out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "matmul_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
     for r in pick:
@@ -421,30 +639,11 @@ def profile_decode(torch, serve, api, steps, **kw):
     return trace_steps(torch, decode, steps)
 
 
-def phase_serve(torch, execute, ops, serve, api):
-    print(f"== phase 3: serve {ARCH} full width, ETHER n_blocks={N_BLOCKS}, "
-          f"B={B} P={P} gen={GEN}", flush=True)
-    kw = dict(arch=ARCH, variant="full", n_blocks=N_BLOCKS, batch=B,
-              prompt_len=P, seed=0, device="cuda")
-    un = run_path(torch, execute, ops, serve, backend="auto", gen=GEN, **kw)
-    mg = run_path(torch, execute, ops, serve, backend="auto", gen=GEN,
-                  merged=True, **kw)
-
-    from repro_torch.configs import get_config
-    cfg = get_config(ARCH, "full")
-    per_forward = 7 * cfg.n_layers
-    # each path's own counts: the unmerged path runs householder_gemm on
-    # every adapted linear of every forward and nothing else; the merged
-    # path runs ether_merge once per adapted linear and nothing else
-    none = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
-            "reflect_gemm_dw": 0}
-    want = {"unmerged": ({"householder_gemm.cuda": per_forward
-                          * un["forwards"]},
-                         {**none, "householder_gemm": per_forward
-                          * un["forwards"]}),
-            "merged": ({"ether_merge.cuda": per_forward},
-                       {**none, "ether_merge": per_forward})}
-    for name, r in (("unmerged", un), ("merged", mg)):
+def check_served(torch, cfg, runs, want):
+    """Hold each served path's counts to ``want[name]`` (dispatch
+    counters, kernel launches) and its outputs to their shapes; print its
+    times."""
+    for name, r in runs.items():
         print(f"[{name}] dispatch counters: {r['counters']}  kernel "
               f"launches: {r['launches']}")
         check((r["counters"], r["launches"]) == want[name],
@@ -463,12 +662,38 @@ def phase_serve(torch, execute, ops, serve, api):
               + (f", merge {r['merge_s'] * 1e3:.1f} ms" if r["merge_s"]
                  else "") + ")")
 
-    def frob(a, b):
-        return ((a - b).norm() / b.norm()).item()
 
-    def agree(a, b):
-        return (a == b).float().mean().item()
+def frob(a, b):
+    return ((a - b).norm() / b.norm()).item()
 
+
+def agree(a, b):
+    return (a == b).float().mean().item()
+
+
+def phase_serve(torch, execute, ops, serve, api):
+    print(f"== phase 3: serve {ARCH} full width, ETHER n_blocks={N_BLOCKS}, "
+          f"B={B} P={P} gen={GEN}", flush=True)
+    kw = dict(arch=ARCH, variant="full", n_blocks=N_BLOCKS, batch=B,
+              prompt_len=P, seed=0, device="cuda")
+    un = run_path(torch, execute, ops, serve, backend="auto", gen=GEN, **kw)
+    mg = run_path(torch, execute, ops, serve, backend="auto", gen=GEN,
+                  merged=True, **kw)
+
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH, "full")
+    per_forward = 7 * cfg.n_layers
+    # each path's own counts: the unmerged path runs householder_gemm on
+    # every adapted linear of every forward and nothing else; the merged
+    # path runs ether_merge once per adapted linear and nothing else
+    none = dict.fromkeys(ops.launches(), 0)
+    want = {"unmerged": ({"householder_gemm.cuda": per_forward
+                          * un["forwards"]},
+                         {**none, "householder_gemm": per_forward
+                          * un["forwards"]}),
+            "merged": ({"ether_merge.cuda": per_forward},
+                       {**none, "ether_merge": per_forward})}
+    check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
     merged_err = frob(mg["logits"], un["logits"])
     check(merged_err <= SERVE_TOL, f"merged vs unmerged logits "
           f"{merged_err:.3e} > {SERVE_TOL:g}")
@@ -508,9 +733,101 @@ def phase_serve(torch, execute, ops, serve, api):
                 traces=traces)
 
 
-def phase_train(torch, execute, ops):
-    """Phase 4: ETHER training of smollm-360m at full width through the
-    port's Trainer; see the module docstring."""
+def phase_serve_etherplus(torch, execute, ops, serve, api):
+    """Phase 5: phase 3's model and requests with two-sided ETHER+, v1/v2
+    drawn apart from u1/u2 (seed 5), through ``serve.generate`` unmerged
+    and after ``merge_params`` (each with every count set to 0 just
+    before it); see the module docstring."""
+    import dataclasses
+
+    from repro_torch.common.pytree import map_with_paths
+    from repro_torch.core.peft import merge_params
+    print(f"== phase 5: serve {ARCH} full width, ETHER+ two-sided n_blocks="
+          f"{N_BLOCKS}, B={B} P={P} gen={GEN}, v drawn apart from u "
+          f"(spread {EP_SPREAD:g})", flush=True)
+    kw = dict(arch=ARCH, variant="full", method="etherplus",
+              n_blocks=N_BLOCKS, batch=B, prompt_len=P, seed=0, device="cuda")
+    m = serve.build(**kw)
+    cfg, peft, params, tokens = (m[k] for k in ("cfg", "peft", "params",
+                                                "tokens"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    adapters = map_with_paths(
+        lambda p, t: t + EP_SPREAD * torch.randn(
+            t.shape, generator=gen, device=t.device, dtype=t.dtype)
+        if p.rsplit("/", 1)[-1] in ("v1", "v2") else t, m["adapters"])
+
+    def counted(run):
+        execute.reset_counters()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        r = run()
+        r["counters"], r["launches"] = execute.counters(), ops.launches()
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return r
+
+    def merged():
+        t0 = time.perf_counter()
+        mp = merge_params(params, adapters, peft)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        return dict(serve.generate(mp, None, tokens, cfg, None, GEN),
+                    merge_s=merge_s)
+
+    un = counted(lambda: dict(serve.generate(params, adapters, tokens, cfg,
+                                             peft, GEN), merge_s=None))
+    mg = counted(merged)
+    per_forward = 7 * cfg.n_layers
+    none = dict.fromkeys(ops.launches(), 0)
+    want = {"unmerged": ({"etherplus_gemm.cuda": per_forward
+                          * un["forwards"]},
+                         {**none, "etherplus_gemm": per_forward
+                          * un["forwards"]}),
+            "merged": ({"etherplus_merge.cuda": per_forward},
+                       {**none, "etherplus_merge_left": per_forward,
+                        "etherplus_merge_right": per_forward})}
+    check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
+
+    # outside the counted runs: the frozen model, and the plain versions
+    base = serve.generate(params, None, tokens, cfg, None, 4)
+    plain = serve.generate(params, adapters, tokens, cfg,
+                           dataclasses.replace(peft, backend="torch"), 4)
+    effect = frob(un["logits"], base["logits"])
+    merged_err = frob(mg["logits"], un["logits"])
+    plain_err = frob(un["logits"], plain["logits"])
+    print(f"adapters vs frozen model: logits rel. Frobenius {effect:.3e} "
+          f"(must exceed {SERVE_TOL:g}, so that the checks below can see a "
+          f"dropped direction)")
+    print(f"merged vs unmerged: logits rel. Frobenius {merged_err:.3e} "
+          f"(tol {SERVE_TOL:g}), greedy tokens agree "
+          f"{agree(mg['tokens'], un['tokens']) * 100:.1f}%")
+    print(f"kernels vs plain path: logits rel. Frobenius {plain_err:.3e} "
+          f"(tol {SERVE_TOL:g}), greedy tokens agree "
+          f"{agree(un['tokens'][:, :5], plain['tokens']) * 100:.1f}%")
+    check(effect > SERVE_TOL, f"ETHER+ adapters moved the logits by only "
+          f"{effect:.3e}")
+    check(merged_err <= SERVE_TOL and plain_err <= SERVE_TOL,
+          "ETHER+ serving paths disagree")
+
+    traces = {}
+    for name, r in (("unmerged", un), ("merged", mg)):
+        t = traces[name] = profile_decode(torch, serve, api, GEN,
+                                          merged=r["merge_s"] is not None,
+                                          **kw)
+        print_trace(f"etherplus {name}", t, r["per_token_s"] * 1e3)
+    return dict(adapter_effect=effect, merged_vs_unmerged=merged_err,
+                kernels_vs_plain=plain_err,
+                token_agreement=agree(mg["tokens"], un["tokens"]),
+                **{f"{name}_{k}": r[k] for name, r in
+                   (("unmerged", un), ("merged", mg))
+                   for k in ("prefill_s", "per_token_s", "peak_gb",
+                             "forwards", "merge_s", "counters", "launches")},
+                traces=traces)
+
+
+def phase_train(torch, execute, ops, phase, method):
+    """Phases 4 (``method`` "ether") and 6 ("etherplus", two-sided):
+    PEFT training of smollm-360m at full width through the port's
+    Trainer, from the method's own init; see the module docstring."""
     import shutil
     import tempfile
 
@@ -523,8 +840,9 @@ def phase_train(torch, execute, ops):
 
     cfg = get_config(ARCH, "full")
     tokens = TRAIN_B * TRAIN_S
-    print(f"== phase 4: train {ARCH} full width ({cfg.n_layers} layers, "
-          f"{cfg.param_dtype}, remat {cfg.remat!r}), ETHER "
+    label = {"ether": "ETHER", "etherplus": "ETHER+ two-sided"}[method]
+    print(f"== phase {phase}: train {ARCH} full width ({cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, remat {cfg.remat!r}), {label} "
           f"n_blocks={TRAIN_BLOCKS}, B={TRAIN_B} S={TRAIN_S}, AdamW lr "
           f"{TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps",
           flush=True)
@@ -532,8 +850,8 @@ def phase_train(torch, execute, ops):
                                seq_len=TRAIN_S, seed=0)
 
     def trainer(backend, name, **kw):
-        peft = PEFTConfig(n_blocks=TRAIN_BLOCKS, targets=peft_targets(ARCH),
-                          backend=backend)
+        peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS,
+                          targets=peft_targets(ARCH), backend=backend)
         opt = adamw(cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
         return Trainer(cfg, peft, opt, seed=0, device="cuda",
                        log_path=os.path.join(tmp, f"{name}.jsonl"), **kw)
@@ -566,19 +884,23 @@ def phase_train(torch, execute, ops):
         tr.close()
         log = logged("a")
 
-        per_step = 7 * cfg.n_layers
-        want = ({"householder_gemm.cuda": 2 * per_step * TRAIN_STEPS,
-                 "householder_gemm_bwd.cuda": per_step * TRAIN_STEPS},
-                {"householder_gemm": 2 * per_step * TRAIN_STEPS,
-                 "ether_merge": 0,
-                 "reflect_gemm_dx": per_step * TRAIN_STEPS,
-                 "reflect_gemm_dw": 0})
+        # per step, each of the 7·L adapted linears: the forward and its
+        # remat recompute, and one backward (reflect_gemm_dx; no dW, PEFT
+        # freezes W), which under two-sided ETHER+ first recomputes y0 with
+        # the one-sided forward kernel and runs etherplus_reflect_bwd
+        n = 7 * cfg.n_layers * TRAIN_STEPS
+        fwd = {"ether": "householder_gemm", "etherplus": "etherplus_gemm"}[
+            method]
+        want = ({f"{fwd}.cuda": 2 * n, f"{fwd}_bwd.cuda": n},
+                {**dict.fromkeys(ops.launches(), 0), "reflect_gemm_dx": n,
+                 **({"householder_gemm": 2 * n} if method == "ether" else
+                    {"etherplus_gemm": 3 * n, "etherplus_reflect_bwd": n})})
         print(f"[kernels] dispatch counters: {counters}  kernel launches: "
               f"{launches}")
         check((counters, launches) == want,
               f"train path ran {counters} / launched {launches}, want "
               f"{want[0]} / {want[1]} (forward + remat recompute + backward "
-              f"of {per_step} linears a step, no plain version)")
+              f"of {7 * cfg.n_layers} linears a step, no plain version)")
         losses = [m["loss"] for m in log]
         check(len(losses) == TRAIN_STEPS
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -665,7 +987,7 @@ def phase_train(torch, execute, ops):
 
 
 def main() -> int:
-    # before CUDA starts: cuBLAS picks deterministic kernels (phase 4)
+    # before CUDA starts: cuBLAS picks deterministic kernels (phases 4, 6)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
@@ -679,53 +1001,93 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.core import execute
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import etherplus_merge as kepm
+    from repro_torch.kernels import etherplus_reflect_bwd as krb
     from repro_torch.kernels import reflect_gemm_dw as kdw
     from repro_torch.kernels import reflect_gemm_dx as kdx
     from repro_torch.launch import serve
     from repro_torch.models import api
 
+    t0 = time.perf_counter()
     smi = phase_device_and_build(torch, build)
     rows = phase_kernels(torch, ops, ref)
-    rows += bwd_kernel_rows(torch, ops, ref, kdx, kdw)
+    rows += etherplus_kernel_rows(torch, ops, ref, kepm)
+    rows += bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb)
     served = phase_serve(torch, execute, ops, serve, api)
-    trained = phase_train(torch, execute, ops)
+    trained = phase_train(torch, execute, ops, 4, "ether")
+    ep_served = phase_serve_etherplus(torch, execute, ops, serve, api)
+    ep_trained = phase_train(torch, execute, ops, 6, "etherplus")
 
-    # name: (the TPU kernel's pallas_call, its path's launches, the
-    # layer summed in the kernel table: n, T)
+    # each main path's own launches, counted from 0 just before it
+    paths = {"ether serve": served["unmerged_launches"],
+             "ether merge": served["merged_launches"],
+             "ether train": trained["launches"],
+             "etherplus serve": ep_served["unmerged_launches"],
+             "etherplus merge": ep_served["merged_launches"],
+             "etherplus train": ep_trained["launches"]}
+    decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
+    weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
+    train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
+             "one smollm-360m train layer, T=1024, n=32")
+    # name: (source, the TPU kernel's pallas_call, the layer summed in the
+    # kernel table (n, T, what), the rows' other keys)
     table = {
-        "householder_gemm": ("src/repro/kernels/householder_gemm.py:73",
-                             served["unmerged_launches"], N_BLOCKS, B,
-                             "one smollm-360m decode layer, T=4, n=8"),
-        "ether_merge": ("src/repro/kernels/ether_merge.py:42",
-                        served["merged_launches"], N_BLOCKS, None,
-                        "one smollm-360m layer's weights, n=8"),
-        "reflect_gemm_dx": ("src/repro/kernels/gemm_bwd.py:151",
-                            trained["launches"], TRAIN_BLOCKS,
-                            TRAIN_B * TRAIN_S,
-                            "one smollm-360m train layer, T=1024, n=32"),
-        "reflect_gemm_dw": ("src/repro/kernels/gemm_bwd.py:246",
-                            trained["launches"], TRAIN_BLOCKS,
-                            TRAIN_B * TRAIN_S,
-                            "one smollm-360m train layer, T=1024, n=32 "
-                            "(PEFT freezes W: the train path launches it "
-                            "0 times)")}
+        "householder_gemm": ("householder_gemm",
+                             "src/repro/kernels/householder_gemm.py:73",
+                             decode, {}),
+        "ether_merge": ("ether_merge", "src/repro/kernels/ether_merge.py:42",
+                        weights, {}),
+        "reflect_gemm_dx": ("reflect_gemm_dx",
+                            "src/repro/kernels/gemm_bwd.py:151", train,
+                            {"rank": 1}),
+        "reflect_gemm_dw": ("reflect_gemm_dw",
+                            "src/repro/kernels/gemm_bwd.py:246", train,
+                            {"rank": 1}),
+        "etherplus_gemm": ("etherplus_gemm",
+                           "src/repro/kernels/etherplus_gemm.py:148",
+                           decode, {"two_sided": True}),
+        "etherplus_merge_left": ("etherplus_merge",
+                                 "src/repro/kernels/etherplus_merge.py:64",
+                                 weights, {}),
+        "etherplus_merge_right": ("etherplus_merge",
+                                  "src/repro/kernels/etherplus_merge.py:90",
+                                  weights, {}),
+        "etherplus_reflect_bwd": ("etherplus_reflect_bwd",
+                                  "src/repro/kernels/reflect_bwd.py:161",
+                                  train, {"rank": 2})}
     kernels = []
-    for name, (replaces, launches, n, t, shapes) in table.items():
-        s = layer_summary(rows, name, n, t)
-        kernels.append({
+    for name, (source, replaces, (n, t, what), match) in table.items():
+        s = layer_summary(rows, name, n, t, **match)
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        launches = sum(by_path.values())
+        check(launches > 0 or name == "reflect_gemm_dw",
+              f"no main path launched {name}")
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name],
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "matmul_ms": s["matmul_ms"] or None,
-            "shapes": f"sum over the 7 linears of {shapes}, bf16"})
+            "shapes": f"sum over the 7 linears of {what}, bf16"
+                      + (", two-sided" if match.get("two_sided") else "")}
+        if match.get("rank") == 1:          # ETHER+'s rank-2 branch
+            r2 = layer_summary(rows, name, n, t, rank=2)
+            entry["rank2"] = {k: r2[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms",
+                "max_abs_err")}
+        kernels.append(entry)
+    total_s = time.perf_counter() - t0
+    print(f"chip_smoke: phases 1-6 took {total_s:.1f} s")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "rows": rows, "serve": served,
-                   "train": trained, "kernels": kernels}, fh, indent=1)
+                   "train": trained, "etherplus_serve": ep_served,
+                   "etherplus_train": ep_trained, "kernels": kernels,
+                   "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

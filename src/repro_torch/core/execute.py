@@ -1,7 +1,7 @@
-"""Execution-backend dispatch for the ETHER hot ops.
+"""Execution-backend dispatch for the ETHER and ETHER+ hot ops.
 
-``core.methods`` routes every ETHER compute through this registry, which
-maps ``(op, backend)`` to an implementation:
+``core.methods`` routes every ETHER and ETHER+ compute through this
+registry, which maps ``(op, backend)`` to an implementation:
 
 ``torch``
     The plain PyTorch version of the op (``kernels/ref.py``): float32
@@ -20,10 +20,11 @@ maps ``(op, backend)`` to an implementation:
 can show which implementation it went through.
 
 Training differentiates ``householder_gemm`` through
-:class:`HouseholderGemm`, a ``torch.autograd.Function`` whose
-backward dispatches ``householder_gemm_bwd`` on the backend its forward
-resolved (counted as ``householder_gemm_bwd.<backend>``), as the JAX
-package's ``_registry_vjp`` dispatches ``<op>_bwd``.
+:class:`HouseholderGemm` and ``etherplus_gemm`` through
+:class:`EtherPlusGemm`, ``torch.autograd.Function``s whose backward
+dispatches ``<op>_bwd`` on the backend its forward resolved (counted as
+``<op>_bwd.<backend>``), as the JAX package's ``_registry_vjp``
+dispatches ``<op>_bwd``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,12 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("householder_gemm_bwd", "cuda"): ops.householder_gemm_bwd,
     ("ether_merge", "torch"): ref.ref_ether_merge,
     ("ether_merge", "cuda"): ops.ether_merge,
+    ("etherplus_gemm", "torch"): ref.ref_etherplus_gemm,
+    ("etherplus_gemm", "cuda"): ops.etherplus_gemm,
+    ("etherplus_gemm_bwd", "torch"): ref.ref_etherplus_gemm_bwd,
+    ("etherplus_gemm_bwd", "cuda"): ops.etherplus_gemm_bwd,
+    ("etherplus_merge", "torch"): ref.ref_etherplus_merge,
+    ("etherplus_merge", "cuda"): ops.etherplus_merge,
 }
 _COUNTERS: dict[str, int] = {}
 
@@ -98,6 +105,28 @@ class HouseholderGemm(torch.autograd.Function):
                               g.contiguous(),
                               need_dw=ctx.needs_input_grad[1])
         return dx, dw, du, None
+
+
+class EtherPlusGemm(torch.autograd.Function):
+    """y = (H⁺x) @ w [·H̃⁺] with the registry's backward, as
+    ``EtherPlusGemm.apply(x, w, u1, v1, u2, v2, backend)`` (u2, v2 None
+    one-sided).  Saves the operands themselves: the two-sided backward
+    recomputes the pre-epilogue product, as the JAX package's
+    ``_registry_vjp`` does; dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, u1, v1, u2, v2, backend):
+        be = selected_backend("etherplus_gemm", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, u1, v1, u2, v2)
+        return dispatch("etherplus_gemm", be, x, w, u1, v1, u2, v2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, u1, v1, u2, v2 = ctx.saved_tensors
+        grads = dispatch("etherplus_gemm_bwd", ctx.backend, x, w, u1, v1, u2,
+                         v2, g.contiguous(), need_dw=ctx.needs_input_grad[1])
+        return (*grads, None)
 
 
 def counters() -> dict[str, int]:

@@ -12,8 +12,11 @@ Conventions, as in the JAX package:
 
 Activation mode (the port's only mode so far) reflects the activations
 inside the GEMM (``householder_gemm``); merging absorbs the reflection
-into W (``ether_merge``).  ``PEFTConfig.backend`` picks the
-implementation of those ops through :mod:`repro_torch.core.execute`.
+into W (``ether_merge``).  ETHER+ (``method="etherplus"``) replaces the
+reflection by the rank-2 ``H⁺ = I − ûûᵀ + v̂v̂ᵀ`` per block, on the input
+and, two-sided, the output dim (``etherplus_gemm``, ``etherplus_merge``).
+``PEFTConfig.backend`` picks the implementation of those ops through
+:mod:`repro_torch.core.execute`.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class PEFTConfig:
     # '+'- or '|'-separated regexes of the module paths to adapt
     targets: str = "q_proj+k_proj+v_proj+o_proj+gate_proj+up_proj+down_proj"
     adapter_dtype: str = "float32"
+    # ETHER+ on both sides of each linear (paper default; App. D.2 ablates)
+    two_sided: bool = True
     # torch (plain), cuda (kernels) or auto (cuda on CUDA tensors)
     backend: str = "auto"
 
@@ -73,6 +78,26 @@ def reflect_activation(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def reflect_weight(W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Blockwise ``H_B W`` on the input dim of W: (d, f); u: (n, db)."""
     return ref.ref_ether_merge(W, u)
+
+
+def etherplus_activation(x: torch.Tensor, u: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Blockwise ``H⁺x = x − û(ûᵀx) + v̂(v̂ᵀx)`` on the last dim of x, a
+    true rank-2 update (both projections read the original x, not two
+    sequential reflections); u, v: (n, db)."""
+    return ref.ref_etherplus_reflect(x, u, v)
+
+
+def etherplus_weight(W: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     side: str = "left") -> torch.Tensor:
+    """Blockwise ``H⁺W`` on the input dim of W (side='left', u, v:
+    (n, db) with n·db = d) or ``W H̃⁺`` on its output dim (side='right',
+    n·db = f), as one rank-2 update of the original W."""
+    if side == "left":
+        return ref.ref_etherplus_merge_left(W, u, v)
+    if side == "right":
+        return ref.ref_etherplus_merge_right(W, u, v)
+    raise ValueError(f"side must be 'left' or 'right', got {side!r}")
 
 
 def adapted_dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],

@@ -50,15 +50,13 @@ template <typename T>
 int run(const void* x, const void* w, const void* u, void* p, void* unorm,
         void* y, int M, int K, int N, int n, int db, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
-  const float* uf = static_cast<const float*>(u);
-  float* pf = static_cast<float*>(p);
-  float* nf = static_cast<float*>(unorm);
-  cudaError_t err = launch_proj<T>(xt, uf, pf, nf, M, K, n, db, s);
+  const Proj pr{static_cast<const float*>(u), nullptr, static_cast<float*>(p),
+                static_cast<float*>(unorm), nullptr, nullptr, n, db};
+  cudaError_t err = launch_proj<T, false>(xt, pr, M, K, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // y (M×N) = R(x) (M×K) · W (K×N): A(t, k) = x[t*K + k] reflected along k
   return static_cast<int>(launch_gemm<T, T, T, true, true, kReflectK>(
-      xt, K, static_cast<const T*>(w), N, static_cast<T*>(y), M, N, K, uf, nf,
-      pf, n, db, s));
+      xt, K, static_cast<const T*>(w), N, static_cast<T*>(y), M, N, K, pr, s));
 }
 
 }  // namespace

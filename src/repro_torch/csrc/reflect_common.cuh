@@ -1,11 +1,15 @@
 // Device code shared by the port's reflect-GEMM kernels (householder_gemm,
-// reflect_gemm_dx, reflect_gemm_dw): dtype conversions, a warp sum, the
-// block-projection prologue and the one register-tiled f32 SIMT GEMM that
-// all three products run on.
+// reflect_gemm_dx, reflect_gemm_dw, etherplus_gemm) and ETHER+'s row
+// kernels (etherplus_merge, etherplus_reflect_bwd): dtype conversions, a
+// warp sum, the block-projection prologue, the one register-tiled f32 SIMT
+// GEMM that every product runs on, the per-row rank-2 update and the
+// reflection backward with its fixed-order dL/dû sum.
 //
 // R is the blockwise Householder reflection I − 2ûûᵀ over n blocks of db
 // elements, û = u / (‖u‖ + 1e-8) with ε outside the square root, as in
 // the JAX package (src/repro/kernels/reflect_bwd.py:48, unit_rows).
+// ETHER+ replaces it by the rank-2 H⁺ = I − ûûᵀ + v̂v̂ᵀ, both projections
+// read off the original x (src/repro/kernels/etherplus_gemm.py:38).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,13 +39,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The hyperplanes of one reflection (raw (n, db) rows; v only for ETHER+'s
+// rank 2) and what the projection prologue writes for them: the per-row
+// block projections p[t*n + i] = x_t,i · û_i (q likewise for v̂) and the
+// block norms unorm[i] = ‖u_i‖ + ε (vnorm for v).
+struct Proj {
+  const float* u;
+  const float* v;
+  float* p;
+  float* unorm;
+  float* q;
+  float* vnorm;
+  int n, db;
+};
+
+// Proj over one f32 scratch of (M + 1)·n floats (rank 1) or twice that
+// (rank 2): p (M, n), unorm (n) [, q (M, n), vnorm (n)].
+inline Proj carve(const float* u, const float* v, float* scratch, int M,
+                  int n, int db) {
+  float* p = scratch;
+  float* unorm = p + static_cast<long long>(M) * n;
+  float* q = v ? unorm + n : nullptr;
+  float* vnorm = v ? q + static_cast<long long>(M) * n : nullptr;
+  return Proj{u, v, p, unorm, q, vnorm, n, db};
+}
+
 // One warp per (row t, block i): p[t*n + i] = Σ_j x[t, i*db + j] u[i, j]
-// / (‖u_i‖ + ε).  Row 0's warps also write unorm[i] = ‖u_i‖ + ε.
-template <typename T>
-__global__ void proj_kernel(const T* __restrict__ x,
-                            const float* __restrict__ u,
-                            float* __restrict__ p, float* __restrict__ unorm,
-                            int M, int K, int n, int db) {
+// / (‖u_i‖ + ε), and under RANK2 q likewise for v.  Row 0's warps also
+// write the norms.  x is read once for both directions.
+template <typename T, bool RANK2>
+__global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K) {
+  const int n = pr.n, db = pr.db;
   const int warps = blockDim.x / 32;
   const long long pair =
       static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
@@ -49,39 +77,56 @@ __global__ void proj_kernel(const T* __restrict__ x,
   if (pair >= static_cast<long long>(M) * n) return;  // whole warps exit
   const long long t = pair / n;
   const int i = static_cast<int>(pair % n);
-  const float* ui = u + static_cast<long long>(i) * db;
+  const float* ui = pr.u + static_cast<long long>(i) * db;
+  const float* vi = RANK2 ? pr.v + static_cast<long long>(i) * db : nullptr;
   const T* xt = x + t * K + static_cast<long long>(i) * db;
-  float ss = 0.f, xu = 0.f;
+  float ss = 0.f, xu = 0.f, sv = 0.f, xv = 0.f;
   for (int j = lane; j < db; j += 32) {
     const float uv = ui[j];
     ss = fmaf(uv, uv, ss);
     xu = fmaf(to_f32(xt[j]), uv, xu);
+    if constexpr (RANK2) {
+      const float vv = vi[j];
+      sv = fmaf(vv, vv, sv);
+      xv = fmaf(to_f32(xt[j]), vv, xv);
+    }
   }
   ss = warp_sum(ss);
   xu = warp_sum(xu);
+  if constexpr (RANK2) {
+    sv = warp_sum(sv);
+    xv = warp_sum(xv);
+  }
   if (lane == 0) {
     const float nrm = sqrtf(ss) + kEps;
-    p[pair] = xu / nrm;
-    if (t == 0) unorm[i] = nrm;
+    pr.p[pair] = xu / nrm;
+    if (t == 0) pr.unorm[i] = nrm;
+    if constexpr (RANK2) {
+      const float vn = sqrtf(sv) + kEps;
+      pr.q[pair] = xv / vn;
+      if (t == 0) pr.vnorm[i] = vn;
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_proj(const T* x, const float* u, float* p, float* unorm,
-                        int M, int K, int n, int db, cudaStream_t s) {
+template <typename T, bool RANK2>
+cudaError_t launch_proj(const T* x, const Proj& pr, int M, int K,
+                        cudaStream_t s) {
   constexpr int kThreads = 256;
-  const long long pairs = static_cast<long long>(M) * n;
+  const long long pairs = static_cast<long long>(M) * pr.n;
   const unsigned blocks =
       static_cast<unsigned>((pairs + kThreads / 32 - 1) / (kThreads / 32));
-  proj_kernel<T><<<blocks, kThreads, 0, s>>>(x, u, p, unorm, M, K, n, db);
+  proj_kernel<T, RANK2><<<blocks, kThreads, 0, s>>>(x, pr, M, K);
   return cudaGetLastError();
 }
 
-// Which index of A the GEMM reflects while staging its A tile.
+// Which index of A the GEMM reflects while staging its A tile, and how.
 enum Reflect {
   kReflectNone,  // A as it is (dXr = G · Wᵀ)
   kReflectK,     // A(m, k) − 2·p[m*n + k/db]·û[k]: row m of x (forward)
   kReflectM,     // A(m, k) − 2·p[k*n + m/db]·û[m]: column k of Aᵀ = x (dW)
+  kRank2K,       // A(m, k) − p·û[k] + q·v̂[k] at [m*n + k/db]: ETHER+ forward
+  kRank2M,       // A(m, k) − p·û[m] + q·v̂[m] at [k*n + m/db]: ETHER+ dW
 };
 
 // C (M×N) = A (M×K) · B (K×N), f32 accumulation, any ragged edge.
@@ -90,9 +135,10 @@ enum Reflect {
 //   A(m, k) = A_K_CONTIG ? a[m*lda + k] : a[k*lda + m],
 //   B(k, n) = B_N_CONTIG ? b[k*ldb + n] : b[n*ldb + k].
 // The contiguous index varies fastest across threads while staging, so
-// global reads coalesce.  REFLECT applies the blockwise reflection of x
-// to A as it is staged (p: the prologue's block projections, unorm:
-// ‖u_i‖ + ε), so the reflected x never reaches device memory.  Block tile
+// global reads coalesce.  REFLECT applies the blockwise reflection (or
+// ETHER+'s rank-2 update) of x to A as it is staged, from the prologue's
+// projections and norms in `pr`, so the updated x never reaches device
+// memory.  Block tile
 // BM×BN, K step BK; each thread owns TM×TN outputs at rows
 // ty + i·(BM/TM), columns tx + j·(BN/TN) (strided, so a warp's shared
 // reads and global stores touch consecutive words).  C is written at
@@ -105,9 +151,9 @@ template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
           int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
     gemm_kernel(const TA* __restrict__ a, int lda, const TB* __restrict__ b,
-                int ldb, TC* __restrict__ c, int M, int N, int K,
-                const float* __restrict__ u, const float* __restrict__ unorm,
-                const float* __restrict__ p, int n, int db) {
+                int ldb, TC* __restrict__ c, int M, int N, int K, Proj pr) {
+  constexpr bool kAlongK = REFLECT == kReflectK || REFLECT == kRank2K;
+  constexpr bool kRank2 = REFLECT == kRank2K || REFLECT == kRank2M;
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
   __shared__ float As[BK][BM + 1];  // k-major
   __shared__ float Bs[BK][BN + 1];
@@ -125,18 +171,26 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
       const int r = A_K_CONTIG ? e / BK : e % BM;
       const int kk = A_K_CONTIG ? e % BK : e / BM;
       const int m = m0 + r, k = k0 + kk;
-      float v = 0.f;
+      float val = 0.f;
       if (m < M && k < K) {
-        v = to_f32(A_K_CONTIG ? a[static_cast<long long>(m) * lda + k]
-                              : a[static_cast<long long>(k) * lda + m]);
+        val = to_f32(A_K_CONTIG ? a[static_cast<long long>(m) * lda + k]
+                                : a[static_cast<long long>(k) * lda + m]);
         if (REFLECT != kReflectNone) {
-          const int j = REFLECT == kReflectK ? k : m;  // index of û
-          const int t = REFLECT == kReflectK ? m : k;  // token row
-          const int blk = j / db;
-          v -= 2.f * p[static_cast<long long>(t) * n + blk] * (u[j] / unorm[blk]);
+          const int j = kAlongK ? k : m;  // index of û
+          const int t = kAlongK ? m : k;  // token row
+          const int blk = j / pr.db;
+          const long long tb = static_cast<long long>(t) * pr.n + blk;
+          // read-only loads (ld.global.nc): the struct's pointers carry
+          // no __restrict__
+          const float uh = __ldg(pr.u + j) / __ldg(pr.unorm + blk);
+          if (kRank2)
+            val = val - __ldg(pr.p + tb) * uh +
+                  __ldg(pr.q + tb) * (__ldg(pr.v + j) / __ldg(pr.vnorm + blk));
+          else
+            val -= 2.f * __ldg(pr.p + tb) * uh;
         }
       }
-      As[kk][r] = v;
+      As[kk][r] = val;
     }
     for (int e = tid; e < BK * BN; e += NT) {
       const int cc = B_N_CONTIG ? e % BN : e / BK;
@@ -192,12 +246,10 @@ inline int sm_count() {
 template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
           int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT>
 void launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c, int M,
-                 int N, int K, const float* u, const float* unorm,
-                 const float* p, int n, int db, cudaStream_t s) {
+                 int N, int K, const Proj& pr, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_kernel<TA, TB, TC, BM, BN, BK, TM, TN, A_K_CONTIG, B_N_CONTIG, REFLECT>
-      <<<grid, (BM / TM) * (BN / TN), 0, s>>>(a, lda, b, ldb, c, M, N, K, u,
-                                               unorm, p, n, db);
+      <<<grid, (BM / TM) * (BN / TN), 0, s>>>(a, lda, b, ldb, c, M, N, K, pr);
 }
 
 // Skinny M (decode, M ≤ 8) takes an 8×32 tile, so that more blocks stream
@@ -206,19 +258,230 @@ void launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c, int M,
 template <typename TA, typename TB, typename TC, bool A_K_CONTIG,
           bool B_N_CONTIG, Reflect REFLECT>
 cudaError_t launch_gemm(const TA* a, int lda, const TB* b, int ldb, TC* c,
-                        int M, int N, int K, const float* u,
-                        const float* unorm, const float* p, int n, int db,
-                        cudaStream_t s) {
+                        int M, int N, int K, const Proj& pr, cudaStream_t s) {
   const long long big = static_cast<long long>((M + 63) / 64) * ((N + 63) / 64);
   if (M <= 8)
     launch_tile<TA, TB, TC, 8, 32, 32, 1, 1, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, u, unorm, p, n, db, s);
+        a, lda, b, ldb, c, M, N, K, pr, s);
   else if (big < sm_count())
     launch_tile<TA, TB, TC, 32, 32, 16, 2, 2, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, u, unorm, p, n, db, s);
+        a, lda, b, ldb, c, M, N, K, pr, s);
   else
     launch_tile<TA, TB, TC, 64, 64, 16, 4, 4, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, u, unorm, p, n, db, s);
+        a, lda, b, ldb, c, M, N, K, pr, s);
+  return cudaGetLastError();
+}
+
+// One warp per (row t, block j) of a row-major (M, n·db) matrix Y: row t's
+// block j takes ETHER+'s rank-2 update on the output side,
+//   out = Y − (Y·û_j) û_j + (Y·v̂_j) v̂_j,
+// in f32 from Y in TI, written once in TO (out must not alias Y).  The
+// two-sided etherplus_gemm epilogue (Y the GEMM's f32 result) and the
+// right ETHER+ merge (Y = W) run on it.  The warp reads its db elements
+// of Y twice, the second time from L1.
+template <typename TI, typename TO>
+__global__ void rank2_rows_kernel(const TI* __restrict__ y,
+                                  const float* __restrict__ u,
+                                  const float* __restrict__ v,
+                                  TO* __restrict__ out, int M, int n, int db) {
+  const int warps = blockDim.x / 32;
+  const long long pair =
+      static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (pair >= static_cast<long long>(M) * n) return;  // whole warps exit
+  const int j = static_cast<int>(pair % n);
+  const long long off = pair * db;  // (t·n + j)·db = t·(n·db) + j·db
+  const float* uj = u + static_cast<long long>(j) * db;
+  const float* vj = v + static_cast<long long>(j) * db;
+  float su = 0.f, sv = 0.f;
+  for (int c = lane; c < db; c += 32) {
+    su = fmaf(uj[c], uj[c], su);
+    sv = fmaf(vj[c], vj[c], sv);
+  }
+  const float nu = sqrtf(warp_sum(su)) + kEps;
+  const float nv = sqrtf(warp_sum(sv)) + kEps;
+  float pu = 0.f, pv = 0.f;
+  for (int c = lane; c < db; c += 32) {
+    const float yv = to_f32(y[off + c]);
+    pu = fmaf(yv, uj[c] / nu, pu);
+    pv = fmaf(yv, vj[c] / nv, pv);
+  }
+  pu = warp_sum(pu);
+  pv = warp_sum(pv);
+  for (int c = lane; c < db; c += 32)
+    out[off + c] = from_f32<TO>(to_f32(y[off + c]) - pu * (uj[c] / nu) +
+                                pv * (vj[c] / nv));
+}
+
+template <typename TI, typename TO>
+cudaError_t launch_rank2_rows(const TI* y, const float* u, const float* v,
+                              TO* out, int M, int n, int db, cudaStream_t s) {
+  constexpr int kThreads = 256;
+  const long long pairs = static_cast<long long>(M) * n;
+  rank2_rows_kernel<TI, TO>
+      <<<static_cast<unsigned>((pairs + kThreads / 32 - 1) / (kThreads / 32)),
+         kThreads, 0, s>>>(y, u, v, out, M, n, db);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward of the blockwise update y = x + c_u û(ûᵀx) [+ c_v v̂(v̂ᵀx)]
+// (c_u = −2: the reflection; c_u = −1, c_v = +1: ETHER+'s H⁺) under a
+// cotangent G, for any db and any ragged M (src/repro/kernels/
+// reflect_bwd.py:60, reflect_bwd_tile):
+//   dx  = G + c_u (ûᵀG) û [+ c_v (v̂ᵀG) v̂]                (M, K) in TX
+//   ĝ_u = c_u Σ_t [(ûᵀx_t) G_t + (ûᵀG_t) x_t]            per block, f32
+//   du  = norm_chain(u, ĝ_u) = ĝ/s − (u·ĝ) u / (r s²),  r = ‖u‖, s = r + ε
+// (likewise ĝ_v, dv).  The Pallas kernels keep ĝ in VMEM across their
+// sequential grid; Hopper runs blocks in any order, so each tile of
+// kRowsPerTile rows writes its own partial (⌈M/kRowsPerTile⌉, n, db) and
+// du_kernel sums the partials in a fixed order.  No float atomics: the
+// same inputs give the same bits every run.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsPerTile = 32;
+
+inline int row_tiles(int M) { return (M + kRowsPerTile - 1) / kRowsPerTile; }
+
+// One warp per unit = (row tile r, block i), `warps` units per CUDA block.
+// Shared memory holds each warp's ĝ partials for its block (db floats per
+// direction); every lane touches only its own elements j ≡ lane (mod 32),
+// so the warp needs no barrier beyond its shuffles.
+template <typename TX, typename TG, bool RANK2>
+__global__ void reflect_bwd_kernel(const TX* __restrict__ x,
+                                   const TG* __restrict__ g,
+                                   const float* __restrict__ u,
+                                   const float* __restrict__ v,
+                                   TX* __restrict__ dx,
+                                   float* __restrict__ part_u,
+                                   float* __restrict__ part_v, int M, int K,
+                                   int n, int db, int n_tiles) {
+  extern __shared__ float ghat_sh[];
+  const int warps = blockDim.x / 32;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long unit = static_cast<long long>(blockIdx.x) * warps + w;
+  if (unit >= static_cast<long long>(n_tiles) * n) return;  // whole warps
+  const int r = static_cast<int>(unit / n), i = static_cast<int>(unit % n);
+  float* acc = ghat_sh + static_cast<long long>(w) * db * (RANK2 ? 2 : 1);
+  float* acc_v = acc + db;  // RANK2 only
+  const float* ui = u + static_cast<long long>(i) * db;
+  const float* vi = RANK2 ? v + static_cast<long long>(i) * db : nullptr;
+
+  float ss = 0.f, sv = 0.f;
+  for (int j = lane; j < db; j += 32) {
+    ss = fmaf(ui[j], ui[j], ss);
+    acc[j] = 0.f;
+    if constexpr (RANK2) {
+      sv = fmaf(vi[j], vi[j], sv);
+      acc_v[j] = 0.f;
+    }
+  }
+  const float nrm = sqrtf(warp_sum(ss)) + kEps;
+  float nrm_v = 1.f;
+  if constexpr (RANK2) nrm_v = sqrtf(warp_sum(sv)) + kEps;
+
+  const long long t_beg = static_cast<long long>(r) * kRowsPerTile;
+  const long long t_end = t_beg + kRowsPerTile < M ? t_beg + kRowsPerTile : M;
+  for (long long t = t_beg; t < t_end; ++t) {
+    const long long off = t * K + static_cast<long long>(i) * db;
+    float px = 0.f, pg = 0.f, qx = 0.f, qg = 0.f;
+    for (int j = lane; j < db; j += 32) {
+      const float uh = ui[j] / nrm;
+      px = fmaf(to_f32(x[off + j]), uh, px);
+      pg = fmaf(to_f32(g[off + j]), uh, pg);
+      if constexpr (RANK2) {
+        const float vh = vi[j] / nrm_v;
+        qx = fmaf(to_f32(x[off + j]), vh, qx);
+        qg = fmaf(to_f32(g[off + j]), vh, qg);
+      }
+    }
+    px = warp_sum(px);
+    pg = warp_sum(pg);
+    if constexpr (RANK2) {
+      qx = warp_sum(qx);
+      qg = warp_sum(qg);
+    }
+    for (int j = lane; j < db; j += 32) {
+      const float uh = ui[j] / nrm;
+      const float gv = to_f32(g[off + j]);
+      if constexpr (RANK2) {
+        const float vh = vi[j] / nrm_v;
+        const float xv = to_f32(x[off + j]);
+        dx[off + j] = from_f32<TX>(gv - pg * uh + qg * vh);
+        acc[j] += px * gv + pg * xv;
+        acc_v[j] += qx * gv + qg * xv;
+      } else {
+        dx[off + j] = from_f32<TX>(gv - 2.f * pg * uh);
+        acc[j] += px * gv + pg * to_f32(x[off + j]);
+      }
+    }
+  }
+  const long long out = (static_cast<long long>(r) * n + i) * db;
+  for (int j = lane; j < db; j += 32) {
+    if constexpr (RANK2) {
+      part_u[out + j] = -acc[j];
+      part_v[out + j] = acc_v[j];
+    } else {
+      part_u[out + j] = -2.f * acc[j];
+    }
+  }
+}
+
+// One warp per block i: ĝ = Σ_r part[r, i] in order r = 0, 1, ..., then
+// du = norm_chain(u_i, ĝ).
+__global__ void du_kernel(const float* __restrict__ part,
+                          const float* __restrict__ u, float* __restrict__ du,
+                          int n, int db, int n_tiles) {
+  const int warps = blockDim.x / 32;
+  const int i = blockIdx.x * warps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (i >= n) return;
+  const float* ui = u + static_cast<long long>(i) * db;
+  float* di = du + static_cast<long long>(i) * db;
+  const long long stride = static_cast<long long>(n) * db;
+  float ss = 0.f, dot = 0.f;
+  for (int j = lane; j < db; j += 32) {
+    const float* pj = part + static_cast<long long>(i) * db + j;
+    float g = 0.f;
+    for (int r = 0; r < n_tiles; ++r) g += pj[r * stride];
+    di[j] = g;
+    ss = fmaf(ui[j], ui[j], ss);
+    dot = fmaf(ui[j], g, dot);
+  }
+  const float rn = sqrtf(warp_sum(ss));
+  dot = warp_sum(dot);
+  const float s = rn + kEps;
+  for (int j = lane; j < db; j += 32) di[j] = di[j] / s - dot * ui[j] / (rn * s * s);
+}
+
+// dx, and du (dv) from the partials: reflect_bwd_kernel, then du_kernel
+// once per direction.  part_u (part_v) hold row_tiles(M)·n·db floats.
+template <typename TX, typename TG, bool RANK2>
+cudaError_t launch_reflect_bwd(const TX* x, const TG* g, const float* u,
+                               const float* v, TX* dx, float* part_u,
+                               float* part_v, float* du, float* dv, int M,
+                               int K, int n, int db, cudaStream_t s) {
+  const int n_tiles = row_tiles(M);
+  const int warps = db <= 3072 ? 4 : 1;
+  const size_t shared =
+      static_cast<size_t>(warps) * db * sizeof(float) * (RANK2 ? 2 : 1);
+  cudaError_t err;
+  if (shared > 48 * 1024) {
+    err = cudaFuncSetAttribute(reflect_bwd_kernel<TX, TG, RANK2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  const long long units = static_cast<long long>(n_tiles) * n;
+  reflect_bwd_kernel<TX, TG, RANK2>
+      <<<static_cast<unsigned>((units + warps - 1) / warps), warps * 32,
+         shared, s>>>(x, g, u, v, dx, part_u, part_v, M, K, n, db, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_u, u, du, n, db, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !RANK2) return err;
+  du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_v, v, dv, n, db, n_tiles);
   return cudaGetLastError();
 }
 

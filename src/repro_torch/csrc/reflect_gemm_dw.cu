@@ -8,7 +8,10 @@
 // own, so that PEFT training (W frozen) never runs it: the autograd
 // Function asks for it only when W requires grad.
 // x (M, K), G (M, N) bf16 or f32 alike; u (n, db) f32 raw hyperplanes,
-// n·db = K; dW (K, N) in W's dtype (= x's dtype).
+// n·db = K; dW (K, N) in W's dtype (= x's dtype).  With v (the rank-2
+// shim _dw_rank2_shim, gemm_bwd.py:204) R is ETHER+'s H⁺ = I − ûûᵀ + v̂v̂ᵀ:
+// the prologue projects x on both directions in one read, and the staging
+// applies x − (ûᵀx)û + (v̂ᵀx)v̂.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, the
 // data sheet's rates at 700 W): a GEMM that reduces over the M token rows,
@@ -39,32 +42,43 @@ namespace {
 
 using namespace reflect;
 
-template <typename T>
-int run(const void* x, const void* u, const void* g, void* p, void* unorm,
-        void* dw, int M, int K, int N, int n, int db, cudaStream_t s) {
+template <typename T, bool RANK2>
+int run(const void* x, const void* u, const void* v, const void* g,
+        void* scratch, void* dw, int M, int K, int N, int n, int db,
+        cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
-  const float* uf = static_cast<const float*>(u);
-  float* pf = static_cast<float*>(p);
-  float* nf = static_cast<float*>(unorm);
-  cudaError_t err = launch_proj<T>(xt, uf, pf, nf, M, K, n, db, s);
+  const Proj pr = carve(static_cast<const float*>(u),
+                        static_cast<const float*>(v),
+                        static_cast<float*>(scratch), M, n, db);
+  cudaError_t err = launch_proj<T, RANK2>(xt, pr, M, K, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // dW (K×N) = R(x)ᵀ (K×M) · G (M×N): A(i, t) = x[t*K + i] reflected,
   // B(t, c) = g[t*N + c]
-  return static_cast<int>(launch_gemm<T, T, T, false, true, kReflectM>(
-      xt, K, static_cast<const T*>(g), N, static_cast<T*>(dw), K, N, M, uf, nf,
-      pf, n, db, s));
+  return static_cast<int>(
+      launch_gemm<T, T, T, false, true, RANK2 ? kRank2M : kReflectM>(
+          xt, K, static_cast<const T*>(g), N, static_cast<T*>(dw), K, N, M,
+          pr, s));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, G and dW alike).  p is (M, n) f32
-// scratch, unorm (n,) f32 scratch, both written before they are read.
-extern "C" int reflect_gemm_dw(const void* x, const void* u, const void* g,
-                               void* p, void* unorm, void* dw, int M, int K,
-                               int N, int n, int db, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (x, G and dW alike).  v is null for the
+// reflection, ETHER+'s second hyperplanes for H⁺.  scratch is f32 of
+// (M + 1)·n floats (twice that with v), written before it is read.
+extern "C" int reflect_gemm_dw(const void* x, const void* u, const void* v,
+                               const void* g, void* scratch, void* dw, int M,
+                               int K, int N, int n, int db, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(x, u, g, p, unorm, dw, M, K, N, n, db, s);
+  if (dtype == 0 && !v)
+    return run<float, false>(x, u, v, g, scratch, dw, M, K, N, n, db, s);
+  if (dtype == 1 && !v)
+    return run<__nv_bfloat16, false>(x, u, v, g, scratch, dw, M, K, N, n, db,
+                                     s);
+  if (dtype == 0)
+    return run<float, true>(x, u, v, g, scratch, dw, M, K, N, n, db, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(x, u, g, p, unorm, dw, M, K, N, n, db, s);
+    return run<__nv_bfloat16, true>(x, u, v, g, scratch, dw, M, K, N, n, db,
+                                    s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

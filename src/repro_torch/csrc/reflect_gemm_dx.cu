@@ -11,6 +11,10 @@
 //   du  = norm_chain(u, ĝ) = ĝ/s − (u·ĝ) u / (r s²),  r = ‖u‖, s = r + ε
 // (src/repro/kernels/reflect_bwd.py:37, XLA's AD of û = u/(‖u‖+ε)).
 // x, W, G bf16 or f32 alike; u (n, db) f32 raw hyperplanes, n·db = K.
+// With v (the rank-2 shim _rank2_kernel_shim, gemm_bwd.py:108: the
+// backward of ETHER+'s y = H⁺(x)·W) the reflection is H⁺ = I − ûûᵀ + v̂v̂ᵀ:
+// dx = H⁺(dXr), ĝ_u takes the coefficient −1 in place of −2, and a ĝ_v
+// with +1 gives dv beside du.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, the
 // data sheet's rates at 700 W): the dXr GEMM, 2·M·N·K operations.  At the
@@ -22,10 +26,10 @@
 //  * The Pallas kernel keeps the dL/dû sum in VMEM scratch across its
 //    sequential grid.  Hopper runs blocks in parallel and in no order, so
 //    here each tile of kRowsPerTile rows writes its own partial ĝ
-//    (⌈M/kRowsPerTile⌉, n, db) and a last small kernel sums the partials
-//    in a fixed order and applies norm_chain.  No floating-point atomics:
-//    the same inputs give the same bits every run, which the trainer's
-//    bitwise resume check needs.
+//    (⌈M/kRowsPerTile⌉, n, db; a second one for ĝ_v) and a last small
+//    kernel sums the partials in a fixed order and applies norm_chain.
+//    No floating-point atomics: the same inputs give the same bits every
+//    run, which the trainer's bitwise resume check needs.
 //  * The Pallas kernel needs each K tile to hold whole reflection blocks;
 //    smollm-360m's db = 30 or 80 (n = 32) fits no Hopper tile.  So the
 //    GEMM writes dXr in f32 to an (M, K) scratch, and an epilogue kernel
@@ -38,9 +42,12 @@
 //    f32 rate (67 TFLOP/s), far from the bf16 bound.  wgmma with TMA-fed
 //    shared-memory rings is the next step (ROADMAP.md).
 //
+// The epilogue and the ĝ sum are reflect_common.cuh's reflect_bwd_kernel
+// and du_kernel, which etherplus_reflect_bwd runs too.
+//
 // C interface, bound with ctypes: reflect_gemm_dx(...) launches the three
-// kernels on the given stream, allocates nothing and returns
-// cudaGetLastError().
+// kernels (four with v) on the given stream, allocates nothing and
+// returns cudaGetLastError().
 
 #include "reflect_common.cuh"
 
@@ -48,139 +55,52 @@ namespace {
 
 using namespace reflect;
 
-constexpr int kRowsPerTile = 32;
-
-// One warp per unit = (row tile r, block i), `warps` units per CUDA block.
-// Shared memory holds each warp's ĝ partial for its block (db floats);
-// every lane touches only its own elements j ≡ lane (mod 32), so the
-// warp needs no barrier beyond its shuffles.
-template <typename T>
-__global__ void dx_epilogue_kernel(const T* __restrict__ x,
-                                   const float* __restrict__ dxr,
-                                   const float* __restrict__ u,
-                                   T* __restrict__ dx,
-                                   float* __restrict__ part, int M, int K,
-                                   int n, int db, int n_tiles) {
-  extern __shared__ float ghat_sh[];
-  const int warps = blockDim.x / 32;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long unit = static_cast<long long>(blockIdx.x) * warps + w;
-  if (unit >= static_cast<long long>(n_tiles) * n) return;  // whole warps
-  const int r = static_cast<int>(unit / n), i = static_cast<int>(unit % n);
-  float* acc = ghat_sh + static_cast<long long>(w) * db;
-  const float* ui = u + static_cast<long long>(i) * db;
-
-  float ss = 0.f;
-  for (int j = lane; j < db; j += 32) {
-    ss = fmaf(ui[j], ui[j], ss);
-    acc[j] = 0.f;
-  }
-  const float nrm = sqrtf(warp_sum(ss)) + kEps;
-
-  const long long t_beg = static_cast<long long>(r) * kRowsPerTile;
-  const long long t_end = t_beg + kRowsPerTile < M ? t_beg + kRowsPerTile : M;
-  for (long long t = t_beg; t < t_end; ++t) {
-    const long long off = t * K + static_cast<long long>(i) * db;
-    float px = 0.f, pg = 0.f;
-    for (int j = lane; j < db; j += 32) {
-      const float uh = ui[j] / nrm;
-      px = fmaf(to_f32(x[off + j]), uh, px);
-      pg = fmaf(dxr[off + j], uh, pg);
-    }
-    px = warp_sum(px);
-    pg = warp_sum(pg);
-    for (int j = lane; j < db; j += 32) {
-      const float uh = ui[j] / nrm;
-      const float gv = dxr[off + j];
-      dx[off + j] = from_f32<T>(gv - 2.f * pg * uh);
-      acc[j] += px * gv + pg * to_f32(x[off + j]);
-    }
-  }
-  float* out = part + (static_cast<long long>(r) * n + i) * db;
-  for (int j = lane; j < db; j += 32) out[j] = -2.f * acc[j];
-}
-
-// One warp per block i: ĝ = Σ_r part[r, i] in order r = 0, 1, ..., then
-// du = norm_chain(u_i, ĝ).
-__global__ void du_kernel(const float* __restrict__ part,
-                          const float* __restrict__ u, float* __restrict__ du,
-                          int n, int db, int n_tiles) {
-  const int warps = blockDim.x / 32;
-  const int i = blockIdx.x * warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= n) return;
-  const float* ui = u + static_cast<long long>(i) * db;
-  float* di = du + static_cast<long long>(i) * db;
-  const long long stride = static_cast<long long>(n) * db;
-  float ss = 0.f, dot = 0.f;
-  for (int j = lane; j < db; j += 32) {
-    const float* pj = part + static_cast<long long>(i) * db + j;
-    float g = 0.f;
-    for (int r = 0; r < n_tiles; ++r) g += pj[r * stride];
-    di[j] = g;
-    ss = fmaf(ui[j], ui[j], ss);
-    dot = fmaf(ui[j], g, dot);
-  }
-  const float rn = sqrtf(warp_sum(ss));
-  dot = warp_sum(dot);
-  const float s = rn + kEps;
-  for (int j = lane; j < db; j += 32) di[j] = di[j] / s - dot * ui[j] / (rn * s * s);
-}
-
-template <typename T>
-int run(const void* x, const void* w, const void* u, const void* g,
-        void* dxr, void* part, void* dx, void* du, int M, int K, int N,
-        int n, int db, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const float* uf = static_cast<const float*>(u);
+template <typename T, bool RANK2>
+int run(const void* x, const void* w, const void* u, const void* v,
+        const void* g, void* dxr, void* part, void* dx, void* du, void* dv,
+        int M, int K, int N, int n, int db, cudaStream_t s) {
   float* dxr_f = static_cast<float*>(dxr);
-  float* part_f = static_cast<float*>(part);
+  float* part_u = static_cast<float*>(part);
   // dXr (M×K) = G (M×N) · Wᵀ: A(m, k) = g[m*N + k], B(k, c) = w[c*N + k]
   cudaError_t err = launch_gemm<T, T, float, true, false, kReflectNone>(
       static_cast<const T*>(g), N, static_cast<const T*>(w), N, dxr_f, M, K, N,
-      nullptr, nullptr, nullptr, n, db, s);
+      Proj{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n, db}, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int n_tiles = (M + kRowsPerTile - 1) / kRowsPerTile;
-  const int warps = db <= 3072 ? 4 : 1;
-  const size_t shared = static_cast<size_t>(warps) * db * sizeof(float);
-  if (shared > 48 * 1024) {
-    err = cudaFuncSetAttribute(dx_epilogue_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long units = static_cast<long long>(n_tiles) * n;
-  dx_epilogue_kernel<T><<<static_cast<unsigned>((units + warps - 1) / warps),
-                          warps * 32, shared, s>>>(
-      xt, dxr_f, uf, static_cast<T*>(dx), part_f, M, K, n, db, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_f, uf, static_cast<float*>(du),
-                                        n, db, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reflect_bwd<T, float, RANK2>(
+      static_cast<const T*>(x), dxr_f, static_cast<const float*>(u),
+      static_cast<const float*>(v), static_cast<T*>(dx), part_u,
+      part_u + static_cast<long long>(row_tiles(M)) * K,
+      static_cast<float*>(du), static_cast<float*>(dv), M, K, n, db, s));
 }
 
 }  // namespace
 
-// Rows of ĝ partials the caller's `part` scratch must hold, times n·db.
-extern "C" int reflect_gemm_dx_row_tiles(int M) {
-  return (M + kRowsPerTile - 1) / kRowsPerTile;
-}
+// Rows of ĝ partials the caller's `part` scratch must hold per direction,
+// times n·db.
+extern "C" int reflect_gemm_dx_row_tiles(int M) { return row_tiles(M); }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, W, G and dx alike).  dxr is (M, K)
-// f32 scratch, part (reflect_gemm_dx_row_tiles(M), n, db) f32 scratch, both
-// written before they are read; du (n, db) f32.
+// dtype: 0 = float32, 1 = bfloat16 (x, W, G and dx alike).  v is null for
+// the reflection, ETHER+'s second hyperplanes for H⁺ (dv is then written).
+// dxr is (M, K) f32 scratch, part (reflect_gemm_dx_row_tiles(M), n, db)
+// f32 scratch per direction (twice that with v), both written before they
+// are read; du, dv (n, db) f32.
 extern "C" int reflect_gemm_dx(const void* x, const void* w, const void* u,
-                               const void* g, void* dxr, void* part, void* dx,
-                               void* du, int M, int K, int N, int n, int db,
-                               int dtype, void* stream) {
+                               const void* v, const void* g, void* dxr,
+                               void* part, void* dx, void* du, void* dv, int M,
+                               int K, int N, int n, int db, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && !v)
+    return run<float, false>(x, w, u, v, g, dxr, part, dx, du, dv, M, K, N, n,
+                             db, s);
+  if (dtype == 1 && !v)
+    return run<__nv_bfloat16, false>(x, w, u, v, g, dxr, part, dx, du, dv, M,
+                                     K, N, n, db, s);
   if (dtype == 0)
-    return run<float>(x, w, u, g, dxr, part, dx, du, M, K, N, n, db, s);
+    return run<float, true>(x, w, u, v, g, dxr, part, dx, du, dv, M, K, N, n,
+                            db, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(x, w, u, g, dxr, part, dx, du, M, K, N, n, db,
-                              s);
+    return run<__nv_bfloat16, true>(x, w, u, v, g, dxr, part, dx, du, dv, M, K,
+                                    N, n, db, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

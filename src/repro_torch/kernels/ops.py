@@ -9,22 +9,33 @@ There is no fallback from a CUDA tensor to the plain version.
 
 ``launches()`` counts launches per kernel (plain-version calls are not
 launches; ``householder_gemm_bwd`` launches ``reflect_gemm_dx``, and
-``reflect_gemm_dw`` only when asked for dW), so a run can show that its
-path went through the kernels.
+``reflect_gemm_dw`` only when asked for dW; ``etherplus_gemm_bwd``
+launches those two with ETHER+'s second hyperplanes and, two-sided,
+``etherplus_gemm`` and ``etherplus_reflect_bwd`` first;
+``etherplus_merge`` launches ``etherplus_merge_left`` and, two-sided,
+``etherplus_merge_right``), so a run can show that its path went through
+the kernels.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ether_merge as _merge
+from repro_torch.kernels import etherplus_gemm as _ep
+from repro_torch.kernels import etherplus_merge as _epm
+from repro_torch.kernels import etherplus_reflect_bwd as _rb
 from repro_torch.kernels import householder_gemm as _hh
 from repro_torch.kernels import ref
 from repro_torch.kernels import reflect_gemm_dw as _dw
 from repro_torch.kernels import reflect_gemm_dx as _dx
 
 _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
-             "reflect_gemm_dw": 0}
+             "reflect_gemm_dw": 0, "etherplus_gemm": 0,
+             "etherplus_merge_left": 0, "etherplus_merge_right": 0,
+             "etherplus_reflect_bwd": 0}
 _F32 = torch.float32
 
 
@@ -48,7 +59,9 @@ def reset_launches() -> None:
 
 def _refuse(op: str, main: torch.Tensor, main_d: int, **tensors) -> None:
     """Raise KernelInputError naming the first check the operands fail
-    (run only once the wrapper's one-expression check has failed)."""
+    (run only once the wrapper's one-expression check has failed).  The
+    ETHER+ operands are v (u's twin) and the output side's u2/v2; a None
+    u2/v2 (one-sided) is left out of ``tensors`` by the caller."""
     w, u = tensors["w"], tensors["u"]
     if main.dtype not in _hh.DTYPE_CODE:
         why = "the kernel takes float32 or bfloat16 activations and weights"
@@ -58,6 +71,12 @@ def _refuse(op: str, main: torch.Tensor, main_d: int, **tensors) -> None:
         why = "w must be a (d, f) matrix in the activations' dtype"
     elif not w.shape[0] == u.shape[0] * u.shape[1] == main_d:
         why = "need x (..., d), w (d, f) and u (n, db) with n·db = d"
+    elif "v" in tensors and not _twin_ok(u, tensors["v"]):
+        why = "v must be a float32 tensor of u's shape"
+    elif ("u2" in tensors) != ("v2" in tensors) or "u2" in tensors and not (
+            _side_ok(tensors["u2"], tensors["v2"], w.shape[1])):
+        why = ("u2 and v2 must both be given, as float32 (n_out, db_out) "
+               "tensors of one shape with n_out·db_out = f")
     elif "g" in tensors and not _g_ok(main, w, tensors["g"]):
         why = ("g must be (..., f) in the activations' dtype, with x's "
                "leading dims")
@@ -91,6 +110,28 @@ def _ok(main: torch.Tensor, main_d: int, w: torch.Tensor,
 def _g_ok(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> bool:
     """The cotangent's dtype and shape: g (..., f) matches y."""
     return g.dtype == x.dtype and g.shape == (*x.shape[:-1], w.shape[1])
+
+
+def _twin_ok(u: torch.Tensor, v: Optional[torch.Tensor]) -> bool:
+    """ETHER+'s v beside an already checked u: same shape, dtype, device
+    and layout."""
+    return (v is not None and v.dtype == _F32 and v.shape == u.shape
+            and v.device == u.device and v.is_contiguous())
+
+
+def _side_ok(u2: Optional[torch.Tensor], v2: Optional[torch.Tensor],
+             f: int) -> bool:
+    """The output side's pair: both None (one-sided), or float32
+    (n_out, db_out) twins with n_out·db_out = f."""
+    if u2 is None or v2 is None:
+        return u2 is None and v2 is None
+    return (u2.dtype == _F32 and u2.dim() == 2 and u2.is_contiguous()
+            and u2.shape[0] * u2.shape[1] == f and _twin_ok(u2, v2))
+
+
+def _given(**tensors) -> dict:
+    """The operands that are not None, for :func:`_refuse`."""
+    return {k: t for k, t in tensors.items() if t is not None}
 
 
 def _launched(op: str, err: int) -> None:
@@ -147,3 +188,87 @@ def householder_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
         err, dw = _dw.launch(x2, u, g2)
         _launched("reflect_gemm_dw", err)
     return dx.view(x.shape), dw, du
+
+
+def etherplus_gemm(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
+                   v1: torch.Tensor, u2: Optional[torch.Tensor] = None,
+                   v2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(H⁺x) @ w, and with u2/v2 the two-sided H̃⁺ on the output blocks;
+    x: (..., d); w: (d, f); u1/v1: (n, db) f32, n·db = d; u2/v2:
+    (n_out, db_out) f32, n_out·db_out = f.  Leading dims of x are
+    flattened into the kernel's row axis."""
+    d = x.shape[-1] if x.dim() else -1
+    if not (_ok(x, d, w, u1) and _twin_ok(u1, v1)
+            and _side_ok(u2, v2, w.shape[1])
+            and (u2 is None or u2.device == x.device)):
+        _refuse("etherplus_gemm", x, d,
+                **_given(x=x, w=w, u=u1, v=v1, u2=u2, v2=v2))
+    f = w.shape[1]
+    lead = x.shape[:-1]
+    x2 = x.view(-1, d)
+    if x.device.type == "cpu":
+        return ref.ref_etherplus_gemm(x2, w, u1, v1, u2, v2).view(*lead, f)
+    err, y = _ep.launch(x2, w, u1, v1, u2, v2)
+    _launched("etherplus_gemm", err)
+    return y.view(*lead, f)
+
+
+def etherplus_merge(w: torch.Tensor, u1: torch.Tensor, v1: torch.Tensor,
+                    u2: Optional[torch.Tensor] = None,
+                    v2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ETHER+ absorption H⁺·w, then ·H̃⁺ with u2/v2, the left result
+    rounded to w's dtype in between; w: (d, f); u1/v1: (n, db) f32 with
+    n·db = d; u2/v2: (n_out, db_out) f32 with n_out·db_out = f."""
+    d = w.shape[0] if w.dim() else -1
+    if not (_ok(w, d, w, u1) and _twin_ok(u1, v1)
+            and _side_ok(u2, v2, w.shape[1])
+            and (u2 is None or u2.device == w.device)):
+        _refuse("etherplus_merge", w, d,
+                **_given(w=w, u=u1, v=v1, u2=u2, v2=v2))
+    if w.device.type == "cpu":
+        return ref.ref_etherplus_merge(w, u1, v1, u2, v2)
+    err, out = _epm.launch_left(w, u1, v1)
+    _launched("etherplus_merge_left", err)
+    if u2 is not None:
+        err, out = _epm.launch_right(out, u2, v2)
+        _launched("etherplus_merge_right", err)
+    return out
+
+
+def etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
+                       v1: torch.Tensor, u2: Optional[torch.Tensor],
+                       v2: Optional[torch.Tensor], g: torch.Tensor, *,
+                       need_dw: bool):
+    """(dx, dw, du1, dv1, du2, dv2) of :func:`etherplus_gemm` under
+    cotangent g (..., f), composed as the JAX package's
+    ``ops.etherplus_gemm_bwd``: two-sided, y0 = (H⁺x)·W is recomputed by
+    the one-sided forward kernel (in x's dtype) and
+    ``etherplus_reflect_bwd`` gives dy0, du2, dv2; then the rank-2
+    ``reflect_gemm_dx`` (and ``reflect_gemm_dw`` only when ``need_dw``)
+    under dy0.  du2/dv2 are None one-sided, dw unless ``need_dw``."""
+    d = x.shape[-1] if x.dim() else -1
+    if not (_ok(x, d, w, u1) and _twin_ok(u1, v1)
+            and _side_ok(u2, v2, w.shape[1])
+            and (u2 is None or u2.device == x.device)
+            and _g_ok(x, w, g) and g.device == x.device
+            and g.is_contiguous()):
+        _refuse("etherplus_gemm_bwd", x, d,
+                **_given(x=x, w=w, u=u1, v=v1, u2=u2, v2=v2, g=g))
+    if x.device.type == "cpu":
+        return ref.ref_etherplus_gemm_bwd(x, w, u1, v1, u2, v2, g,
+                                          need_dw=need_dw)
+    x2, g2 = x.view(-1, d), g.view(-1, w.shape[1])
+    if u2 is None:
+        dy0, du2, dv2 = g2, None, None
+    else:
+        err, y0 = _ep.launch(x2, w, u1, v1)
+        _launched("etherplus_gemm", err)
+        err, dy0, du2, dv2 = _rb.launch(y0, u2, v2, g2)
+        _launched("etherplus_reflect_bwd", err)
+    err, dx, du1, dv1 = _dx.launch(x2, w, u1, dy0, v1)
+    _launched("reflect_gemm_dx", err)
+    dw = None
+    if need_dw:
+        err, dw = _dw.launch(x2, u1, dy0, v1)
+        _launched("reflect_gemm_dw", err)
+    return dx.view(x.shape), dw, du1, dv1, du2, dv2

@@ -4,11 +4,16 @@ The CPU tests hold these against the JAX package, and ``chip_smoke.py``
 holds each CUDA kernel against its plain version on the card.  Like the
 kernels (and the Pallas kernels they replace), they compute in float32
 and cast the result once to the input's dtype; the JAX package's jnp
-path instead casts û to the activation dtype first, which only differs
-under bf16.
+path instead casts û (and, for ETHER+, the pre-epilogue y) to the
+activation dtype first, which only differs under bf16.
+
+ETHER+ replaces the reflection by the blockwise rank-2 update
+H⁺x = x − û(ûᵀx) + v̂(v̂ᵀx), both projections read off the original x.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,6 +32,17 @@ def _reflect_f32(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     xb = x.float().reshape(*x.shape[:-1], n, db)
     proj = torch.einsum("...nb,nb->...n", xb, uh)
     return (xb - 2.0 * proj[..., None] * uh).reshape(x.shape)
+
+
+def _rank2_f32(x: torch.Tensor, u: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """H⁺x in float32; x: (..., d), u, v: (n, db) raw, d = n*db."""
+    n, db = u.shape
+    uh, vh = unit(u.float()), unit(v.float())
+    xb = x.float().reshape(*x.shape[:-1], n, db)
+    pu = torch.einsum("...nb,nb->...n", xb, uh)
+    pv = torch.einsum("...nb,nb->...n", xb, vh)
+    return (xb - pu[..., None] * uh + pv[..., None] * vh).reshape(x.shape)
 
 
 def ref_ether_reflect(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -51,6 +67,54 @@ def ref_ether_merge(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         w.dtype)
 
 
+def ref_etherplus_reflect(x: torch.Tensor, u: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Blockwise rank-2 update H⁺x of the last dim."""
+    return _rank2_f32(x, u, v).to(x.dtype)
+
+
+def ref_etherplus_gemm(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
+                       v1: torch.Tensor, u2: Optional[torch.Tensor] = None,
+                       v2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = (H⁺x) @ W, and with u2/v2 (n_out, db_out) the two-sided output
+    update y·H̃⁺ applied to the float32 product before the one rounding,
+    as ``_ep_gemm_kernel_2s`` does.  x: (..., d); w: (d, f)."""
+    y = _rank2_f32(x, u1, v1) @ w.float()
+    if u2 is not None:
+        y = _rank2_f32(y, u2, v2)
+    return y.to(x.dtype)
+
+
+def ref_etherplus_merge_left(w: torch.Tensor, u: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """W' = H⁺·W on the input dim (row blocks of db).  w: (d, f)."""
+    n, db = u.shape
+    d, f = w.shape
+    uh, vh = unit(u.float()), unit(v.float())
+    wb = w.float().reshape(n, db, f)
+    pu = torch.einsum("nb,nbf->nf", uh, wb)
+    pv = torch.einsum("nb,nbf->nf", vh, wb)
+    return (wb - uh[:, :, None] * pu[:, None, :]
+            + vh[:, :, None] * pv[:, None, :]).reshape(d, f).to(w.dtype)
+
+
+def ref_etherplus_merge_right(w: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """W' = W·H̃⁺ on the output dim (column blocks of db_out): each row of
+    W takes the rank-2 update.  w: (d, f); u, v: (n_out, db_out)."""
+    return ref_etherplus_reflect(w, u, v)
+
+
+def ref_etherplus_merge(w: torch.Tensor, u1: torch.Tensor, v1: torch.Tensor,
+                        u2: Optional[torch.Tensor] = None,
+                        v2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ETHER+ absorption H⁺·W (·H̃⁺ with u2/v2), the left result rounded
+    to W's dtype before the right pass, as ``ops.etherplus_merge`` runs
+    the two kernels."""
+    out = ref_etherplus_merge_left(w, u1, v1)
+    return out if u2 is None else ref_etherplus_merge_right(out, u2, v2)
+
+
 def norm_chain(u: torch.Tensor, ghat: torch.Tensor) -> torch.Tensor:
     """Pull dL/dû back through û = u/(‖u‖+ε) on the last axis (f32):
     du = ĝ/s − (u·ĝ) u/(r s²), r = ‖u‖, s = r + ε — exactly what AD of
@@ -61,31 +125,53 @@ def norm_chain(u: torch.Tensor, ghat: torch.Tensor) -> torch.Tensor:
     return ghat / s - dot * u / (r * s * s)
 
 
+def _reflect_bwd_f32(xb: torch.Tensor, gb: torch.Tensor, dirs):
+    """The backward of y = x + Σ c û(ûᵀx) over the (û, c) in ``dirs``
+    under cotangent g, blockwise, float32 (the JAX package's
+    ``reflect_bwd_tile`` per direction).  xb, gb: (T, n, db).  Returns
+    dx (T, n, db) and ĝ = c Σ_t [(ûᵀx_t) g_t + (ûᵀg_t) x_t] per direction."""
+    dx, ghats = gb, []
+    for uh, c in dirs:
+        pg = torch.einsum("tnb,nb->tn", gb, uh)
+        px = torch.einsum("tnb,nb->tn", xb, uh)
+        dx = dx + c * pg[..., None] * uh
+        ghats.append(c * (torch.einsum("tn,tnb->nb", px, gb)
+                          + torch.einsum("tn,tnb->nb", pg, xb)))
+    return dx, ghats
+
+
+def _dirs(u: torch.Tensor, v: Optional[torch.Tensor]):
+    """(û, c) of the rank-1 reflection (c = −2), or of ETHER+'s rank-2
+    update (−1 for û, +1 for v̂) when v is given."""
+    if v is None:
+        return [(unit(u.float()), -2.0)]
+    return [(unit(u.float()), -1.0), (unit(v.float()), 1.0)]
+
+
 def ref_reflect_gemm_dx(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
-                        g: torch.Tensor):
-    """(dx, du) of y = reflect(x) @ w under cotangent g, in float32:
-    dXr = g·wᵀ, dx = R(dXr) in x's dtype, and du = norm_chain(u, ĝ) with
-    ĝ = −2 Σ_t [(ûᵀx_t) dXr_t + (ûᵀdXr_t) x_t], in u's dtype.
-    x: (T, d); w: (d, f); u: (n, db); g: (T, f)."""
+                        g: torch.Tensor, v: Optional[torch.Tensor] = None):
+    """(dx, du) of y = R(x) @ w under cotangent g, in float32: dXr = g·wᵀ,
+    dx = R(dXr) in x's dtype, du = norm_chain(u, ĝ) in u's dtype.  R is
+    the reflection (ĝ = −2 Σ_t [(ûᵀx_t) dXr_t + (ûᵀdXr_t) x_t]), or with
+    v ETHER+'s H⁺, and then (dx, du, dv) with coefficients −1 and +1.
+    x: (T, d); w: (d, f); u, v: (n, db); g: (T, f)."""
     n, db = u.shape
     t = x.shape[0]
-    uf = u.float()
-    uh = unit(uf)
     dxr = (g.float() @ w.float().T).reshape(t, n, db)
-    xb = x.float().reshape(t, n, db)
-    pg = torch.einsum("tnb,nb->tn", dxr, uh)
-    px = torch.einsum("tnb,nb->tn", xb, uh)
-    dx = (dxr - 2.0 * pg[..., None] * uh).reshape(x.shape).to(x.dtype)
-    ghat = -2.0 * (torch.einsum("tn,tnb->nb", px, dxr)
-                   + torch.einsum("tn,tnb->nb", pg, xb))
-    return dx, norm_chain(uf, ghat).to(u.dtype)
+    dx, ghats = _reflect_bwd_f32(x.float().reshape(t, n, db), dxr,
+                                 _dirs(u, v))
+    grads = [norm_chain(a.float(), gh).to(a.dtype)
+             for a, gh in zip((u, v), ghats)]
+    return (dx.reshape(x.shape).to(x.dtype), *grads)
 
 
 def ref_reflect_gemm_dw(x: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
-                        w_dtype: torch.dtype) -> torch.Tensor:
-    """dW = reflect(x)ᵀ @ g in float32, rounded once to ``w_dtype``.
-    x: (T, d); u: (n, db); g: (T, f)."""
-    return (_reflect_f32(x, u).T @ g.float()).to(w_dtype)
+                        w_dtype: torch.dtype,
+                        v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dW = R(x)ᵀ @ g in float32 (R = H⁺ when v is given), rounded once
+    to ``w_dtype``.  x: (T, d); u, v: (n, db); g: (T, f)."""
+    xr = _reflect_f32(x, u) if v is None else _rank2_f32(x, u, v)
+    return (xr.T @ g.float()).to(w_dtype)
 
 
 def ref_householder_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
@@ -99,3 +185,41 @@ def ref_householder_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
     dx, du = ref_reflect_gemm_dx(x2, w, u, g2)
     dw = ref_reflect_gemm_dw(x2, u, g2, w.dtype) if need_dw else None
     return dx.reshape(x.shape), dw, du
+
+
+def ref_etherplus_reflect_bwd(x: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor):
+    """(dx, du, dv) of y = H⁺x under cotangent g (``_r2_bwd_kernel``):
+    dx = H⁺g in x's dtype, du/dv through the norm chain in u's/v's dtype.
+    x, g: (T, d); u, v: (n, db)."""
+    n, db = u.shape
+    t = x.shape[0]
+    dx, (gu, gv) = _reflect_bwd_f32(x.float().reshape(t, n, db),
+                                    g.float().reshape(t, n, db),
+                                    _dirs(u, v))
+    return (dx.reshape(x.shape).to(x.dtype),
+            norm_chain(u.float(), gu).to(u.dtype),
+            norm_chain(v.float(), gv).to(v.dtype))
+
+
+def ref_etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
+                           v1: torch.Tensor, u2: Optional[torch.Tensor],
+                           v2: Optional[torch.Tensor], g: torch.Tensor, *,
+                           need_dw: bool = True):
+    """(dx, dw, du1, dv1, du2, dv2) of :func:`ref_etherplus_gemm` under
+    cotangent g, composed as the JAX package's ``ops.etherplus_gemm_bwd``:
+    two-sided adapters recompute y0 = (H⁺x)·W in the activation dtype,
+    take dy0, du2, dv2 from the rank-2 reflection backward on it (dy0 in
+    the activation dtype), then dx, du1, dv1 (and dW) from the rank-2
+    reflect-GEMM backward under dy0.  du2/dv2 are None one-sided, dw
+    unless ``need_dw``.  x: (..., d); g: (..., f)."""
+    d, f = w.shape
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, f)
+    if u2 is None:
+        dy0, du2, dv2 = g2, None, None
+    else:
+        y0 = ref_etherplus_gemm(x2, w, u1, v1)
+        dy0, du2, dv2 = ref_etherplus_reflect_bwd(y0, u2, v2, g2)
+    dx, du1, dv1 = ref_reflect_gemm_dx(x2, w, u1, dy0, v1)
+    dw = ref_reflect_gemm_dw(x2, u1, dy0, w.dtype, v1) if need_dw else None
+    return dx.reshape(x.shape), dw, du1, dv1, du2, dv2

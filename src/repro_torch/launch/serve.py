@@ -7,7 +7,10 @@
   activations inside the ``householder_gemm`` kernel;
 * ``--merged``: the adapters are first absorbed into the weights with the
   ``ether_merge`` kernel (the paper's zero-latency deployment, §3.1) and
-  the plain model is served.
+  the plain model is served;
+* ``--method etherplus``: ETHER+ adapters (two-sided), through the
+  ``etherplus_gemm`` kernel unmerged and the ``etherplus_merge`` kernels
+  with ``--merged``.  Every other method raises NotPortedError.
 
 Weights, adapters and prompts are random, made from ``--seed``.  Runs on
 the card (``--device cuda``, the default) and raises when there is none;
@@ -123,7 +126,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--variant", default="smoke", choices=("smoke", "full"))
-    ap.add_argument("--method", default="ether")
+    ap.add_argument("--method", default="ether",
+                    help="PEFT method: ether or etherplus (repro_torch."
+                         "core.methods.available())")
     ap.add_argument("--n-blocks", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

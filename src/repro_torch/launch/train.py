@@ -5,14 +5,15 @@
         --variant smoke --steps 5
 
 Defaults run the paper's regime: frozen base + ETHER adapters (n_blocks
-32), AdamW (no weight decay, clip 1.0), cosine schedule with warmup, lr
-2e-3, batch 8 × 128 tokens, checkpoint/auto-resume when ``--ckpt-dir``
-is given.  Weights are random, made from ``--seed``.  Runs on the card
-(``--device cuda``, the default) and raises when there is none;
+32; ``--method etherplus`` for two-sided ETHER+), AdamW (no weight
+decay, clip 1.0), cosine schedule with warmup, lr 2e-3, batch 8 × 128
+tokens, checkpoint/auto-resume when ``--ckpt-dir`` is given.  Weights
+are random, made from ``--seed``.  Runs on the card (``--device cuda``,
+the default) and raises when there is none;
 ``--device cpu`` runs the plain versions of the kernels on the CPU.
 ``--backend`` picks the ETHER ops' implementation (torch, cuda, auto).
 Not ported yet (NotPortedError): ``--mesh``, ``--peft-mode weight`` and
-``blockgemm``, and every ``--method`` but ``ether``.
+``blockgemm``, and every ``--method`` but ``ether`` and ``etherplus``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the serving and training slices on the card against the same runs on the
-CPU.
+the serving and training slices (ETHER and ETHER+) on the card against
+the same runs on the CPU.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -18,9 +18,9 @@ from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute
 from repro_torch.core.peft import init_adapters, merge_params
-from repro_torch.core.transforms import PEFTConfig
+from repro_torch.core.transforms import PEFTConfig, resolve_blocks
 from repro_torch.data.pipeline import SyntheticLMStream
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import etherplus_reflect_bwd, ops, ref
 from repro_torch.launch import serve, steps
 from repro_torch.models.api import init_model
 from repro_torch.optim import adamw, schedules
@@ -65,6 +65,11 @@ def _max_err(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def _launched(**counts):
+    """Every kernel's launch count: those given, 0 for the rest."""
+    return {**dict.fromkeys(ops.launches(), 0), **counts}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,f,n", SHAPES)
 def test_kernels_match_plain_versions(cuda_device, t, d, f, n, dtype):
@@ -73,8 +78,7 @@ def test_kernels_match_plain_versions(cuda_device, t, d, f, n, dtype):
     y = ops.householder_gemm(x, w, u)
     m = ops.ether_merge(w, u)
     torch.cuda.synchronize()
-    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 1,
-                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
+    assert ops.launches() == _launched(householder_gemm=1, ether_merge=1)
     assert y.dtype == dtype and m.dtype == dtype and y.shape == (t, f)
     assert _max_err(y, ref.ref_householder_gemm(x, w, u)) < TOL[dtype]
     assert _max_err(m, ref.ref_ether_merge(w, u)) < TOL[dtype]
@@ -89,8 +93,7 @@ def test_wrappers_refuse_on_the_card_without_fallback(cuda_device):
         ops.householder_gemm(x, w.cpu(), u)
     with pytest.raises(ops.KernelInputError, match="contiguous"):
         ops.ether_merge(w.t().contiguous().t(), u)
-    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
-                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
+    assert ops.launches() == _launched()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -103,8 +106,7 @@ def test_backward_kernels_match_plain_versions(cuda_device, t, d, f, n,
     ops.reset_launches()
     dx, dw, du = ops.householder_gemm_bwd(x, w, u, g, need_dw=True)
     torch.cuda.synchronize()
-    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
-                              "reflect_gemm_dx": 1, "reflect_gemm_dw": 1}
+    assert ops.launches() == _launched(reflect_gemm_dx=1, reflect_gemm_dw=1)
     pdx, pdw, pdu = ref.ref_householder_gemm_bwd(x, w, u, g)
     assert dx.dtype == dw.dtype == dtype and du.dtype == torch.float32
     assert _max_err(dx, pdx) < TOL[dtype]
@@ -128,8 +130,8 @@ def test_backward_with_a_trainable_weight_launches_reflect_gemm_dw(
         execute.reset_counters()
         execute.HouseholderGemm.apply(*leaves, "auto").backward(g.to(dev))
         grads[str(dev)] = [t.grad for t in leaves]
-    assert ops.launches() == {"householder_gemm": 1, "ether_merge": 0,
-                              "reflect_gemm_dx": 1, "reflect_gemm_dw": 1}
+    assert ops.launches() == _launched(householder_gemm=1, reflect_gemm_dx=1,
+                                       reflect_gemm_dw=1)
     assert execute.counters() == {"householder_gemm.cuda": 1,
                                   "householder_gemm_bwd.cuda": 1}
     for card, cpu in zip(grads["cuda"], grads["cpu"]):
@@ -155,9 +157,8 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
     per_pass = 7 * cfg.n_layers
     assert execute.counters() == {"householder_gemm.cuda": per_pass,
                                   "householder_gemm_bwd.cuda": per_pass}
-    assert ops.launches() == {"householder_gemm": per_pass, "ether_merge": 0,
-                              "reflect_gemm_dx": per_pass,
-                              "reflect_gemm_dw": 0}
+    assert ops.launches() == _launched(householder_gemm=per_pass,
+                                       reflect_gemm_dx=per_pass)
     (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
     for k in ("loss", "grad_norm"):
         assert abs(cm[k].item() - pm[k].item()) <= 1e-4 * abs(pm[k].item())
@@ -197,5 +198,169 @@ def test_smoke_serving_on_the_card_matches_the_cpu(cuda_device, merged):
     else:
         assert calls == {"householder_gemm.cuda":
                          7 * cfg.n_layers * card["forwards"]}
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# ETHER+: every adapter below has v drawn apart from u (H⁺ ≠ I), so a
+# kernel that dropped either direction would disagree
+# ---------------------------------------------------------------------------
+
+def _ep_adapters(device, d, f, n, two_sided, seed):
+    rng = np.random.default_rng(seed)
+    n_out = resolve_blocks(n, f)
+    a = [rng.standard_normal((n, d // n), np.float32) for _ in range(2)]
+    if two_sided:
+        a += [rng.standard_normal((n_out, f // n_out), np.float32)
+              for _ in range(2)]
+    else:
+        a += [None, None]
+    return [None if t is None else torch.from_numpy(t).to(device) for t in a]
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f,n", SHAPES)
+def test_etherplus_kernels_match_plain_versions(cuda_device, t, d, f, n,
+                                                dtype, two_sided):
+    x, w, _ = _inputs(cuda_device, t, d, f, n, dtype)
+    u1, v1, u2, v2 = _ep_adapters(cuda_device, d, f, n, two_sided, t + f)
+    ops.reset_launches()
+    y = ops.etherplus_gemm(x, w, u1, v1, u2, v2)
+    m = ops.etherplus_merge(w, u1, v1, u2, v2)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(
+        etherplus_gemm=1, etherplus_merge_left=1,
+        etherplus_merge_right=int(two_sided))
+    assert y.dtype == m.dtype == dtype and y.shape == (t, f)
+    assert _max_err(y, ref.ref_etherplus_gemm(x, w, u1, v1, u2, v2)) \
+        < TOL[dtype]
+    assert _max_err(m, ref.ref_etherplus_merge(w, u1, v1, u2, v2)) \
+        < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f,n", BWD_SHAPES)
+def test_etherplus_backward_kernels_match_plain_versions(cuda_device, t, d,
+                                                         f, n, dtype):
+    x, w, _ = _inputs(cuda_device, t, d, f, n, dtype)
+    u1, v1, u2, v2 = _ep_adapters(cuda_device, d, f, n, True, t + d)
+    g = torch.randn(t, f, generator=torch.Generator().manual_seed(t)
+                    ).to(cuda_device, dtype)
+    ops.reset_launches()
+    got = ops.etherplus_gemm_bwd(x, w, u1, v1, u2, v2, g, need_dw=True)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(etherplus_gemm=1,
+                                       etherplus_reflect_bwd=1,
+                                       reflect_gemm_dx=1, reflect_gemm_dw=1)
+    want = ref.ref_etherplus_gemm_bwd(x, w, u1, v1, u2, v2, g)
+    for name, a, b in zip(("dx", "dw", "du1", "dv1", "du2", "dv2"), got,
+                          want):
+        assert a.dtype == b.dtype, name
+        if name in ("dx", "dw"):
+            assert _max_err(a, b) < TOL[dtype], name
+        else:
+            assert ((a - b).norm() / b.norm()).item() < DU_TOL, name
+    # one-sided: the rank-2 dx/dw kernels alone, and no atomics anywhere
+    ops.reset_launches()
+    one = ops.etherplus_gemm_bwd(x, w, u1, v1, None, None, g, need_dw=False)
+    assert ops.launches() == _launched(reflect_gemm_dx=1)
+    assert one[1] is None and one[4] is None and one[5] is None
+    pdx, pdu, pdv = ref.ref_reflect_gemm_dx(x, w, u1, g, v1)
+    assert _max_err(one[0], pdx) < TOL[dtype]
+    for a, b in ((one[2], pdu), (one[3], pdv)):
+        assert ((a - b).norm() / b.norm()).item() < DU_TOL
+    again = ops.etherplus_gemm_bwd(x, w, u1, v1, None, None, g,
+                                   need_dw=False)
+    assert all(torch.equal(a, b) for a, b in zip(one[:4:2], again[:4:2]))
+    # the output-side backward's kernel on its own
+    y0 = ref.ref_etherplus_gemm(x, w, u1, v1)
+    err, *rb = etherplus_reflect_bwd.launch(y0, u2, v2, g)
+    assert err == 0
+    for a, b in zip(rb, ref.ref_etherplus_reflect_bwd(y0, u2, v2, g)):
+        assert (_max_err(a, b) < TOL[dtype] if a.dtype == dtype
+                else ((a - b).norm() / b.norm()).item() < DU_TOL)
+
+
+def _ep_peft(arch, **kw):
+    return PEFTConfig(method="etherplus", n_blocks=8,
+                      targets=peft_targets(arch), **kw)
+
+
+def _perturbed(adapters):
+    """v drawn apart from u, as training moves them (init has v = u)."""
+    gen = torch.Generator().manual_seed(3)
+    return map_with_paths(
+        lambda p, t: (t.detach() + 0.5 * torch.randn(t.shape, generator=gen)
+                      if p.rsplit("/", 1)[-1].startswith("v") else t.detach()),
+        adapters)
+
+
+@pytest.mark.parametrize("two_sided", [True, False])
+def test_etherplus_smoke_train_step_on_the_card_matches_the_cpu(cuda_device,
+                                                                two_sided):
+    cfg = get_config("smollm-360m", "smoke")
+    peft = _ep_peft("smollm-360m", two_sided=two_sided)
+    opt = adamw(schedules.cosine(2e-3, 4, 0))
+    state = steps.init_state(cfg, peft, opt, seed=0, device="cpu")
+    state = steps.make_state(state["params"], _perturbed(state["adapters"]),
+                             peft, opt)
+    batch = {k: torch.from_numpy(v).long() for k, v in SyntheticLMStream(
+        vocab=cfg.vocab, batch=2, seq_len=16).batch_at(0).items()}
+    step = steps.make_train_step(cfg, peft, opt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        moved = map_with_paths(lambda _, t: t.detach().to(dev)
+                               .requires_grad_(t.requires_grad), state)
+        ops.reset_launches()
+        execute.reset_counters()
+        out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
+    per_pass = 7 * cfg.n_layers
+    assert execute.counters() == {"etherplus_gemm.cuda": per_pass,
+                                  "etherplus_gemm_bwd.cuda": per_pass}
+    sides = int(two_sided)
+    assert ops.launches() == _launched(
+        etherplus_gemm=(1 + sides) * per_pass,
+        etherplus_reflect_bwd=sides * per_pass, reflect_gemm_dx=per_pass)
+    (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(cm[k].item() - pm[k].item()) <= 1e-4 * abs(pm[k].item())
+    want = dict(flatten_with_paths(cpu["adapters"]))
+    for path, leaf in flatten_with_paths(card["adapters"]):
+        assert _max_err(leaf.detach(), want[path].detach()) < 1e-4, path
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_etherplus_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
+                                                             merged):
+    cfg = get_config("smollm-360m", "smoke")
+    peft = _ep_peft("smollm-360m")
+    params = init_model(cfg, seed=0, device="cpu")
+    adapters = _perturbed(init_adapters(torch.Generator().manual_seed(1),
+                                        params, peft))
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p, a = _to(params, dev), _to(adapters, dev)
+        execute.reset_counters()
+        ops.reset_launches()
+        if merged:
+            p, a, pc = merge_params(p, a, peft), None, None
+        else:
+            pc = peft
+        runs[str(dev)] = (serve.generate(p, a, tokens.to(dev), cfg, pc, 4),
+                          execute.counters(), ops.launches())
+    (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    per_pass = 7 * cfg.n_layers
+    if merged:
+        assert calls == {"etherplus_merge.cuda": per_pass}
+        assert launched == _launched(etherplus_merge_left=per_pass,
+                                     etherplus_merge_right=per_pass)
+    else:
+        assert calls == {"etherplus_gemm.cuda": per_pass * card["forwards"]}
+        assert launched == _launched(
+            etherplus_gemm=per_pass * card["forwards"])
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])

@@ -110,8 +110,9 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
         ref.ref_householder_gemm(_t(x), _t(w), _t(u)).numpy())
     np.testing.assert_array_equal(ops.ether_merge(_t(w), _t(u)).numpy(),
                                   ref.ref_ether_merge(_t(w), _t(u)).numpy())
-    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
-                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
+    assert ops.launches() == dict.fromkeys(ops.launches(), 0)
+    assert set(ops.launches()) >= {"householder_gemm", "ether_merge",
+                                   "reflect_gemm_dx", "reflect_gemm_dw"}
 
 
 @pytest.mark.parametrize("case", ["float16", "w_dtype", "u_float64",
@@ -156,8 +157,7 @@ def test_cuda_backend_on_cpu_raises_without_running_the_plain_version(
         T.adapted_dense(x, w, None, {"u": u}, peft)
     assert ran == []
     assert execute.counters() == {}
-    assert ops.launches() == {"householder_gemm": 0, "ether_merge": 0,
-                              "reflect_gemm_dx": 0, "reflect_gemm_dw": 0}
+    assert ops.launches() == dict.fromkeys(ops.launches(), 0)
 
 
 def test_auto_backend_takes_the_plain_version_on_cpu():
