@@ -43,12 +43,41 @@
    method's own init, through ``Trainer``; the same checks, with the
    ETHER+ backward's counts (the y0 recompute and
    ``etherplus_reflect_bwd`` in every adapted linear's backward).
+7. Serve DeLoRA: phase 3's model and requests with DeLoRA at rank 8 on
+   all seven linears, its b and λ moved off the method's init (b = 0 is
+   ΔW = 0) from a seed, through ``serve.generate`` unmerged
+   (``delora_gemm``) and after ``merge_params`` (``delora_merge``):
+   counts, merged vs unmerged and kernels vs plain path, and the adapters
+   must move the logits by more than the tolerance; then the decode
+   step's trace, as phase 3.
+8. Train DeLoRA: phase 4 with DeLoRA (rank 8) from the method's own init
+   (b = 0, so s starts at λ/(r·ε)), through ``Trainer``: the forward, its
+   remat recompute and the dx of every backward on ``delora_gemm``, no
+   ``reflect_gemm_dw``; the same checks as phase 4, but the adapter
+   update is held to its limit on a second pair of runs (kernels, plain)
+   from b ≠ 0: from b = 0 its first step is a sign pattern that rounding
+   decides (see phase_train).
+9. Serve HyperAdapt: phase 7 with HyperAdapt, its r and c drawn about 1
+   (``hyperadapt_gemm``, ``hyperadapt_merge``).
+10. Train HyperAdapt: phase 8 with HyperAdapt from its init (r = c = 1):
+   the forward, remat, and the backward's z and y0 on ``hyperadapt_gemm``.
+11. The plain-PyTorch methods at full width on the card: LoRA, OFT and
+   Naive (adapters moved off their init from a seed) serve unmerged and
+   merged, ``full`` unmerged; each trains 2 steps from its init through
+   ``launch/steps`` with a finite loss; nothing dispatches to a kernel.
+   Prints step ms and peak memory (full finetuning's above all).
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
 rank 1 and, with ETHER+'s v, rank 2, and ``etherplus_reflect_bwd`` on the
 output side, and times them beside ``torch.matmul`` of the GEMM inside
-each.
+each.  For DeLoRA and HyperAdapt it holds ``delora_gemm`` (r ∈ {8, 64})
+and ``hyperadapt_gemm`` at the forward rows, ``delora_merge`` and
+``hyperadapt_merge`` on the weights, and the backward compositions
+``delora_gemm_bwd`` and ``hyperadapt_gemm_bwd`` at the backward rows, on
+operands off the methods' identity init, to METHOD_TOL; ``delora_merge``
+is also timed beside ``torch.addmm(w, a·s, b)``, the one PyTorch call
+that computes it.
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -111,6 +140,24 @@ TRAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3, "update": 5e-2}
 # ETHER+ serving (phase 5): how far v1/v2 are drawn from u1/u2, relative
 # to their (unit-variance) entries
 EP_SPREAD = 0.5
+# DeLoRA and HyperAdapt rows of phase 2: normalised max error against the
+# plain version, over every output of a row (the ETHER+ kernels measured
+# f32 ≤ 5.3e-6 over the same sweep, PERF.md); DeLoRA's ranks
+METHOD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+METHOD_RANKS = (8, 64)
+# phases 7-10: rank 8 on all seven linears (alpha = rank, as the train
+# CLI sets it); phases 7 and 9 move the adapters off the method's init:
+# DeLoRA's b (its scale normalises away, so only the direction counts)
+# and λ (to about 2, λ/r = 0.25 per normalised component), HyperAdapt's
+# r and c to 1 + HA_SPREAD·N(0, 1)
+METHOD_RANK, DELORA_LAM, DELORA_LAM_SPREAD, HA_SPREAD = 8, 2.0, 0.5, 0.1
+# phase 8 also trains DeLoRA from b = DELORA_B0·N(0, 1), where its update
+# does not start as a sign pattern (see phase_train)
+DELORA_B0 = 0.05
+# phase 11: the plain-PyTorch methods' adapters moved off their init by
+# this much: LoRA's b, OFT's R, Naive's m − I
+BASELINE_SPREAD = {"lora": 0.05, "oft": 0.01, "naive": 0.01}
+BASELINE_GEN, BASELINE_STEPS = 4, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -527,6 +574,176 @@ def rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen, n_out, x, w, g, u,
              matmul_ms=None, bound_ms=rb_b[0], bound_by=rb_b[1])]
 
 
+def method_kernel_rows(torch, ops, ref):
+    """Phase 2, DeLoRA and HyperAdapt: delora_gemm (r ∈ METHOD_RANKS) and
+    hyperadapt_gemm at the forward rows, delora_merge and hyperadapt_merge
+    on the weights, and the backward compositions delora_gemm_bwd and
+    hyperadapt_gemm_bwd (no dW: PEFT) at the backward rows, each through
+    its wrapper against its plain version, timed beside it and beside
+    ``torch.matmul`` of the GEMM inside (``torch.addmm`` for
+    delora_merge).  Every operand is off the methods' identity init (b ≠
+    0, r and c ≠ 1), from a generator of its own."""
+    print("== phase 2: DeLoRA and HyperAdapt kernels against their plain "
+          "versions", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def errs(pairs):
+        """(max abs error, normalised max error) over a row's outputs."""
+        e = [((a.float() - b.float()).abs().max().item(),
+              b.float().abs().max().item()) for a, b in pairs]
+        return max(x for x, _ in e), max(x / m for x, m in e)
+
+    def add(kernel, dtype, pairs, **kw):
+        err, rel = errs(pairs)
+        check(rel <= METHOD_TOL[dtype], f"{kernel} disagrees with its plain "
+              f"version at {kw}: {rel:.3e} > {METHOD_TOL[dtype]:g}")
+        row = dict(kernel=kernel, dtype=dtype, max_abs_err=err, rel_err=rel,
+                   tol=METHOD_TOL[dtype], n=None, **kw)
+        row.setdefault("matmul_ms", None)
+        row.setdefault("library_ms", None)
+        rows.append(row)
+        print("  {kernel:19s} {arch:11s} {dtype:8s} r={r!s:4s} T={t!s:4s} "
+              "d={d:5d} f={f:5d}  err {rel_err:.2e} (tol {tol:g})  "
+              "{ms:.4f} ms  plain {plain_ms:.4f} ms  ".format(**row)
+              + (f"matmul {row['matmul_ms']:.4f} ms  " if row["matmul_ms"]
+                 else "")
+              + (f"addmm {row['library_ms']:.4f} ms  " if row["library_ms"]
+                 else "")
+              + "bound {bound_ms:.4f} ms ({bound_by})".format(**row),
+              flush=True)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for arch, shapes in LINEARS.items():
+            for d, f in shapes:
+                w0 = randn(d, f) / d ** .5
+                ws = [w0.to(dt).clone() for _ in
+                      range(max(1, min(256, int(100e6 // (d * f * es)) + 1)))]
+                w = ws[0]
+                rr, c = 1 + 0.3 * randn(d), 1 + 0.3 * randn(f)
+                lr = {r: (randn(d, r), randn(r, f),
+                          (randn(r).abs() + 0.1).to(dt))
+                      for r in METHOD_RANKS}
+                common = dict(arch=arch, d=d, f=f)
+                for r, (a, b, sv) in lr.items():
+                    as_, bb = (a * sv.float()).to(dt), b.to(dt)
+                    add("delora_merge", dtype,
+                        [(ops.delora_merge(w, a, b, sv),
+                          ref.ref_delora_merge(w, a, b, sv))],
+                        t=None, r=r, **common,
+                        ms=timed_ms(torch, [lambda w=w: ops.delora_merge(
+                            w, a, b, sv) for w in ws]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w: ref.ref_delora_merge(w, a, b, sv)
+                            for w in ws]),
+                        library_ms=timed_ms(torch, [
+                            lambda w=w: torch.addmm(w, as_, bb) for w in ws]),
+                        **dict(zip(("bound_ms", "bound_by"), bound(
+                            2 * d * f * es + 4 * r * (d + f) + r * es,
+                            2 * d * f * r + d * r + d * f, dtype))))
+                add("hyperadapt_merge", dtype,
+                    [(ops.hyperadapt_merge(w, rr, c),
+                      ref.ref_hyperadapt_merge(w, rr, c))],
+                    t=None, r=None, **common,
+                    ms=timed_ms(torch, [lambda w=w: ops.hyperadapt_merge(
+                        w, rr, c) for w in ws]),
+                    plain_ms=timed_ms(torch, [
+                        lambda w=w: ref.ref_hyperadapt_merge(w, rr, c)
+                        for w in ws]),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        2 * d * f * es + 4 * (d + f), 2 * d * f, dtype))))
+                for t in ROWS:
+                    x = randn(t, d).to(dt)
+                    mm = timed_ms(torch, [lambda w=w: torch.matmul(x, w)
+                                          for w in ws])
+                    for r, (a, b, sv) in lr.items():
+                        add("delora_gemm", dtype,
+                            [(ops.delora_gemm(x, w, a, b, sv),
+                              ref.ref_delora_gemm(x, w, a, b, sv))],
+                            t=t, r=r, **common, matmul_ms=mm,
+                            ms=timed_ms(torch, [
+                                lambda w=w: ops.delora_gemm(x, w, a, b, sv)
+                                for w in ws]),
+                            plain_ms=timed_ms(torch, [
+                                lambda w=w: ref.ref_delora_gemm(x, w, a, b, sv)
+                                for w in ws]),
+                            **dict(zip(("bound_ms", "bound_by"), bound(
+                                (t * d + d * f + t * f) * es
+                                + 4 * r * (d + f) + r * es,
+                                2 * t * d * f + 2 * t * r * (d + f)
+                                + t * (r + f), dtype))))
+                    add("hyperadapt_gemm", dtype,
+                        [(ops.hyperadapt_gemm(x, w, rr, c),
+                          ref.ref_hyperadapt_gemm(x, w, rr, c))],
+                        t=t, r=None, **common, matmul_ms=mm,
+                        ms=timed_ms(torch, [
+                            lambda w=w: ops.hyperadapt_gemm(x, w, rr, c)
+                            for w in ws]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w: ref.ref_hyperadapt_gemm(x, w, rr, c)
+                            for w in ws]),
+                        **dict(zip(("bound_ms", "bound_by"), bound(
+                            (t * d + d * f + t * f) * es + 4 * (d + f),
+                            2 * t * d * f + t * (d + f), dtype))))
+                del ws, w
+
+        # the backward compositions, at phase 2's backward rows
+        shapes = [(arch, d, f, t) for arch, lin in LINEARS.items()
+                  for d, f in lin for t in BWD_ROWS]
+        shapes += [(ARCH, d, f, BWD_RAGGED) for d, f in LINEARS[ARCH]]
+        for arch, d, f, t in shapes:
+            w = (randn(d, f) / d ** .5).to(dt)
+            x, g = randn(t, d).to(dt), randn(t, f).to(dt)
+            rr, c = 1 + 0.3 * randn(d), 1 + 0.3 * randn(f)
+            common = dict(arch=arch, d=d, f=f, t=t)
+            mm = timed_ms(torch, [lambda: torch.matmul(g, w.T)])
+            for r in METHOD_RANKS:
+                a, b, sv = randn(d, r), randn(r, f), (randn(r).abs()
+                                                      + 0.1).to(dt)
+                ops.reset_launches()
+                got = ops.delora_gemm_bwd(x, w, a, b, sv, g, need_dw=False)
+                check(ops.launches()["delora_gemm"] == 1 and got[1] is None,
+                      f"delora_gemm_bwd launched {ops.launches()}")
+                want = ref.ref_delora_gemm_bwd(x, w, a, b, sv, g,
+                                               need_dw=False)
+                add("delora_gemm_bwd", dtype,
+                    [(p, q) for p, q in zip(got, want) if q is not None],
+                    r=r, **common, matmul_ms=mm,
+                    ms=timed_ms(torch, [lambda: ops.delora_gemm_bwd(
+                        x, w, a, b, sv, g, need_dw=False)]),
+                    plain_ms=timed_ms(torch, [lambda: ref.ref_delora_gemm_bwd(
+                        x, w, a, b, sv, g, need_dw=False)]),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        (2 * t * d + d * f + t * f) * es + 8 * r * (d + f)
+                        + 2 * r * es,
+                        2 * t * d * f + 6 * t * r * (d + f) + 2 * t * r,
+                        dtype))))
+            ops.reset_launches()
+            got = ops.hyperadapt_gemm_bwd(x, w, rr, c, g, need_dw=False)
+            check(ops.launches()["hyperadapt_gemm"] == 2 and got[1] is None,
+                  f"hyperadapt_gemm_bwd launched {ops.launches()}")
+            want = ref.ref_hyperadapt_gemm_bwd(x, w, rr, c, g, need_dw=False)
+            add("hyperadapt_gemm_bwd", dtype,
+                [(p, q) for p, q in zip(got, want) if q is not None],
+                r=None, **common,
+                matmul_ms=mm + timed_ms(torch, [lambda: torch.matmul(x, w)]),
+                ms=timed_ms(torch, [lambda: ops.hyperadapt_gemm_bwd(
+                    x, w, rr, c, g, need_dw=False)]),
+                plain_ms=timed_ms(torch, [lambda: ref.ref_hyperadapt_gemm_bwd(
+                    x, w, rr, c, g, need_dw=False)]),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    (2 * t * d + d * f + t * f) * es + 8 * (d + f),
+                    4 * t * d * f + 4 * t * d + 3 * t * f, dtype))))
+            del w, x, g
+    torch.cuda.synchronize()
+    return rows
+
+
 def layer_summary(rows, kernel, n, t, **match):
     """Sum over one smollm-360m layer's seven linears (bf16, ``n``
     blocks, ``t`` rows; None for the merges; the rows whose other keys
@@ -535,12 +752,13 @@ def layer_summary(rows, kernel, n, t, **match):
     pick = [r for r in rows if r["kernel"] == kernel and r["arch"] == ARCH
             and r["dtype"] == "bfloat16" and r["n"] == n and r["t"] == t
             and all(r.get(k) == v for k, v in match.items())]
-    out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "matmul_ms")}
+    out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms", "matmul_ms",
+                            "library_ms")}
     by = {"bytes": 0.0, "operations": 0.0}
     for r in pick:
         mult = LAYER[(r["d"], r["f"])]
         for k in out:
-            out[k] += mult * (r[k] or 0.0)
+            out[k] += mult * (r.get(k) or 0.0)
         by[r["bound_by"]] += mult * r["bound_ms"]
     check(sum(LAYER.values()) == sum(LAYER[(r["d"], r["f"])] for r in pick),
           f"{kernel}: missing main-path shapes in the kernel table")
@@ -549,14 +767,14 @@ def layer_summary(rows, kernel, n, t, **match):
     return out
 
 
-def run_path(torch, execute, ops, serve, **kw):
-    """Drive one main path through the CLI's ``serve`` entry point with
-    every count set to 0 just before it, and read the path's own dispatch
-    counters, kernel launches and peak memory just after it."""
+def counted(torch, execute, ops, run):
+    """``run()``, a main path, with every count set to 0 just before it;
+    its result with the path's own dispatch counters, kernel launches and
+    peak memory read just after it."""
     execute.reset_counters()
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    r = serve.serve(**kw)
+    r = run()
     r["counters"], r["launches"] = execute.counters(), ops.launches()
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
@@ -676,9 +894,10 @@ def phase_serve(torch, execute, ops, serve, api):
           f"B={B} P={P} gen={GEN}", flush=True)
     kw = dict(arch=ARCH, variant="full", n_blocks=N_BLOCKS, batch=B,
               prompt_len=P, seed=0, device="cuda")
-    un = run_path(torch, execute, ops, serve, backend="auto", gen=GEN, **kw)
-    mg = run_path(torch, execute, ops, serve, backend="auto", gen=GEN,
-                  merged=True, **kw)
+    un = counted(torch, execute, ops, lambda: serve.serve(
+        backend="auto", gen=GEN, **kw))
+    mg = counted(torch, execute, ops, lambda: serve.serve(
+        backend="auto", gen=GEN, merged=True, **kw))
 
     from repro_torch.configs import get_config
     cfg = get_config(ARCH, "full")
@@ -733,37 +952,54 @@ def phase_serve(torch, execute, ops, serve, api):
                 traces=traces)
 
 
-def phase_serve_etherplus(torch, execute, ops, serve, api):
-    """Phase 5: phase 3's model and requests with two-sided ETHER+, v1/v2
-    drawn apart from u1/u2 (seed 5), through ``serve.generate`` unmerged
-    and after ``merge_params`` (each with every count set to 0 just
-    before it); see the module docstring."""
+def off_init(torch, adapters, moves, seed):
+    """``adapters`` with the leaves named in ``moves`` (leaf name →
+    function of (leaf, unit normal noise)) moved off the method's init,
+    the noise from a generator seeded with ``seed``."""
+    from repro_torch.common.pytree import map_with_paths
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def move(path, t):
+        fn = moves.get(path.rsplit("/", 1)[-1])
+        if fn is None:
+            return t
+        return fn(t, torch.randn(t.shape, generator=gen, device=t.device,
+                                 dtype=t.dtype))
+    return map_with_paths(move, adapters)
+
+
+def phase_serve_method(torch, execute, ops, serve, api, phase, method):
+    """Phases 5 (``method`` "etherplus", two-sided), 7 ("delora") and 9
+    ("hyperadapt"): phase 3's model and requests with the method's
+    adapters moved off its init (ETHER+'s v1/v2 drawn apart from u1/u2,
+    DeLoRA's b and λ, HyperAdapt's r and c about 1), through
+    ``serve.generate`` unmerged and after ``merge_params``, each with
+    every count set to 0 just before it, then traces the decode step of
+    each.  See the module docstring."""
     import dataclasses
 
-    from repro_torch.common.pytree import map_with_paths
     from repro_torch.core.peft import merge_params
-    print(f"== phase 5: serve {ARCH} full width, ETHER+ two-sided n_blocks="
-          f"{N_BLOCKS}, B={B} P={P} gen={GEN}, v drawn apart from u "
-          f"(spread {EP_SPREAD:g})", flush=True)
-    kw = dict(arch=ARCH, variant="full", method="etherplus",
-              n_blocks=N_BLOCKS, batch=B, prompt_len=P, seed=0, device="cuda")
+    moves = {"etherplus": {k: lambda t, z: t + EP_SPREAD * z
+                           for k in ("v1", "v2")},
+             "delora": {"b": lambda t, z: z,
+                        "lam": lambda t, z: DELORA_LAM
+                        + DELORA_LAM_SPREAD * z},
+             "hyperadapt": {"r": lambda t, z: 1 + HA_SPREAD * z,
+                            "c": lambda t, z: 1 + HA_SPREAD * z}}[method]
+    label = {"etherplus": f"ETHER+ two-sided n_blocks={N_BLOCKS}, v drawn "
+                          f"apart from u (spread {EP_SPREAD:g})",
+             "delora": f"DeLoRA rank {METHOD_RANK}, b ~ N(0, 1), λ ~ "
+                       f"{DELORA_LAM:g} + {DELORA_LAM_SPREAD:g}·N(0, 1)",
+             "hyperadapt": f"HyperAdapt, r and c ~ 1 + {HA_SPREAD:g}·"
+                           f"N(0, 1)"}[method]
+    print(f"== phase {phase}: serve {ARCH} full width, {label}, B={B} P={P} "
+          f"gen={GEN}", flush=True)
+    kw = dict(arch=ARCH, variant="full", method=method, n_blocks=N_BLOCKS,
+              rank=METHOD_RANK, batch=B, prompt_len=P, seed=0, device="cuda")
     m = serve.build(**kw)
     cfg, peft, params, tokens = (m[k] for k in ("cfg", "peft", "params",
                                                 "tokens"))
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    adapters = map_with_paths(
-        lambda p, t: t + EP_SPREAD * torch.randn(
-            t.shape, generator=gen, device=t.device, dtype=t.dtype)
-        if p.rsplit("/", 1)[-1] in ("v1", "v2") else t, m["adapters"])
-
-    def counted(run):
-        execute.reset_counters()
-        ops.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        r = run()
-        r["counters"], r["launches"] = execute.counters(), ops.launches()
-        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        return r
+    adapters = off_init(torch, m["adapters"], moves, phase)
 
     def merged():
         t0 = time.perf_counter()
@@ -773,18 +1009,20 @@ def phase_serve_etherplus(torch, execute, ops, serve, api):
         return dict(serve.generate(mp, None, tokens, cfg, None, GEN),
                     merge_s=merge_s)
 
-    un = counted(lambda: dict(serve.generate(params, adapters, tokens, cfg,
-                                             peft, GEN), merge_s=None))
-    mg = counted(merged)
+    un = counted(torch, execute, ops, lambda: dict(serve.generate(
+        params, adapters, tokens, cfg, peft, GEN), merge_s=None))
+    mg = counted(torch, execute, ops, merged)
     per_forward = 7 * cfg.n_layers
     none = dict.fromkeys(ops.launches(), 0)
-    want = {"unmerged": ({"etherplus_gemm.cuda": per_forward
+    # ETHER+ merges with two kernels, left then right
+    merges = {"etherplus": ("etherplus_merge_left", "etherplus_merge_right")
+              }.get(method, (f"{method}_merge",))
+    want = {"unmerged": ({f"{method}_gemm.cuda": per_forward
                           * un["forwards"]},
-                         {**none, "etherplus_gemm": per_forward
+                         {**none, f"{method}_gemm": per_forward
                           * un["forwards"]}),
-            "merged": ({"etherplus_merge.cuda": per_forward},
-                       {**none, "etherplus_merge_left": per_forward,
-                        "etherplus_merge_right": per_forward})}
+            "merged": ({f"{method}_merge.cuda": per_forward},
+                       {**none, **dict.fromkeys(merges, per_forward)})}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
 
     # outside the counted runs: the frozen model, and the plain versions
@@ -796,24 +1034,23 @@ def phase_serve_etherplus(torch, execute, ops, serve, api):
     plain_err = frob(un["logits"], plain["logits"])
     print(f"adapters vs frozen model: logits rel. Frobenius {effect:.3e} "
           f"(must exceed {SERVE_TOL:g}, so that the checks below can see a "
-          f"dropped direction)")
+          f"dropped update)")
     print(f"merged vs unmerged: logits rel. Frobenius {merged_err:.3e} "
           f"(tol {SERVE_TOL:g}), greedy tokens agree "
           f"{agree(mg['tokens'], un['tokens']) * 100:.1f}%")
     print(f"kernels vs plain path: logits rel. Frobenius {plain_err:.3e} "
           f"(tol {SERVE_TOL:g}), greedy tokens agree "
           f"{agree(un['tokens'][:, :5], plain['tokens']) * 100:.1f}%")
-    check(effect > SERVE_TOL, f"ETHER+ adapters moved the logits by only "
+    check(effect > SERVE_TOL, f"{method} adapters moved the logits by only "
           f"{effect:.3e}")
     check(merged_err <= SERVE_TOL and plain_err <= SERVE_TOL,
-          "ETHER+ serving paths disagree")
+          f"{method} serving paths disagree")
 
-    traces = {}
+    traces = {}                     # the decode step, outside the counts
     for name, r in (("unmerged", un), ("merged", mg)):
-        t = traces[name] = profile_decode(torch, serve, api, GEN,
-                                          merged=r["merge_s"] is not None,
-                                          **kw)
-        print_trace(f"etherplus {name}", t, r["per_token_s"] * 1e3)
+        t = traces[name] = profile_decode(
+            torch, serve, api, GEN, merged=r["merge_s"] is not None, **kw)
+        print_trace(f"{method} {name}", t, r["per_token_s"] * 1e3)
     return dict(adapter_effect=effect, merged_vs_unmerged=merged_err,
                 kernels_vs_plain=plain_err,
                 token_agreement=agree(mg["tokens"], un["tokens"]),
@@ -824,10 +1061,110 @@ def phase_serve_etherplus(torch, execute, ops, serve, api):
                 traces=traces)
 
 
+def phase_baselines(torch, execute, ops, serve):
+    """Phase 11: LoRA, OFT, Naive and full finetuning, plain PyTorch, at
+    full width on the card: a short serve (LoRA, OFT, Naive unmerged and
+    merged, adapters moved off their init; ``full`` unmerged), then
+    BASELINE_STEPS train steps from each method's init through
+    ``launch/steps``; nothing may dispatch to a kernel."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.peft import merge_params
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw, cosine
+    print(f"== phase 11: LoRA (rank {METHOD_RANK}), OFT, Naive (n_blocks "
+          f"{N_BLOCKS} serving, {TRAIN_BLOCKS} training) and full "
+          f"finetuning, {ARCH} full width, plain PyTorch: serve B={B} P={P} "
+          f"gen={BASELINE_GEN}, train {BASELINE_STEPS} steps B={TRAIN_B} "
+          f"S={TRAIN_S}", flush=True)
+    cfg = get_config(ARCH, "full")
+    none = ({}, dict.fromkeys(ops.launches(), 0))
+    out = {}
+    for method in ("lora", "oft", "naive", "full"):
+        kw = dict(arch=ARCH, variant="full", method=method,
+                  n_blocks=N_BLOCKS, rank=METHOD_RANK, batch=B, prompt_len=P,
+                  seed=0, device="cuda")
+        m = serve.build(**kw)
+        peft, params, tokens = m["peft"], m["params"], m["tokens"]
+        spread = BASELINE_SPREAD.get(method, 0.0)
+        adapters = off_init(torch, m["adapters"], {
+            "lora": {"b": lambda t, z: spread * z},
+            "oft": {"r": lambda t, z: spread * z},
+            "naive": {"m": lambda t, z: t + spread * z}}.get(method, {}), 11)
+        runs = {"unmerged": counted(torch, execute, ops, lambda: dict(
+            serve.generate(params, adapters, tokens, cfg, peft,
+                           BASELINE_GEN), merge_s=None))}
+        if method != "full":
+            runs["merged"] = counted(torch, execute, ops, lambda: dict(
+                serve.generate(merge_params(params, adapters, peft), None,
+                               tokens, cfg, None, BASELINE_GEN),
+                merge_s=None))
+        res = {"merged_vs_unmerged": None}
+        for name, r in runs.items():
+            check((r["counters"], r["launches"]) == none,
+                  f"{method} {name} ran {r['counters']} / launched "
+                  f"{r['launches']}; it has no kernel")
+            check(bool(torch.isfinite(r["logits"]).all()),
+                  f"{method} {name} logits are not finite")
+            res[f"{name}_per_token_s"] = r["per_token_s"]
+            res[f"{name}_peak_gb"] = r["peak_gb"]
+        if "merged" in runs:
+            res["merged_vs_unmerged"] = frob(runs["merged"]["logits"],
+                                             runs["unmerged"]["logits"])
+            check(res["merged_vs_unmerged"] <= SERVE_TOL,
+                  f"{method} merged vs unmerged logits "
+                  f"{res['merged_vs_unmerged']:.3e} > {SERVE_TOL:g}")
+        del m, params, adapters, runs
+
+        peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS,
+                          rank=METHOD_RANK, alpha=float(METHOD_RANK),
+                          targets=peft_targets(ARCH))
+        opt = adamw(cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
+        state = steps.init_state(cfg, peft, opt, seed=0, device="cuda")
+        step = steps.make_train_step(cfg, peft, opt)
+        stream = SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
+                                   seq_len=TRAIN_S, seed=0)
+        execute.reset_counters()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(BASELINE_STEPS):
+            batch = {k: torch.from_numpy(v).long().cuda()
+                     for k, v in stream.batch_at(i).items()}
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())       # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check((execute.counters(), ops.launches()) == none,
+              f"{method} training ran {execute.counters()} / launched "
+              f"{ops.launches()}; it has no kernel")
+        check(all(map(math.isfinite, losses)),
+              f"{method} train losses {losses} are not finite")
+        res.update(losses=losses, step_ms=step_ms,
+                   train_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   trainable=sum(t.numel() for _, t in flatten_with_paths(
+                       state["params" if method == "full" else "adapters"])))
+        del state
+        out[method] = res
+        print(f"[{method}] serve decode {res['unmerged_per_token_s'] * 1e3:.2f}"
+              f" ms/token unmerged"
+              + (f", merged vs unmerged logits rel. Frobenius "
+                 f"{res['merged_vs_unmerged']:.3e} (tol {SERVE_TOL:g})"
+                 if res["merged_vs_unmerged"] is not None else "")
+              + f"; train {res['trainable']:,} parameters, losses "
+              f"{[round(x, 4) for x in losses]}, step ms "
+              f"{[round(x, 1) for x in step_ms]}, peak memory "
+              f"{res['train_peak_gb']:.3f} GB", flush=True)
+    return out
+
+
 def phase_train(torch, execute, ops, phase, method):
-    """Phases 4 (``method`` "ether") and 6 ("etherplus", two-sided):
-    PEFT training of smollm-360m at full width through the port's
-    Trainer, from the method's own init; see the module docstring."""
+    """Phases 4 (``method`` "ether"), 6 ("etherplus", two-sided), 8
+    ("delora") and 10 ("hyperadapt"): PEFT training of smollm-360m at full
+    width through the port's Trainer, from the method's own init; see the
+    module docstring."""
     import shutil
     import tempfile
 
@@ -840,10 +1177,13 @@ def phase_train(torch, execute, ops, phase, method):
 
     cfg = get_config(ARCH, "full")
     tokens = TRAIN_B * TRAIN_S
-    label = {"ether": "ETHER", "etherplus": "ETHER+ two-sided"}[method]
+    label = {"ether": f"ETHER n_blocks={TRAIN_BLOCKS}",
+             "etherplus": f"ETHER+ two-sided n_blocks={TRAIN_BLOCKS}",
+             "delora": f"DeLoRA rank {METHOD_RANK}",
+             "hyperadapt": "HyperAdapt"}[method]
     print(f"== phase {phase}: train {ARCH} full width ({cfg.n_layers} layers, "
-          f"{cfg.param_dtype}, remat {cfg.remat!r}), {label} "
-          f"n_blocks={TRAIN_BLOCKS}, B={TRAIN_B} S={TRAIN_S}, AdamW lr "
+          f"{cfg.param_dtype}, remat {cfg.remat!r}), {label}, "
+          f"B={TRAIN_B} S={TRAIN_S}, AdamW lr "
           f"{TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps",
           flush=True)
     stream = SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
@@ -851,6 +1191,7 @@ def phase_train(torch, execute, ops, phase, method):
 
     def trainer(backend, name, **kw):
         peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS,
+                          rank=METHOD_RANK, alpha=float(METHOD_RANK),
                           targets=peft_targets(ARCH), backend=backend)
         opt = adamw(cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
         return Trainer(cfg, peft, opt, seed=0, device="cuda",
@@ -885,16 +1226,25 @@ def phase_train(torch, execute, ops, phase, method):
         log = logged("a")
 
         # per step, each of the 7·L adapted linears: the forward and its
-        # remat recompute, and one backward (reflect_gemm_dx; no dW, PEFT
-        # freezes W), which under two-sided ETHER+ first recomputes y0 with
-        # the one-sided forward kernel and runs etherplus_reflect_bwd
+        # remat recompute, and one backward (no dW: PEFT freezes W).  The
+        # reflections' backward runs reflect_gemm_dx, which under
+        # two-sided ETHER+ comes after a y0 recompute by the one-sided
+        # forward kernel and etherplus_reflect_bwd; DeLoRA's dx is its
+        # forward kernel on Wᵀ; HyperAdapt's z and y0 are its forward
+        # kernel without the column scale
         n = 7 * cfg.n_layers * TRAIN_STEPS
-        fwd = {"ether": "householder_gemm", "etherplus": "etherplus_gemm"}[
+        fwd = f"{method}_gemm" if method in ("delora", "hyperadapt") else {
+            "ether": "householder_gemm", "etherplus": "etherplus_gemm"}[
             method]
         want = ({f"{fwd}.cuda": 2 * n, f"{fwd}_bwd.cuda": n},
-                {**dict.fromkeys(ops.launches(), 0), "reflect_gemm_dx": n,
-                 **({"householder_gemm": 2 * n} if method == "ether" else
-                    {"etherplus_gemm": 3 * n, "etherplus_reflect_bwd": n})})
+                {**dict.fromkeys(ops.launches(), 0), **{
+                    "ether": {"householder_gemm": 2 * n,
+                              "reflect_gemm_dx": n},
+                    "etherplus": {"etherplus_gemm": 3 * n,
+                                  "etherplus_reflect_bwd": n,
+                                  "reflect_gemm_dx": n},
+                    "delora": {"delora_gemm": 3 * n},
+                    "hyperadapt": {"hyperadapt_gemm": 4 * n}}[method]})
         print(f"[kernels] dispatch counters: {counters}  kernel launches: "
               f"{launches}")
         check((counters, launches) == want,
@@ -922,28 +1272,74 @@ def phase_train(torch, execute, ops, phase, method):
         ref_log = logged("plain")
         ref_losses = [m["loss"] for m in ref_log]
 
-        def rel(key):
-            return max(abs(a[key] - b[key]) / abs(b[key])
-                       for a, b in zip(log, ref_log))
-        loss_rel, gnorm_rel = rel("loss"), rel("grad_norm")
-        num = sum(((final["adapters"][p] - init[p])
-                   - (ref_final[p] - init[p])).float().square().sum().item()
-                  for p in init)
-        den = sum((ref_final[p] - init[p]).float().square().sum().item()
-                  for p in init)
-        upd_rel = math.sqrt(num / den)
+        def agreement(log, ref_log, init, final, ref_final):
+            """Per step, the largest relative difference of the loss and of
+            the gradient norm; and the relative Frobenius norm of the
+            difference of the adapters' total updates."""
+            def rel(key):
+                return max(abs(a[key] - b[key]) / abs(b[key])
+                           for a, b in zip(log, ref_log))
+            num = sum(((final[p] - init[p]) - (ref_final[p] - init[p]))
+                      .float().square().sum().item() for p in init)
+            den = sum((ref_final[p] - init[p]).float().square().sum().item()
+                      for p in init)
+            return rel("loss"), rel("grad_norm"), math.sqrt(num / den)
+
+        def report(what, loss_rel, gnorm_rel, upd_rel, upd_checked=True):
+            print(f"{what}: loss rel. diff max {loss_rel:.3e} (tol "
+                  f"{TRAIN_TOL['loss']:g}), grad_norm rel. diff max "
+                  f"{gnorm_rel:.3e} (tol {TRAIN_TOL['grad_norm']:g}), "
+                  f"adapter update rel. Frobenius {upd_rel:.3e} "
+                  + (f"(tol {TRAIN_TOL['update']:g})" if upd_checked else
+                     "(not held to a limit here: see below)"))
+
+        loss_rel, gnorm_rel, upd_rel = agreement(
+            log, ref_log, init, final["adapters"], ref_final)
         ref_ms = [m["step_time"] * 1e3 for m in ref_log]
         print(f"[plain] losses {[round(x, 4) for x in ref_losses]}; steady "
               f"{sum(ref_ms[1:]) / max(len(ref_ms) - 1, 1):.1f} ms/step")
-        print(f"kernels vs plain path: loss rel. diff max {loss_rel:.3e} "
-              f"(tol {TRAIN_TOL['loss']:g}), grad_norm rel. diff max "
-              f"{gnorm_rel:.3e} (tol {TRAIN_TOL['grad_norm']:g}), adapter "
-              f"update rel. Frobenius {upd_rel:.3e} (tol "
-              f"{TRAIN_TOL['update']:g})")
+        # DeLoRA's b starts at 0, so its first update is Adam's sign of
+        # db (at s = λ/(r·ε)) and b's direction is nothing but that sign
+        # pattern: the elements of db at rounding level take either sign
+        # on either path, and the two updates part by 0.107 (PERF.md, run
+        # P) where the losses and gradient norms agree.  The update is
+        # held to its limit on a pair of runs from b ≠ 0 instead, below
+        sign_led = method == "delora"
+        report("kernels vs plain path", loss_rel, gnorm_rel, upd_rel,
+               not sign_led)
         check(len(ref_log) == TRAIN_STEPS and loss_rel <= TRAIN_TOL["loss"]
               and gnorm_rel <= TRAIN_TOL["grad_norm"]
-              and upd_rel <= TRAIN_TOL["update"],
+              and (sign_led or upd_rel <= TRAIN_TOL["update"]),
               "the kernels' training path disagrees with the plain path")
+        b0 = None
+        if sign_led:
+            runs = {}
+            for backend in ("auto", "torch"):
+                t = trainer(backend, f"b0_{backend}")
+                gen = torch.Generator(device="cuda").manual_seed(8)
+                with torch.no_grad():
+                    for p, leaf in flatten_with_paths(t.state["adapters"]):
+                        if p.endswith("/b"):
+                            leaf.copy_(DELORA_B0 * torch.randn(
+                                leaf.shape, generator=gen, device="cuda"))
+                start = snapshot(t.state["adapters"])
+                t.fit(stream, steps=TRAIN_STEPS)
+                runs[backend] = (logged(f"b0_{backend}"), start,
+                                 snapshot(t.state["adapters"]))
+                t.close()
+            check(all(torch.equal(runs["auto"][1][p], runs["torch"][1][p])
+                      for p in runs["auto"][1]), "the b ≠ 0 pair differs at "
+                  "its start")
+            b0 = agreement(runs["auto"][0], runs["torch"][0],
+                           runs["auto"][1], runs["auto"][2],
+                           runs["torch"][2])
+            report(f"from b = {DELORA_B0:g}·N(0, 1), kernels vs plain path",
+                   *b0)
+            check(b0[0] <= TRAIN_TOL["loss"]
+                  and b0[1] <= TRAIN_TOL["grad_norm"]
+                  and b0[2] <= TRAIN_TOL["update"],
+                  "from b ≠ 0, the kernels' DeLoRA training path disagrees "
+                  "with the plain path")
 
         # restore from the step-TRAIN_CKPT checkpoint in a new Trainer
         shutil.copytree(os.path.join(tmp, "a", f"step_{TRAIN_CKPT}"),
@@ -981,7 +1377,8 @@ def phase_train(torch, execute, ops, phase, method):
                 steady_ms=steady_ms, plain_step_ms=ref_ms,
                 tokens_per_s=tokens / steady_ms * 1e3, peak_gb=peak_gb,
                 fit_s=fit_s, loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
-                update_rel=upd_rel, grad_norms=[m["grad_norm"] for m in log],
+                update_rel=upd_rel, from_b_nonzero=b0,
+                grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
                 counters=counters, launches=launches, trace=trace)
 
@@ -1013,10 +1410,19 @@ def main() -> int:
     rows = phase_kernels(torch, ops, ref)
     rows += etherplus_kernel_rows(torch, ops, ref, kepm)
     rows += bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb)
+    rows += method_kernel_rows(torch, ops, ref)
     served = phase_serve(torch, execute, ops, serve, api)
     trained = phase_train(torch, execute, ops, 4, "ether")
-    ep_served = phase_serve_etherplus(torch, execute, ops, serve, api)
+    ep_served = phase_serve_method(torch, execute, ops, serve, api, 5,
+                                   "etherplus")
     ep_trained = phase_train(torch, execute, ops, 6, "etherplus")
+    served_m, trained_m = {}, {}
+    for phase, method in ((7, "delora"), (9, "hyperadapt")):
+        served_m[method] = phase_serve_method(torch, execute, ops, serve,
+                                              api, phase, method)
+        trained_m[method] = phase_train(torch, execute, ops, phase + 1,
+                                        method)
+    baselines = phase_baselines(torch, execute, ops, serve)
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -1025,6 +1431,10 @@ def main() -> int:
              "etherplus serve": ep_served["unmerged_launches"],
              "etherplus merge": ep_served["merged_launches"],
              "etherplus train": ep_trained["launches"]}
+    for method in served_m:
+        paths.update({f"{method} serve": served_m[method]["unmerged_launches"],
+                      f"{method} merge": served_m[method]["merged_launches"],
+                      f"{method} train": trained_m[method]["launches"]})
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
@@ -1054,7 +1464,22 @@ def main() -> int:
                                   weights, {}),
         "etherplus_reflect_bwd": ("etherplus_reflect_bwd",
                                   "src/repro/kernels/reflect_bwd.py:161",
-                                  train, {"rank": 2})}
+                                  train, {"rank": 2}),
+        "delora_gemm": ("delora_gemm", "src/repro/kernels/delora_gemm.py:82",
+                        (None, B, "one smollm-360m decode layer, T=4, r=8"),
+                        {"r": METHOD_RANK}),
+        "hyperadapt_gemm": ("hyperadapt_gemm",
+                            "src/repro/kernels/hyperadapt_gemm.py:66",
+                            (None, B, "one smollm-360m decode layer, T=4"),
+                            {}),
+        "delora_merge": ("method_merge",
+                         "src/repro/kernels/method_merge.py:57",
+                         (None, None, "one smollm-360m layer's weights, "
+                                      "r=8"), {"r": METHOD_RANK}),
+        "hyperadapt_merge": ("method_merge",
+                             "src/repro/kernels/method_merge.py:97",
+                             (None, None, "one smollm-360m layer's weights"),
+                             {})}
     kernels = []
     for name, (source, replaces, (n, t, what), match) in table.items():
         s = layer_summary(rows, name, n, t, **match)
@@ -1069,7 +1494,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"] or None,
             "matmul_ms": s["matmul_ms"] or None,
             "shapes": f"sum over the 7 linears of {what}, bf16"
                       + (", two-sided" if match.get("two_sided") else "")}
@@ -1078,15 +1503,29 @@ def main() -> int:
             entry["rank2"] = {k: r2[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms",
                 "max_abs_err")}
+        if name in ("delora_gemm", "hyperadapt_gemm"):
+            # its backward composition, which runs this kernel on Wᵀ
+            bw = layer_summary(rows, f"{name}_bwd", None, TRAIN_B * TRAIN_S,
+                               **match)
+            entry["bwd"] = {"shapes": "sum over the 7 linears of one "
+                                      "smollm-360m train layer, T=1024, "
+                                      "bf16, no dW",
+                            **{k: bw[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "matmul_ms", "max_abs_err")}}
         kernels.append(entry)
+    check(len(kernels) == 12, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-6 took {total_s:.1f} s")
+    print(f"chip_smoke: phases 1-11 took {total_s:.1f} s")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "rows": rows, "serve": served,
                    "train": trained, "etherplus_serve": ep_served,
-                   "etherplus_train": ep_trained, "kernels": kernels,
+                   "etherplus_train": ep_trained,
+                   **{f"{m}_serve": r for m, r in served_m.items()},
+                   **{f"{m}_train": r for m, r in trained_m.items()},
+                   "baselines": baselines, "kernels": kernels,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

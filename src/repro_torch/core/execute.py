@@ -1,7 +1,7 @@
-"""Execution-backend dispatch for the ETHER and ETHER+ hot ops.
+"""Execution-backend dispatch for the PEFT methods' hot ops.
 
-``core.methods`` routes every ETHER and ETHER+ compute through this
-registry, which maps ``(op, backend)`` to an implementation:
+``core.methods`` routes every ETHER, ETHER+, DeLoRA and HyperAdapt
+compute through this registry, which maps ``(op, backend)`` to an implementation:
 
 ``torch``
     The plain PyTorch version of the op (``kernels/ref.py``): float32
@@ -20,11 +20,12 @@ registry, which maps ``(op, backend)`` to an implementation:
 can show which implementation it went through.
 
 Training differentiates ``householder_gemm`` through
-:class:`HouseholderGemm` and ``etherplus_gemm`` through
-:class:`EtherPlusGemm`, ``torch.autograd.Function``s whose backward
-dispatches ``<op>_bwd`` on the backend its forward resolved (counted as
-``<op>_bwd.<backend>``), as the JAX package's ``_registry_vjp``
-dispatches ``<op>_bwd``.
+:class:`HouseholderGemm`, ``etherplus_gemm`` through
+:class:`EtherPlusGemm`, ``delora_gemm`` through :class:`DeloraGemm` and
+``hyperadapt_gemm`` through :class:`HyperAdaptGemm`,
+``torch.autograd.Function``s whose backward dispatches ``<op>_bwd`` on
+the backend its forward resolved (counted as ``<op>_bwd.<backend>``), as
+the JAX package's ``_registry_vjp`` dispatches ``<op>_bwd``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,24 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("etherplus_gemm_bwd", "cuda"): ops.etherplus_gemm_bwd,
     ("etherplus_merge", "torch"): ref.ref_etherplus_merge,
     ("etherplus_merge", "cuda"): ops.etherplus_merge,
+    ("delora_gemm", "torch"): ref.ref_delora_gemm,
+    ("delora_gemm", "cuda"): ops.delora_gemm,
+    ("delora_gemm_bwd", "torch"): ref.ref_delora_gemm_bwd,
+    ("delora_gemm_bwd", "cuda"): ops.delora_gemm_bwd,
+    ("delora_merge", "torch"): ref.ref_delora_merge,
+    ("delora_merge", "cuda"): ops.delora_merge,
+    # pure glue on either device: no kernel to win (the JAX package's
+    # ops.delora_merge_bwd)
+    ("delora_merge_bwd", "torch"): ref.ref_delora_merge_bwd,
+    ("delora_merge_bwd", "cuda"): ref.ref_delora_merge_bwd,
+    ("hyperadapt_gemm", "torch"): ref.ref_hyperadapt_gemm,
+    ("hyperadapt_gemm", "cuda"): ops.hyperadapt_gemm,
+    ("hyperadapt_gemm_bwd", "torch"): ref.ref_hyperadapt_gemm_bwd,
+    ("hyperadapt_gemm_bwd", "cuda"): ops.hyperadapt_gemm_bwd,
+    ("hyperadapt_merge", "torch"): ref.ref_hyperadapt_merge,
+    ("hyperadapt_merge", "cuda"): ops.hyperadapt_merge,
+    ("hyperadapt_merge_bwd", "torch"): ref.ref_hyperadapt_merge_bwd,
+    ("hyperadapt_merge_bwd", "cuda"): ops.hyperadapt_merge_bwd,
 }
 _COUNTERS: dict[str, int] = {}
 
@@ -126,6 +145,48 @@ class EtherPlusGemm(torch.autograd.Function):
         x, w, u1, v1, u2, v2 = ctx.saved_tensors
         grads = dispatch("etherplus_gemm_bwd", ctx.backend, x, w, u1, v1, u2,
                          v2, g.contiguous(), need_dw=ctx.needs_input_grad[1])
+        return (*grads, None)
+
+
+class DeloraGemm(torch.autograd.Function):
+    """y = x @ w + ((x @ a)·s) @ b with the registry's backward, as
+    ``DeloraGemm.apply(x, w, a, b, s, backend)``.  s is a primal here:
+    its own gradient (the ε-norm chain to a, b and λ) flows through plain
+    autograd outside the Function, as the JAX package leaves it to XLA's
+    AD.  Saves the operands; dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, s, backend):
+        be = selected_backend("delora_gemm", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, a, b, s)
+        return dispatch("delora_gemm", be, x, w, a, b, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("delora_gemm_bwd", ctx.backend, *ctx.saved_tensors,
+                         g.contiguous(), need_dw=ctx.needs_input_grad[1])
+        return (*grads, None)
+
+
+class HyperAdaptGemm(torch.autograd.Function):
+    """y = ((x·r) @ w)·c with the registry's backward, as
+    ``HyperAdaptGemm.apply(x, w, r, c, backend)``.  Saves the operands:
+    the backward recomputes y0 = (x·r) @ w, as the JAX package's does;
+    dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, r, c, backend):
+        be = selected_backend("hyperadapt_gemm", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, r, c)
+        return dispatch("hyperadapt_gemm", be, x, w, r, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("hyperadapt_gemm_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous(),
+                         need_dw=ctx.needs_input_grad[1])
         return (*grads, None)
 
 

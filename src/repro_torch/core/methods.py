@@ -1,16 +1,23 @@
 """PEFT method registry of the port.
 
 Every finetuning transform is a :class:`PEFTMethod`: adapter factory
-(``init``), adapted forward (``dense``), absorption (``merge``) and
-parameter accounting.  The port has ETHER and ETHER+ so far; :func:`get`
-raises :class:`repro_torch.NotPortedError` for every other name, known to
-the JAX package or not.  The hot ops dispatch through
-:mod:`repro_torch.core.execute`.
+(``init``), adapted forward (``dense``), absorption (``merge``),
+parameter accounting and the identity adapter values (``identity_leaf``).
+The port has the JAX registry's methods in its order but VeRA: ETHER,
+ETHER+, OFT, Naive, LoRA, full finetuning, DeLoRA and HyperAdapt.
+:func:`get` raises :class:`repro_torch.NotPortedError` for every other
+name, known to the JAX package or not, and ``bank_dense`` (multi-tenant
+bank serving) raises it for every method.  The kernel ops (ETHER,
+ETHER+, DeLoRA, HyperAdapt) dispatch through
+:mod:`repro_torch.core.execute`; OFT, Naive, LoRA and ``full`` are plain
+PyTorch, as the JAX package runs them in jnp.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import math
 
 import torch
 
@@ -21,6 +28,7 @@ from repro_torch.core import execute
 Params = dict[str, Any]
 
 _METHOD_REGISTRY: dict[str, "PEFTMethod"] = {}
+_EPS = 1e-8     # DeLoRA's scale: ε beside the norms' product, as in JAX
 
 
 def register_method(cls):
@@ -43,11 +51,37 @@ def get(name: str) -> "PEFTMethod":
                              f"{', '.join(available())})") from None
 
 
+def identity_like(name: str, tree: Params) -> Params:
+    """Per-method identity adapter values shaped like ``tree`` (a single
+    adapter tree or a stacked one): zeros for the reflections and the
+    additive methods, the identity blocks for Naive, ones for HyperAdapt's
+    scales."""
+    m = get(name)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else m.identity_leaf(k, v)
+                for k, v in node.items()}
+    return walk(tree)
+
+
+def _needs_grad(*leaves) -> bool:
+    """Serving (no_grad, or nothing to differentiate) calls a kernel op's
+    forward itself and pays nothing for autograd."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+
+
 class PEFTMethod:
     """One PEFT method; ``cfg`` is a ``transforms.PEFTConfig``.
     ``dense`` takes x with any leading dims and does not add the bias."""
 
     name: str = ""
+
+    def bank_dense(self, x, W, adapter: Params, cfg) -> torch.Tensor:
+        raise NotPortedError(f"multi-tenant bank serving of {self.name!r}")
+
+    def identity_leaf(self, leaf_name: str, arr: torch.Tensor) -> torch.Tensor:
+        """The identity adapter value of one leaf (default: zeros)."""
+        return torch.zeros_like(arr)
 
     def init(self, generator: torch.Generator, d_in: int, d_out: int, cfg,
              stack: tuple[int, ...], device) -> Params:
@@ -78,10 +112,7 @@ class EtherMethod(PEFTMethod):
 
     def dense(self, x, W, adapter, cfg):
         u = adapter["u"]
-        # serving (no_grad, or nothing to differentiate) calls the forward
-        # itself and pays nothing for autograd
-        if torch.is_grad_enabled() and (x.requires_grad or W.requires_grad
-                                        or u.requires_grad):
+        if _needs_grad(x, W, u):
             return execute.HouseholderGemm.apply(x, W, u, cfg.backend)
         return execute.dispatch("householder_gemm", cfg.backend, x, W, u)
 
@@ -131,10 +162,8 @@ class EtherPlusMethod(PEFTMethod):
     def dense(self, x, W, adapter, cfg):
         u1, v1 = adapter["u1"], adapter["v1"]
         u2, v2 = self._pair(adapter, cfg)
-        # serving (no_grad, or nothing to differentiate) calls the forward
-        # itself and pays nothing for autograd
-        leaves = [t for t in (x, W, u1, v1, u2, v2) if t is not None]
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        if _needs_grad(*(t for t in (x, W, u1, v1, u2, v2)
+                         if t is not None)):
             return execute.EtherPlusGemm.apply(x, W, u1, v1, u2, v2,
                                                cfg.backend)
         return execute.dispatch("etherplus_gemm", cfg.backend, x, W, u1, v1,
@@ -147,3 +176,223 @@ class EtherPlusMethod(PEFTMethod):
 
     def param_count(self, d_in, d_out, cfg):
         return 2 * d_in + (2 * d_out if cfg.two_sided else 0)
+
+
+# ---------------------------------------------------------------------------
+# OFT / Naive — blockwise square transforms (in-paper baselines)
+# ---------------------------------------------------------------------------
+
+def _square_blocks(cfg, d_in: int) -> tuple[int, int]:
+    from repro_torch.core.transforms import resolve_blocks
+    n = resolve_blocks(cfg.n_blocks, d_in)
+    return n, d_in // n
+
+
+class _BlockSquareMethod(PEFTMethod):
+    """OFT and Naive: a square transform Q per block of the input dim."""
+
+    def _blocks(self, adapter) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dense(self, x, W, adapter, cfg):
+        from repro_torch.core.transforms import _blockify, _deblockify
+        # (Q_B W)ᵀx = Wᵀ Q_Bᵀ x: Qᵀ applied blockwise to the activations
+        Q = self._blocks(adapter)
+        xb = torch.einsum("...ni,nij->...nj", _blockify(x, Q.shape[0]),
+                          Q.to(x.dtype))
+        return _deblockify(xb) @ W.to(x.dtype)
+
+    def merge(self, W, adapter, cfg):
+        from repro_torch.core.transforms import block_diag_matmul
+        return block_diag_matmul(self._blocks(adapter), W)
+
+
+@register_method
+class OFTMethod(_BlockSquareMethod):
+    name = "oft"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        n, db = _square_blocks(cfg, d_in)
+        # R = 0 ⇒ S = 0 ⇒ Q = I at init (paper §3.1)
+        return {"r": torch.zeros((*stack, n, db, db),
+                                 dtype=torch_dtype(cfg.adapter_dtype),
+                                 device=device)}
+
+    def _blocks(self, adapter):
+        # Cayley Q = (I + S)(I − S)⁻¹ per block, S skew-symmetric from R:
+        # Q (I − S) = I + S  ⇔  (I − S)ᵀ Qᵀ = (I + S)ᵀ
+        R = adapter["r"]
+        S = 0.5 * (R - R.transpose(-1, -2))
+        eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+        Qt = torch.linalg.solve((eye - S).transpose(-1, -2),
+                                (eye + S).transpose(-1, -2))
+        return Qt.transpose(-1, -2)
+
+    def param_count(self, d_in, d_out, cfg):
+        # Qiu et al.'s convention (paper App. C): the skew-symmetric
+        # storage n·db(db−1)/2
+        n, db = _square_blocks(cfg, d_in)
+        return n * (db * (db - 1) // 2)
+
+
+@register_method
+class NaiveMethod(_BlockSquareMethod):
+    name = "naive"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        n, db = _square_blocks(cfg, d_in)
+        # an unconstrained block matrix, the identity at init
+        eye = torch.eye(db, dtype=torch_dtype(cfg.adapter_dtype),
+                        device=device)
+        return {"m": eye.expand(*stack, n, db, db).clone()}
+
+    def _blocks(self, adapter):
+        return adapter["m"]
+
+    def identity_leaf(self, leaf_name, arr):
+        eye = torch.eye(arr.shape[-1], dtype=arr.dtype, device=arr.device)
+        return eye.expand(arr.shape).clone()
+
+    def param_count(self, d_in, d_out, cfg):
+        n, db = _square_blocks(cfg, d_in)
+        return n * db * db
+
+
+# ---------------------------------------------------------------------------
+# LoRA and full finetuning (in-paper baselines)
+# ---------------------------------------------------------------------------
+
+@register_method
+class LoRAMethod(PEFTMethod):
+    name = "lora"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        dt = torch_dtype(cfg.adapter_dtype)
+        r = min(cfg.rank, d_in, d_out)
+        a = torch.randn((*stack, d_in, r), generator=generator, dtype=dt,
+                        device=device) * (1.0 / math.sqrt(d_in))
+        return {"a": a, "b": torch.zeros((*stack, r, d_out), dtype=dt,
+                                         device=device)}  # ΔW = 0 at init
+
+    def dense(self, x, W, adapter, cfg):
+        a, b = adapter["a"], adapter["b"]
+        y = x @ W.to(x.dtype)
+        return y + ((x @ a.to(x.dtype)) @ b.to(x.dtype)) * (
+            cfg.alpha / a.shape[-1])
+
+    def merge(self, W, adapter, cfg):
+        a, b = adapter["a"], adapter["b"]
+        return W + (a @ b).to(W.dtype) * (cfg.alpha / a.shape[-1])
+
+    def param_count(self, d_in, d_out, cfg):
+        return min(cfg.rank, d_in, d_out) * (d_in + d_out)
+
+
+@register_method
+class FullFinetune(PEFTMethod):
+    """Every float base parameter trains (``peft.trainable_mask``); the
+    adapted linear is the plain product, differentiated by autograd, as
+    the JAX package leaves it to XLA's AD."""
+
+    name = "full"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        return {}
+
+    def dense(self, x, W, adapter, cfg):
+        return x @ W.to(x.dtype)
+
+    def merge(self, W, adapter, cfg):
+        return W
+
+    def param_count(self, d_in, d_out, cfg):
+        return d_in * d_out
+
+
+# ---------------------------------------------------------------------------
+# DeLoRA and HyperAdapt — on kernels of their own
+# ---------------------------------------------------------------------------
+
+@register_method
+class DeLoRAMethod(PEFTMethod):
+    """ΔW = (λ/r) Σ_j a_j b_jᵀ / (‖a_j‖‖b_j‖): LoRA's update with its norm
+    (the boundary λ, trained) decoupled from its direction.  The
+    normalisation is folded into an r-vector s_j = (λ/r)/(‖a_j‖‖b_j‖ + ε)
+    computed here with plain autograd, so the hot op is the fused GEMM
+    ``y = xW + ((x a)·s) b`` (``delora_gemm``) and the ε-norm chain never
+    enters the kernels, as in the JAX package."""
+
+    name = "delora"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        dt = torch_dtype(cfg.adapter_dtype)
+        r = min(cfg.rank, d_in, d_out)
+        a = torch.randn((*stack, d_in, r), generator=generator, dtype=dt,
+                        device=device) * (1.0 / math.sqrt(d_in))
+        # b = 0 ⇒ ΔW = 0 at init; λ starts at alpha, one 0-d leaf per
+        # linear (stacked to (L,))
+        return {"a": a,
+                "b": torch.zeros((*stack, r, d_out), dtype=dt, device=device),
+                "lam": torch.full(stack, cfg.alpha, dtype=dt, device=device)}
+
+    @staticmethod
+    def scale(a, b, lam):
+        """s = (λ/r)/(‖a_j‖‖b_j‖ + ε) in float32; (..., r) for stacked
+        leaves.  a: (..., d, r); b: (..., r, f); lam: (...).
+
+        At b = 0 (the init) ‖b_j‖ has no derivative.  ``torch.linalg.norm``
+        gives it the zero subgradient, so the gradient through s is finite
+        and b moves through its direct cotangent; the JAX package's
+        ``jnp.linalg.norm`` gives NaN there (ROADMAP.md, Queue 3).  Once
+        b ≠ 0 the two agree."""
+        r = a.shape[-1]
+        na = torch.linalg.norm(a.float(), dim=-2)
+        nb = torch.linalg.norm(b.float(), dim=-1)
+        return (lam.float()[..., None] / r) / (na * nb + _EPS)
+
+    def dense(self, x, W, adapter, cfg):
+        a, b = adapter["a"], adapter["b"]
+        # s rounded to the activation dtype before the GEMM, as the JAX
+        # package rounds it
+        s = self.scale(a, b, adapter["lam"]).to(x.dtype)
+        if _needs_grad(x, W, a, b, s):
+            return execute.DeloraGemm.apply(x, W, a, b, s, cfg.backend)
+        return execute.dispatch("delora_gemm", cfg.backend, x, W, a, b, s)
+
+    def merge(self, W, adapter, cfg):
+        a, b = adapter["a"], adapter["b"]
+        s = self.scale(a, b, adapter["lam"]).to(W.dtype)
+        return execute.dispatch("delora_merge", cfg.backend, W, a, b, s)
+
+    def param_count(self, d_in, d_out, cfg):
+        return min(cfg.rank, d_in, d_out) * (d_in + d_out) + 1   # +1: λ
+
+
+@register_method
+class HyperAdaptMethod(PEFTMethod):
+    """W' = diag(r) W diag(c): per-input- and per-output-feature scales,
+    d_in + d_out parameters a linear, applied inside ``hyperadapt_gemm``.
+    Its identity is r = c = ones, not zeros (:meth:`identity_leaf`)."""
+
+    name = "hyperadapt"
+
+    def init(self, generator, d_in, d_out, cfg, stack, device):
+        dt = torch_dtype(cfg.adapter_dtype)
+        return {"r": torch.ones((*stack, d_in), dtype=dt, device=device),
+                "c": torch.ones((*stack, d_out), dtype=dt, device=device)}
+
+    def identity_leaf(self, leaf_name, arr):
+        return torch.ones_like(arr)
+
+    def dense(self, x, W, adapter, cfg):
+        r, c = adapter["r"], adapter["c"]
+        if _needs_grad(x, W, r, c):
+            return execute.HyperAdaptGemm.apply(x, W, r, c, cfg.backend)
+        return execute.dispatch("hyperadapt_gemm", cfg.backend, x, W, r, c)
+
+    def merge(self, W, adapter, cfg):
+        return execute.dispatch("hyperadapt_merge", cfg.backend, W,
+                                adapter["r"], adapter["c"])
+
+    def param_count(self, d_in, d_out, cfg):
+        return d_in + d_out

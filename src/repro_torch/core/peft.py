@@ -13,7 +13,6 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.core import methods as _methods
 from repro_torch.core.transforms import (PEFTConfig, adapter_param_count,
@@ -47,8 +46,9 @@ def init_adapters(generator: torch.Generator, params: Params,
                   cfg: Optional[PEFTConfig]) -> Params:
     """Adapter tree mirroring ``params``: at each targeted ``<mod>/kernel``
     the adapter dict lives at ``<mod>``, on the kernel's device.  The
-    generator must live on that device too."""
-    if cfg is None:
+    generator must live on that device too.  Full finetuning has no
+    adapters (``{}``), as in the JAX package."""
+    if cfg is None or cfg.method == "full":
         return {}
     m = _methods.get(cfg.method)
     adapters: Params = {}
@@ -62,7 +62,10 @@ def init_adapters(generator: torch.Generator, params: Params,
 
 
 def adapters_param_count(params: Params, cfg: PEFTConfig) -> int:
-    """Trainable adapter parameters for the whole model (paper '#params')."""
+    """Trainable adapter parameters for the whole model (paper '#params');
+    under full finetuning every parameter of the model."""
+    if cfg.method == "full":
+        return sum(leaf.numel() for _, leaf in flatten_with_paths(params))
     total = 0
     for path, leaf in flatten_with_paths(params):
         if is_target(path, leaf, cfg):
@@ -131,9 +134,11 @@ def get_adapter(adapters: Optional[Params], *keys: str) -> Optional[Params]:
 def trainable_mask(params: Params, adapters: Params, cfg: PEFTConfig):
     """(base_mask, adapter_mask): which leaves receive gradients and
     updates.  PEFT trains only the float adapter leaves; full finetuning
-    (all float base params) comes with the ``full`` method."""
+    (method ``full``) all float base params."""
     if cfg.method == "full":
-        raise NotPortedError("full finetuning (method 'full')")
+        return (map_with_paths(lambda _, leaf: leaf.is_floating_point(),
+                               params),
+                map_with_paths(lambda _, leaf: False, adapters))
     return (map_with_paths(lambda _, leaf: False, params),
             map_with_paths(lambda _, leaf: leaf.is_floating_point(),
                            adapters))

@@ -1,4 +1,5 @@
-"""The ETHER transform (ICML 2024): configuration and entry points.
+"""The ETHER transform (ICML 2024) and its in-paper baselines:
+configuration, the plain primitives and the entry points.
 
 Conventions, as in the JAX package:
 
@@ -15,7 +16,11 @@ inside the GEMM (``householder_gemm``); merging absorbs the reflection
 into W (``ether_merge``).  ETHER+ (``method="etherplus"``) replaces the
 reflection by the rank-2 ``H⁺ = I − ûûᵀ + v̂v̂ᵀ`` per block, on the input
 and, two-sided, the output dim (``etherplus_gemm``, ``etherplus_merge``).
-``PEFTConfig.backend`` picks the implementation of those ops through
+DeLoRA and HyperAdapt run their own fused GEMM and merge kernels
+(``delora_gemm``, ``delora_merge``, ``hyperadapt_gemm``,
+``hyperadapt_merge``); OFT, Naive and LoRA are plain PyTorch, as the JAX
+package runs them in jnp, and ``full`` is the plain product.
+``PEFTConfig.backend`` picks the implementation of the kernel ops through
 :mod:`repro_torch.core.execute`.
 """
 
@@ -39,7 +44,9 @@ class PEFTConfig:
     """Configuration for one PEFT method application."""
 
     method: str = "ether"
-    n_blocks: int = 32             # ETHER diagonal blocks (paper default)
+    n_blocks: int = 32             # ETHER/ETHER+/OFT/Naive diagonal blocks
+    rank: int = 8                  # LoRA / DeLoRA rank
+    alpha: float = 8.0             # LoRA scale numerator (alpha/rank), DeLoRA λ
     mode: str = "activation"
     # '+'- or '|'-separated regexes of the module paths to adapt
     targets: str = "q_proj+k_proj+v_proj+o_proj+gate_proj+up_proj+down_proj"
@@ -100,12 +107,64 @@ def etherplus_weight(W: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"side must be 'left' or 'right', got {side!r}")
 
 
+def _blockify(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., d) -> (..., n, d/n)."""
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
+def _deblockify(x: torch.Tensor) -> torch.Tensor:
+    """(..., n, db) -> (..., n*db)."""
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def block_diag_matmul(blocks: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """diag(blocks) @ W as n block GEMMs in W's dtype; blocks (n, db, db),
+    W (n·db, f) (the JAX package's ``block_diag_matmul``, side 'left')."""
+    n, db, _ = blocks.shape
+    d, f = W.shape
+    out = torch.einsum("nij,njf->nif", blocks.to(W.dtype),
+                       W.reshape(n, db, f))
+    return out.reshape(d, f)
+
+
+def delora_gemm(x: torch.Tensor, W: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """DeLoRA's jnp primitive ``y = xW + ((x a)·s) b``, every operand cast
+    to x's dtype first, as the JAX package computes it (its kernel and the
+    port's ``kernels/ref.py`` compute in f32 and round once).  s is the
+    method layer's pre-normalised scale.  x: (..., d); W: (d, f); a:
+    (d, r); b: (r, f); s: (r,)."""
+    y = x @ W.to(x.dtype)
+    h = (x @ a.to(x.dtype)) * s.to(x.dtype)
+    return y + h @ b.to(x.dtype)
+
+
+def delora_merge(W: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+    """Absorb DeLoRA: ``W' = W + (a·s) b`` in W's dtype."""
+    return W + (a.to(W.dtype) * s.to(W.dtype)) @ b.to(W.dtype)
+
+
+def hyperadapt_gemm(x: torch.Tensor, W: torch.Tensor, r: torch.Tensor,
+                    c: torch.Tensor) -> torch.Tensor:
+    """HyperAdapt's jnp primitive ``y = ((x·r) W)·c`` in x's dtype.
+    r: (d,); c: (f,)."""
+    y = (x * r.to(x.dtype)) @ W.to(x.dtype)
+    return y * c.to(x.dtype)
+
+
+def hyperadapt_merge(W: torch.Tensor, r: torch.Tensor,
+                     c: torch.Tensor) -> torch.Tensor:
+    """Absorb HyperAdapt: ``W' = diag(r) W diag(c)`` in W's dtype."""
+    return W * r.to(W.dtype)[:, None] * c.to(W.dtype)[None, :]
+
+
 def adapted_dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
                   adapter: Optional[Params],
                   cfg: Optional[PEFTConfig]) -> torch.Tensor:
-    """``y = (H_B W)ᵀx + b``; a plain dense layer without an adapter.
-    x: (..., d_in); W: (d_in, d_out)."""
-    if not adapter or cfg is None:
+    """``y = (T_L W T_R)ᵀx + ΔWᵀx + b``; a plain dense layer without an
+    adapter or under full finetuning.  x: (..., d_in); W: (d_in, d_out)."""
+    if not adapter or cfg is None or cfg.method == "full":
         y = x @ W.to(x.dtype)
     else:
         y = _methods.get(cfg.method).dense(x, W, adapter, cfg)
@@ -115,7 +174,7 @@ def adapted_dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
 def merge_weight(W: torch.Tensor, adapter: Optional[Params],
                  cfg: PEFTConfig) -> torch.Tensor:
     """Absorb the adapter into W — zero-latency inference (paper §3.1)."""
-    if adapter is None:
+    if adapter is None or cfg.method == "full":
         return W
     return _methods.get(cfg.method).merge(W, adapter, cfg)
 

@@ -1,9 +1,11 @@
-// Device code shared by the port's reflect-GEMM kernels (householder_gemm,
-// reflect_gemm_dx, reflect_gemm_dw, etherplus_gemm) and ETHER+'s row
-// kernels (etherplus_merge, etherplus_reflect_bwd): dtype conversions, a
-// warp sum, the block-projection prologue, the one register-tiled f32 SIMT
-// GEMM that every product runs on, the per-row rank-2 update and the
-// reflection backward with its fixed-order dL/dû sum.
+// Device code shared by the port's GEMM kernels (householder_gemm,
+// reflect_gemm_dx, reflect_gemm_dw, etherplus_gemm, delora_gemm,
+// hyperadapt_gemm) and its row kernels (etherplus_merge,
+// etherplus_reflect_bwd, method_merge): dtype conversions, a warp sum, the
+// block-projection prologue, the one register-tiled f32 SIMT GEMM that
+// every product runs on (with DeLoRA's and HyperAdapt's fused variants),
+// the per-row rank-2 update and the reflection backward with its
+// fixed-order dL/dû sum.
 //
 // R is the blockwise Householder reflection I − 2ûûᵀ over n blocks of db
 // elements, û = u / (‖u‖ + 1e-8) with ε outside the square root, as in
@@ -129,6 +131,41 @@ enum Reflect {
   kRank2M,       // A(m, k) − p·û[m] + q·v̂[m] at [k*n + m/db]: ETHER+ dW
 };
 
+// What the GEMM fuses besides the product, for the methods whose update is
+// not a reflection (src/repro/kernels/hyperadapt_gemm.py:31 and
+// delora_gemm.py:39).  kFuseNone compiles to the plain product, as the
+// reflect-GEMM instantiations always did.
+enum Fuse {
+  kFuseNone,
+  // C = ((A·diag(rs)) · B) · diag(cs): rs[k] scales A(m, k) as it is
+  // staged, cs[col] (when not null) the f32 sum before the one rounding
+  // (HyperAdapt: rs = r, cs = c; its backward runs z = (G·c)·Wᵀ with cs
+  // null).
+  kFuseScale,
+  // C = A·B + ((A·la) · diag(ls)) · lb: a second accumulator h = A·la
+  // (BM × r, in shared memory) is filled in the same K loop from an la
+  // tile staged beside the B tile, and the epilogue adds (h·ls)·lb[:, col]
+  // to the f32 sum before the one rounding (DeLoRA: la = a, ls = s,
+  // lb = b; its dx runs G·Wᵀ + ((G·bᵀ)·s)·aᵀ with la = bᵀ, lb = aᵀ).
+  kFuseLowRank,
+};
+
+// The operands of a Fuse variant: rs (K,), cs (N,) f32 for kFuseScale; la
+// (K, r), lb (r, N) f32 row-major and ls (r,) in A's dtype for
+// kFuseLowRank.
+struct Side {
+  const float* rs = nullptr;
+  const float* cs = nullptr;
+  const float* la = nullptr;
+  const float* lb = nullptr;
+  const void* ls = nullptr;
+  int r = 0;
+};
+
+// The largest r the kFuseLowRank GEMM takes: h (BM × r) and the la tile
+// (BK × r) of its largest tile fit in the shared memory a block can have.
+constexpr int kMaxRank = 512;
+
 // C (M×N) = A (M×K) · B (K×N), f32 accumulation, any ragged edge.
 // Each operand is row-major in one of its two orientations, so one kernel
 // covers the forward and the transposed products of the backward:
@@ -138,27 +175,39 @@ enum Reflect {
 // global reads coalesce.  REFLECT applies the blockwise reflection (or
 // ETHER+'s rank-2 update) of x to A as it is staged, from the prologue's
 // projections and norms in `pr`, so the updated x never reaches device
-// memory.  Block tile
-// BM×BN, K step BK; each thread owns TM×TN outputs at rows
-// ty + i·(BM/TM), columns tx + j·(BN/TN) (strided, so a warp's shared
-// reads and global stores touch consecutive words).  C is written at
-// c[m*N + col] in TC.  Indices stay 32-bit (every dimension is an int);
-// only addresses are 64-bit.  The launch bounds ask for one resident block
+// memory.  FUSE adds DeLoRA's or HyperAdapt's update (see Fuse) from `sd`;
+// it is never combined with REFLECT.  Block tile BM×BN, K step BK; each
+// thread owns TM×TN outputs at rows ty + i·(BM/TM), columns tx + j·(BN/TN)
+// (strided, so a warp's shared reads and global stores touch consecutive
+// words).  C is written at c[m*N + col] in TC.  Indices stay 32-bit
+// (every dimension is an int); only addresses are 64-bit.  The launch bounds ask for one resident block
 // a SM: with the thread count alone, ptxas squeezed the dXr instantiation
 // to 32 registers with spills, 1.2-1.3x slower at the train step's
 // 960-wide shapes on the H100 (PERF.md, run J).
 template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
-          int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT>
+          int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT,
+          Fuse FUSE = kFuseNone>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
     gemm_kernel(const TA* __restrict__ a, int lda, const TB* __restrict__ b,
-                int ldb, TC* __restrict__ c, int M, int N, int K, Proj pr) {
+                int ldb, TC* __restrict__ c, int M, int N, int K, Proj pr,
+                Side sd) {
+  static_assert(FUSE == kFuseNone || REFLECT == kReflectNone,
+                "a fused update replaces the reflection");
   constexpr bool kAlongK = REFLECT == kReflectK || REFLECT == kRank2K;
   constexpr bool kRank2 = REFLECT == kRank2K || REFLECT == kRank2M;
+  constexpr bool kLowRank = FUSE == kFuseLowRank;
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
   __shared__ float As[BK][BM + 1];  // k-major
   __shared__ float Bs[BK][BN + 1];
+  // kFuseLowRank: h (BM × r) row-major, then the la tile (BK × r); each
+  // h element is owned by thread (index mod NT) for the whole K loop
+  extern __shared__ float lr_sh[];
+  float* h = lr_sh;
+  float* at = lr_sh + BM * sd.r;
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (kLowRank)
+    for (int e = tid; e < BM * sd.r; e += NT) h[e] = 0.f;
 
   float acc[TM][TN];
 #pragma unroll
@@ -189,8 +238,16 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
           else
             val -= 2.f * __ldg(pr.p + tb) * uh;
         }
+        if constexpr (FUSE == kFuseScale) val *= __ldg(sd.rs + k);
       }
       As[kk][r] = val;
+    }
+    if constexpr (kLowRank) {
+      // la rows k0..k0+BK−1 are contiguous: at[kk*r + q] = la[(k0+kk)*r + q]
+      const long long base = static_cast<long long>(k0) * sd.r;
+      const long long end = static_cast<long long>(K) * sd.r;
+      for (int e = tid; e < BK * sd.r; e += NT)
+        at[e] = base + e < end ? __ldg(sd.la + base + e) : 0.f;
     }
     for (int e = tid; e < BK * BN; e += NT) {
       const int cc = B_N_CONTIG ? e % BN : e / BK;
@@ -215,7 +272,44 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    if constexpr (kLowRank) {
+      for (int e = tid; e < BM * sd.r; e += NT) {
+        const int row = e / sd.r, q = e % sd.r;
+        float hv = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK; ++kk)
+          hv = fmaf(As[kk][row], at[kk * sd.r + q], hv);
+        h[e] += hv;
+      }
+    }
     __syncthreads();
+  }
+
+  float lr[TM][TN];
+  if constexpr (kLowRank) {
+    // h·s in place (each thread its own elements), then (h·s)·lb[:, col]
+    const TA* ls = static_cast<const TA*>(sd.ls);
+    for (int e = tid; e < BM * sd.r; e += NT) h[e] *= to_f32(ls[e % sd.r]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) lr[i][j] = 0.f;
+    for (int q = 0; q < sd.r; ++q) {
+      float hv[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) hv[i] = h[(ty + i * TY) * sd.r + q];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = n0 + tx + j * TX;
+        bv[j] = col < N ? __ldg(sd.lb + static_cast<long long>(q) * N + col)
+                        : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) lr[i][j] = fmaf(hv[i], bv[j], lr[i][j]);
+    }
   }
 
 #pragma unroll
@@ -225,8 +319,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = n0 + tx + j * TX;
-      if (col < N)
-        c[static_cast<long long>(m) * N + col] = from_f32<TC>(acc[i][j]);
+      if (col < N) {
+        float v = acc[i][j];
+        if constexpr (FUSE == kFuseScale)
+          if (sd.cs) v *= __ldg(sd.cs + col);
+        if constexpr (kLowRank) v += lr[i][j];
+        c[static_cast<long long>(m) * N + col] = from_f32<TC>(v);
+      }
     }
   }
 }
@@ -244,32 +343,50 @@ inline int sm_count() {
 }
 
 template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
-          int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT>
-void launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c, int M,
-                 int N, int K, const Proj& pr, cudaStream_t s) {
+          int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT,
+          Fuse FUSE>
+cudaError_t launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c,
+                        int M, int N, int K, const Proj& pr, const Side& sd,
+                        cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<TA, TB, TC, BM, BN, BK, TM, TN, A_K_CONTIG, B_N_CONTIG, REFLECT>
-      <<<grid, (BM / TM) * (BN / TN), 0, s>>>(a, lda, b, ldb, c, M, N, K, pr);
+  auto kernel = gemm_kernel<TA, TB, TC, BM, BN, BK, TM, TN, A_K_CONTIG,
+                            B_N_CONTIG, REFLECT, FUSE>;
+  // kFuseLowRank's h and la tile; beyond 48 KB with the static tiles the
+  // block must ask for the shared memory
+  const size_t dyn =
+      FUSE == kFuseLowRank ? static_cast<size_t>(BM + BK) * sd.r * 4 : 0;
+  constexpr size_t kStatic = sizeof(float) * BK * (BM + 1 + BN + 1);
+  if (dyn + kStatic > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dyn));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, (BM / TM) * (BN / TN), dyn, s>>>(a, lda, b, ldb, c, M, N, K,
+                                                  pr, sd);
+  return cudaSuccess;
 }
 
 // Skinny M (decode, M ≤ 8) takes an 8×32 tile, so that more blocks stream
 // B at once; larger M the largest tile that still gives every SM a block:
 // 64×64 (4×4 a thread), else 32×32 (2×2 a thread).
 template <typename TA, typename TB, typename TC, bool A_K_CONTIG,
-          bool B_N_CONTIG, Reflect REFLECT>
+          bool B_N_CONTIG, Reflect REFLECT, Fuse FUSE = kFuseNone>
 cudaError_t launch_gemm(const TA* a, int lda, const TB* b, int ldb, TC* c,
-                        int M, int N, int K, const Proj& pr, cudaStream_t s) {
+                        int M, int N, int K, const Proj& pr, cudaStream_t s,
+                        const Side& sd = Side{}) {
   const long long big = static_cast<long long>((M + 63) / 64) * ((N + 63) / 64);
+  cudaError_t err;
   if (M <= 8)
-    launch_tile<TA, TB, TC, 8, 32, 32, 1, 1, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, pr, s);
+    err = launch_tile<TA, TB, TC, 8, 32, 32, 1, 1, A_K_CONTIG, B_N_CONTIG,
+                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
   else if (big < sm_count())
-    launch_tile<TA, TB, TC, 32, 32, 16, 2, 2, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, pr, s);
+    err = launch_tile<TA, TB, TC, 32, 32, 16, 2, 2, A_K_CONTIG, B_N_CONTIG,
+                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
   else
-    launch_tile<TA, TB, TC, 64, 64, 16, 4, 4, A_K_CONTIG, B_N_CONTIG, REFLECT>(
-        a, lda, b, ldb, c, M, N, K, pr, s);
-  return cudaGetLastError();
+    err = launch_tile<TA, TB, TC, 64, 64, 16, 4, 4, A_K_CONTIG, B_N_CONTIG,
+                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // One warp per (row t, block j) of a row-major (M, n·db) matrix Y: row t's

@@ -13,8 +13,14 @@ launches; ``householder_gemm_bwd`` launches ``reflect_gemm_dx``, and
 launches those two with ETHER+'s second hyperplanes and, two-sided,
 ``etherplus_gemm`` and ``etherplus_reflect_bwd`` first;
 ``etherplus_merge`` launches ``etherplus_merge_left`` and, two-sided,
-``etherplus_merge_right``), so a run can show that its path went through
-the kernels.
+``etherplus_merge_right``; ``delora_gemm_bwd`` launches ``delora_gemm``
+for dx and ``reflect_gemm_dw`` with a zero hyperplane only when asked for
+dW; ``hyperadapt_gemm_bwd`` launches ``hyperadapt_gemm`` twice, for z and
+y0, and ``reflect_gemm_dw`` likewise; ``hyperadapt_merge_bwd`` launches
+``hyperadapt_merge``), so a run can show that its path went through the
+kernels.  The rank-r and per-feature cotangents of DeLoRA and HyperAdapt
+are a few thin PyTorch ops beside the kernels, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -23,11 +29,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import delora_gemm as _dg
 from repro_torch.kernels import ether_merge as _merge
 from repro_torch.kernels import etherplus_gemm as _ep
 from repro_torch.kernels import etherplus_merge as _epm
 from repro_torch.kernels import etherplus_reflect_bwd as _rb
 from repro_torch.kernels import householder_gemm as _hh
+from repro_torch.kernels import hyperadapt_gemm as _hg
+from repro_torch.kernels import method_merge as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import reflect_gemm_dw as _dw
 from repro_torch.kernels import reflect_gemm_dx as _dx
@@ -35,7 +44,8 @@ from repro_torch.kernels import reflect_gemm_dx as _dx
 _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "reflect_gemm_dw": 0, "etherplus_gemm": 0,
              "etherplus_merge_left": 0, "etherplus_merge_right": 0,
-             "etherplus_reflect_bwd": 0}
+             "etherplus_reflect_bwd": 0, "delora_gemm": 0,
+             "hyperadapt_gemm": 0, "delora_merge": 0, "hyperadapt_merge": 0}
 _F32 = torch.float32
 
 
@@ -272,3 +282,222 @@ def etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
         err, dw = _dw.launch(x2, u1, dy0, v1)
         _launched("reflect_gemm_dw", err)
     return dx.view(x.shape), dw, du1, dv1, du2, dv2
+
+
+# ---------------------------------------------------------------------------
+# DeLoRA and HyperAdapt
+# ---------------------------------------------------------------------------
+
+def _dims(main: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
+    """(d, f): the reduced dim of ``main`` (x (..., d), or w itself for a
+    merge) and w's output dim, -1 where the shape has none."""
+    lead = w if main is w else main
+    d = (w.shape[0] if main is w else main.shape[-1]) if lead.dim() else -1
+    return d, w.shape[1] if w.dim() == 2 else -1
+
+
+def _check(op: str, main: torch.Tensor, w: torch.Tensor, side: dict,
+           extra: Optional[str] = None) -> None:
+    """The DeLoRA/HyperAdapt wrappers' check: ``main`` (x, or w itself for
+    a merge) and w as for the reflections, each adapter operand of
+    ``side`` (name → (tensor, shape, dtype)) of its shape and dtype,
+    contiguous, on main's device, and no ``extra`` (a further condition
+    the caller found false).  Raises KernelInputError naming the first
+    check the operands fail."""
+    d, _ = _dims(main, w)
+    dev = main.device
+    if extra is None and (
+            main.dtype in _hh.DTYPE_CODE and w.dtype == main.dtype
+            and w.dim() == 2 and w.shape[0] == d and w.device == dev
+            and dev.type in ("cpu", "cuda") and main.is_contiguous()
+            and w.is_contiguous() and main.numel() > 0 and w.numel() > 0
+            and all(t.dtype == dt and t.shape == shape and t.device == dev
+                    and t.is_contiguous() for t, shape, dt in side.values())):
+        return
+    named = {**({"w": w} if main is w else {"x": main, "w": w}),
+             **{k: t for k, (t, _, _) in side.items()}}
+    bad = [k for k, (t, shape, dt) in side.items()
+           if t.dtype != dt or t.shape != shape]
+    if main.dtype not in _hh.DTYPE_CODE:
+        why = "the kernel takes float32 or bfloat16 activations and weights"
+    elif w.dim() != 2 or w.dtype != main.dtype:
+        why = "w must be a (d, f) matrix in the activations' dtype"
+    elif w.shape[0] != d:
+        why = "need x (..., d) and w (d, f)"
+    elif bad:
+        _, shape, dt = side[bad[0]]
+        why = f"{bad[0]} must be {str(dt)[6:]} of shape {tuple(shape)}"
+    elif len({t.device for t in named.values()}) != 1:
+        why = "all operands must be on one device"
+    elif dev.type not in ("cpu", "cuda"):
+        why = "operands must be on the CPU or a CUDA device"
+    elif not all(t.is_contiguous() for t in named.values()):
+        why = "operands must be contiguous"
+    else:
+        why = extra or "operands must not be empty"
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in named.items())
+    raise KernelInputError(f"{op} refuses {desc}: {why}")
+
+
+def _delora_side(main, w, a, b, s, g=None) -> dict:
+    """DeLoRA's operands for :func:`_check`: a (d, r), b (r, f) float32,
+    s (r,) in main's dtype [, g (..., f) like y]."""
+    d, f = _dims(main, w)
+    r = a.shape[-1] if a.dim() == 2 else -1
+    side = {"a": (a, (d, r), _F32), "b": (b, (r, f), _F32),
+            "s": (s, (r,), main.dtype)}
+    if g is not None:
+        side["g"] = (g, (*main.shape[:-1], f), main.dtype)
+    return side
+
+
+def _hyperadapt_side(main, w, r, c, g=None) -> dict:
+    """HyperAdapt's operands for :func:`_check`: r (d,), c (f,) float32
+    [, g (..., f) like y]."""
+    d, f = _dims(main, w)
+    side = {"r": (r, (d,), _F32), "c": (c, (f,), _F32)}
+    if g is not None:
+        side["g"] = (g, (*main.shape[:-1], f), main.dtype)
+    return side
+
+
+def _rank_why(a: torch.Tensor) -> Optional[str]:
+    """Why delora_gemm refuses a's rank, or None."""
+    if a.dim() == 2 and 1 <= a.shape[1] <= _dg.MAX_RANK:
+        return None
+    return f"the kernel keeps h = x·a in shared memory: r ≤ {_dg.MAX_RANK}"
+
+
+def _zero_u(d: int, device) -> torch.Tensor:
+    """An all-zero hyperplane over all of d: û(0) = 0, so the reflection
+    dW kernel computes the plain xᵀG (the JAX package's ``ops._zero_u``)."""
+    return torch.zeros((1, d), dtype=_F32, device=device)
+
+
+def delora_gemm(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x·w + ((x·a)·s)·b; x: (..., d); w: (d, f); a: (d, r) f32; b: (r, f)
+    f32; s: (r,) in x's dtype, 1 ≤ r ≤ 512.  Leading dims of x are
+    flattened into the kernel's row axis."""
+    _check("delora_gemm", x, w, _delora_side(x, w, a, b, s), _rank_why(a))
+    d, f = w.shape
+    lead = x.shape[:-1]
+    x2 = x.view(-1, d)
+    if x.device.type == "cpu":
+        return ref.ref_delora_gemm(x2, w, a, b, s).view(*lead, f)
+    err, y = _dg.launch(x2, w, a, b, s)
+    _launched("delora_gemm", err)
+    return y.view(*lead, f)
+
+
+def delora_merge(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+    """DeLoRA absorption w + (a·s)·b; w: (d, f); a: (d, r) f32; b: (r, f)
+    f32; s: (r,) in w's dtype."""
+    _check("delora_merge", w, w, _delora_side(w, w, a, b, s))
+    if w.device.type == "cpu":
+        return ref.ref_delora_merge(w, a, b, s)
+    err, out = _mm.launch_delora(w, a, b, s)
+    _launched("delora_merge", err)
+    return out
+
+
+def delora_gemm_bwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, s: torch.Tensor, g: torch.Tensor, *,
+                    need_dw: bool):
+    """(dx, dw, da, db, ds) of :func:`delora_gemm` under cotangent g
+    (..., f), composed as the JAX package's ``ops.delora_gemm_bwd``: dx =
+    g·wᵀ + ((g·bᵀ)·s)·aᵀ on the forward kernel with w read transposed in
+    place (bᵀ, aᵀ are small copies); dW = xᵀg on ``reflect_gemm_dw`` with
+    a zero hyperplane, only when ``need_dw`` (else None); da, db, ds
+    rank-r contractions in float32."""
+    _check("delora_gemm_bwd", x, w, _delora_side(x, w, a, b, s, g),
+           _rank_why(a))
+    if x.device.type == "cpu":
+        return ref.ref_delora_gemm_bwd(x, w, a, b, s, g, need_dw=need_dw)
+    d, f = w.shape
+    x2, g2 = x.view(-1, d), g.view(-1, f)
+    err, dx = _dg.launch(g2, w, b.T.contiguous(), a.T.contiguous(), s,
+                         w_t=True)
+    _launched("delora_gemm", err)
+    dw = None
+    if need_dw:
+        err, dw = _dw.launch(x2, _zero_u(d, x.device), g2)
+        _launched("reflect_gemm_dw", err)
+    xf, gf, sf = x2.float(), g2.float(), s.float()
+    h = xf @ a
+    p = gf @ b.T
+    return (dx.view(x.shape), dw, (xf.T @ (p * sf)),
+            ((h * sf).T @ gf), (h * p).sum(dim=0).to(s.dtype))
+
+
+def hyperadapt_gemm(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                    c: torch.Tensor) -> torch.Tensor:
+    """((x·r)·w)·c; x: (..., d); w: (d, f); r: (d,) f32; c: (f,) f32.
+    Leading dims of x are flattened into the kernel's row axis."""
+    _check("hyperadapt_gemm", x, w, _hyperadapt_side(x, w, r, c))
+    d, f = w.shape
+    lead = x.shape[:-1]
+    x2 = x.view(-1, d)
+    if x.device.type == "cpu":
+        return ref.ref_hyperadapt_gemm(x2, w, r, c).view(*lead, f)
+    err, y = _hg.launch(x2, w, r, c)
+    _launched("hyperadapt_gemm", err)
+    return y.view(*lead, f)
+
+
+def hyperadapt_merge(w: torch.Tensor, r: torch.Tensor,
+                     c: torch.Tensor) -> torch.Tensor:
+    """HyperAdapt absorption diag(r)·w·diag(c); w: (d, f); r: (d,) f32;
+    c: (f,) f32."""
+    _check("hyperadapt_merge", w, w, _hyperadapt_side(w, w, r, c))
+    if w.device.type == "cpu":
+        return ref.ref_hyperadapt_merge(w, r, c)
+    err, out = _mm.launch_hyperadapt(w, r, c)
+    _launched("hyperadapt_merge", err)
+    return out
+
+
+def hyperadapt_gemm_bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                        c: torch.Tensor, g: torch.Tensor, *, need_dw: bool):
+    """(dx, dw, dr, dc) of :func:`hyperadapt_gemm` under cotangent g
+    (..., f), composed as the JAX package's ``ops.hyperadapt_gemm_bwd``:
+    z = (g·c)·wᵀ (w read transposed in place) and y0 = (x·r)·w on the
+    forward kernel without its column scale, each in the activation
+    dtype; dx = z·r, dr = Σ x⊙z, dc = Σ y0⊙g; dW = (x·r)ᵀ(g·c) on
+    ``reflect_gemm_dw`` with a zero hyperplane, only when ``need_dw``
+    (else None)."""
+    _check("hyperadapt_gemm_bwd", x, w, _hyperadapt_side(x, w, r, c, g))
+    if x.device.type == "cpu":
+        return ref.ref_hyperadapt_gemm_bwd(x, w, r, c, g, need_dw=need_dw)
+    d, f = w.shape
+    x2, g2 = x.view(-1, d), g.view(-1, f)
+    err, z = _hg.launch(g2, w, c, w_t=True)
+    _launched("hyperadapt_gemm", err)
+    err, y0 = _hg.launch(x2, w, r)
+    _launched("hyperadapt_gemm", err)
+    xf, gf, zf = x2.float(), g2.float(), z.float()
+    dw = None
+    if need_dw:
+        err, dw = _dw.launch((xf * r).to(x.dtype), _zero_u(d, x.device),
+                             (gf * c).to(g.dtype))
+        _launched("reflect_gemm_dw", err)
+    return ((zf * r).to(x.dtype).view(x.shape), dw, (xf * zf).sum(dim=0),
+            (y0.float() * gf).sum(dim=0))
+
+
+def hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                         g: torch.Tensor):
+    """(dw, dr, dc) of :func:`hyperadapt_merge` under cotangent g (d, f):
+    dw is the merge kernel on g (the op is linear in w), dr and dc single
+    reductions of w⊙g, as the JAX package's ``ops.hyperadapt_merge_bwd``."""
+    side = _hyperadapt_side(w, w, r, c)
+    side["g"] = (g, w.shape, w.dtype)
+    _check("hyperadapt_merge_bwd", w, w, side)
+    if w.device.type == "cpu":
+        return ref.ref_hyperadapt_merge_bwd(w, r, c, g)
+    err, dw = _mm.launch_hyperadapt(g, r, c)
+    _launched("hyperadapt_merge", err)
+    wg = w.float() * g.float()
+    return dw, wg @ c, wg.T @ r

@@ -9,6 +9,13 @@ activation dtype first, which only differs under bf16.
 
 ETHER+ replaces the reflection by the blockwise rank-2 update
 H⁺x = x − û(ûᵀx) + v̂(v̂ᵀx), both projections read off the original x.
+
+DeLoRA (``y = xW + ((x a)·s) b``) and HyperAdapt (``y = ((x·r) W)·c``)
+take their scales as given: DeLoRA's s is the method layer's primal, in
+the activation dtype (the weight's for the merge), so these never
+re-derive its norm chain.  Their backwards compose the steps of the JAX
+package's ``ops.delora_gemm_bwd`` / ``ops.hyperadapt_gemm_bwd`` with the
+same intermediate roundings.
 """
 
 from __future__ import annotations
@@ -223,3 +230,109 @@ def ref_etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
     dx, du1, dv1 = ref_reflect_gemm_dx(x2, w, u1, dy0, v1)
     dw = ref_reflect_gemm_dw(x2, u1, dy0, w.dtype, v1) if need_dw else None
     return dx.reshape(x.shape), dw, du1, dv1, du2, dv2
+
+
+# ---------------------------------------------------------------------------
+# DeLoRA and HyperAdapt
+# ---------------------------------------------------------------------------
+
+def ref_delora_gemm(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """y = xW + ((x a)·s) b in float32, rounded once, as
+    ``_delora_kernel`` computes it.  x: (..., d); w: (d, f); a: (d, r);
+    b: (r, f); s: (r,)."""
+    xf = x.float()
+    h = (xf @ a.float()) * s.float()
+    return (xf @ w.float() + h @ b.float()).to(x.dtype)
+
+
+def ref_hyperadapt_gemm(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                        c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = ((x·r) W)·c in float32, rounded once, as ``_ha_kernel``
+    computes it; without c the column scale is left out (the backward's
+    z and y0).  x: (..., d); w: (d, f); r: (d,); c: (f,)."""
+    y = (x.float() * r.float()) @ w.float()
+    return (y if c is None else y * c.float()).to(x.dtype)
+
+
+def ref_delora_merge(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     s: torch.Tensor) -> torch.Tensor:
+    """W' = W + (a·s) b in float32, rounded once to W's dtype.  w: (d, f)."""
+    return (w.float() + (a.float() * s.float()) @ b.float()).to(w.dtype)
+
+
+def ref_hyperadapt_merge(w: torch.Tensor, r: torch.Tensor,
+                         c: torch.Tensor) -> torch.Tensor:
+    """W' = diag(r) W diag(c) in float32, rounded once.  w: (d, f)."""
+    return (w.float() * r.float()[:, None] * c.float()[None, :]).to(w.dtype)
+
+
+def _plain_dw(x: torch.Tensor, g: torch.Tensor,
+              w_dtype: torch.dtype) -> torch.Tensor:
+    """xᵀ g in float32, rounded once: the reflection dW with a zero
+    hyperplane, as the JAX package's ``ops._plain_dw`` runs it."""
+    return (x.float().T @ g.float()).to(w_dtype)
+
+
+def ref_delora_gemm_bwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, s: torch.Tensor, g: torch.Tensor, *,
+                        need_dw: bool = True):
+    """(dx, dw, da, db, ds) of :func:`ref_delora_gemm` under cotangent g,
+    composed as the JAX package's ``ops.delora_gemm_bwd``: dx is the
+    forward on transposed operands, g Wᵀ + ((g bᵀ)·s) aᵀ, rounded to the
+    activation dtype; dW = xᵀg; da, db, ds are rank-r contractions in
+    float32 over h = x a and p = g bᵀ.  dw is None unless ``need_dw``.
+    x: (..., d); g: (..., f)."""
+    d, f = w.shape
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, f)
+    dx = ref_delora_gemm(g2, w.T, b.T, a.T, s).to(x.dtype)
+    dw = _plain_dw(x2, g2, w.dtype) if need_dw else None
+    xf, gf, sf = x2.float(), g2.float(), s.float()
+    h = xf @ a.float()
+    p = gf @ b.float().T
+    return (dx.reshape(x.shape), dw, (xf.T @ (p * sf)).to(a.dtype),
+            ((h * sf).T @ gf).to(b.dtype), (h * p).sum(dim=0).to(s.dtype))
+
+
+def ref_hyperadapt_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
+                            r: torch.Tensor, c: torch.Tensor,
+                            g: torch.Tensor, *, need_dw: bool = True):
+    """(dx, dw, dr, dc) of :func:`ref_hyperadapt_gemm` under cotangent g,
+    composed as the JAX package's ``ops.hyperadapt_gemm_bwd``: z = (g·c)
+    Wᵀ and y0 = (x·r) W are the forward without its column scale (W
+    transposed for z), each rounded to the activation dtype; dx = z·r,
+    dr = Σ x⊙z, dc = Σ y0⊙g; dW = (x·r)ᵀ(g·c) on operands rounded to the
+    activation dtype.  dw is None unless ``need_dw``.  x: (..., d);
+    g: (..., f)."""
+    d, f = w.shape
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, f)
+    z = ref_hyperadapt_gemm(g2, w.T, c)
+    y0 = ref_hyperadapt_gemm(x2, w, r)
+    xf, gf, zf = x2.float(), g2.float(), z.float()
+    rf, cf = r.float(), c.float()
+    dw = (_plain_dw((xf * rf).to(x.dtype), (gf * cf).to(g.dtype), w.dtype)
+          if need_dw else None)
+    return ((zf * rf).to(x.dtype).reshape(x.shape), dw,
+            (xf * zf).sum(dim=0).to(r.dtype),
+            (y0.float() * gf).sum(dim=0).to(c.dtype))
+
+
+def ref_delora_merge_bwd(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         s: torch.Tensor, g: torch.Tensor):
+    """(dw, da, db, ds) of :func:`ref_delora_merge` under cotangent g
+    (the JAX package's ``ops.delora_merge_bwd``): dw = g, the rest rank-r
+    contractions in float32."""
+    gf, af, sf = g.float(), a.float(), s.float()
+    gb = gf @ b.float().T
+    return (g.to(w.dtype), (gb * sf).to(a.dtype),
+            ((af * sf).T @ gf).to(b.dtype), (af * gb).sum(dim=0).to(s.dtype))
+
+
+def ref_hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor,
+                             c: torch.Tensor, g: torch.Tensor):
+    """(dw, dr, dc) of :func:`ref_hyperadapt_merge` under cotangent g (the
+    JAX package's ``ops.hyperadapt_merge_bwd``): dw is the merge applied
+    to g; dr, dc single reductions of w⊙g in float32."""
+    wg = w.float() * g.float()
+    return (ref_hyperadapt_merge(g, r, c).to(w.dtype),
+            (wg @ c.float()).to(r.dtype), (wg.T @ r.float()).to(c.dtype))

@@ -10,7 +10,13 @@
   the plain model is served;
 * ``--method etherplus``: ETHER+ adapters (two-sided), through the
   ``etherplus_gemm`` kernel unmerged and the ``etherplus_merge`` kernels
-  with ``--merged``.  Every other method raises NotPortedError.
+  with ``--merged``;
+* ``--method delora`` / ``hyperadapt`` (rank ``--rank`` for DeLoRA):
+  through the ``delora_gemm`` / ``hyperadapt_gemm`` kernels unmerged and
+  the ``delora_merge`` / ``hyperadapt_merge`` kernels with ``--merged``;
+* ``--method oft``, ``naive``, ``lora`` (``--rank``) and ``full``: plain
+  PyTorch, as the JAX package runs them in jnp (``full`` serves the base
+  model).  ``vera`` raises NotPortedError.
 
 Weights, adapters and prompts are random, made from ``--seed``.  Runs on
 the card (``--device cuda``, the default) and raises when there is none;
@@ -82,7 +88,8 @@ def generate(params, adapters, tokens, cfg, peft, gen: int) -> dict:
 
 
 def build(*, arch: str = "smollm-360m", variant: str = "smoke",
-          method: str = "ether", n_blocks: int = 8, batch: int = 4,
+          method: str = "ether", n_blocks: int = 8, rank: int = 8,
+          batch: int = 4,
           prompt_len: int = 32, merged: bool = False, backend: str = "auto",
           seed: int = 0, device="cuda") -> dict:
     """The model, adapters and prompts of one serving run, made from
@@ -92,8 +99,9 @@ def build(*, arch: str = "smollm-360m", variant: str = "smoke",
     and ``merge_s`` is the seconds that took, else None."""
     dev = resolve_device(device)
     cfg = get_config(arch, variant)
-    peft = PEFTConfig(method=method, n_blocks=n_blocks,
-                      targets=peft_targets(arch), backend=backend)
+    peft = PEFTConfig(method=method, n_blocks=n_blocks, rank=rank,
+                      alpha=float(rank), targets=peft_targets(arch),
+                      backend=backend)
     params = init_model(cfg, seed=seed, device=dev)
     adapters = init_adapters(
         torch.Generator(device=dev).manual_seed(seed + 1), params, peft)
@@ -127,16 +135,18 @@ def main(argv=None):
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--variant", default="smoke", choices=("smoke", "full"))
     ap.add_argument("--method", default="ether",
-                    help="PEFT method: ether or etherplus (repro_torch."
-                         "core.methods.available())")
+                    help="PEFT method name (repro_torch.core.methods."
+                         "available())")
     ap.add_argument("--n-blocks", type=int, default=8)
+    ap.add_argument("--rank", type=int, default=8,
+                    help="LoRA / DeLoRA rank (alpha = rank)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--merged", action="store_true")
     ap.add_argument("--backend", default="auto",
                     choices=execute.BACKENDS,
-                    help="implementation of the ETHER ops: torch (plain), "
+                    help="implementation of the kernel ops: torch (plain), "
                          "cuda (kernels) or auto (cuda on the card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -151,7 +161,7 @@ def main(argv=None):
     execute.reset_counters()
     ops.reset_launches()
     res = serve(arch=args.arch, variant=args.variant, method=args.method,
-                n_blocks=args.n_blocks, batch=args.batch,
+                n_blocks=args.n_blocks, rank=args.rank, batch=args.batch,
                 prompt_len=args.prompt_len, gen=args.gen,
                 merged=args.merged, backend=args.backend, seed=args.seed,
                 device=args.device)

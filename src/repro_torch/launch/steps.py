@@ -4,6 +4,8 @@ State layout, as the JAX package's ``repro.launch.steps``:
 ``{"params", "adapters", "opt_state", "step"}``.  In PEFT mode (the
 paper's) gradients and the optimizer touch only the adapter tree; the
 base params carry ``requires_grad=False`` and flow through untouched.
+Under full finetuning (method ``full``, the JAX package's
+``full_finetune``) they touch the base params and there are no adapters.
 Sharding (the JAX package's ``*_shardings``) is not ported yet.
 """
 
@@ -29,11 +31,15 @@ def _set_trainable(tree: Params, mask: Params) -> Params:
     return map_with_paths(lambda p, x: x.requires_grad_(flags[p]), tree)
 
 
+def _full(peft: Optional[PEFTConfig]) -> bool:
+    return peft is not None and peft.method == "full"
+
+
 def init_state(cfg, peft: PEFTConfig, opt: GradientTransformation, *,
                seed: int = 0, device="cuda") -> Params:
-    """Random params from ``seed``, ETHER adapters from ``seed + 1`` (as
-    the serving CLI makes them), the optimizer state of the adapters and
-    step 0, all on ``device``."""
+    """Random params from ``seed``, adapters from ``seed + 1`` (as the
+    serving CLI makes them), the optimizer state of what trains and step
+    0, all on ``device``."""
     dev = resolve_device(device)
     params = init_model(cfg, seed=seed, device=dev)
     adapters = init_adapters(torch.Generator(device=dev).manual_seed(seed + 1),
@@ -49,33 +55,34 @@ def make_state(params: Params, adapters: Params, peft: PEFTConfig,
     adapters = _set_trainable(adapters, adapter_mask)
     dev = next(x for _, x in flatten_with_paths(params)).device
     return {"params": params, "adapters": adapters,
-            "opt_state": opt.init(adapters),
+            "opt_state": opt.init(params if _full(peft) else adapters),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def make_train_step(cfg, peft: Optional[PEFTConfig],
                     opt: GradientTransformation):
     """(state, batch) → (state, metrics): loss, backward, and the
-    optimizer on the adapter tree.  ``batch`` holds (B, S) ``tokens`` and
-    ``labels`` tensors on the state's device; ``metrics`` are 0-d device
-    tensors (``loss``, ``grad_norm``), left for the caller to read back."""
+    optimizer on the adapter tree (the base params under full
+    finetuning).  ``batch`` holds (B, S) ``tokens`` and ``labels`` tensors
+    on the state's device; ``metrics`` are 0-d device tensors (``loss``,
+    ``grad_norm``), left for the caller to read back."""
+    key = "params" if _full(peft) else "adapters"
 
     def step(state: Params, batch: dict):
-        params, adapters = state["params"], state["adapters"]
-        loss, metrics = train_loss(params, adapters, batch, cfg, peft)
-        flat = flatten_with_paths(adapters)      # every leaf trains (PEFT)
+        loss, metrics = train_loss(state["params"], state["adapters"], batch,
+                                   cfg, peft)
+        tree = state[key]
+        flat = flatten_with_paths(tree)     # every leaf of it trains
         by_path = dict(zip((p for p, _ in flat), torch.autograd.grad(
             loss, [a for _, a in flat])))
-        grads = map_with_paths(lambda p, _: by_path[p], adapters)
+        grads = map_with_paths(lambda p, _: by_path[p], tree)
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, state["opt_state"],
-                                            adapters)
-            new_adapters = apply_updates(adapters, updates)
+            updates, opt_state = opt.update(grads, state["opt_state"], tree)
+            new_tree = apply_updates(tree, updates)
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["grad_norm"] = global_norm(grads)
-        new_adapters = map_with_paths(lambda _, x: x.requires_grad_(),
-                                      new_adapters)
-        return {"params": params, "adapters": new_adapters,
-                "opt_state": opt_state, "step": state["step"] + 1}, metrics
+        new_tree = map_with_paths(lambda _, x: x.requires_grad_(), new_tree)
+        return dict(state, **{key: new_tree}, opt_state=opt_state,
+                    step=state["step"] + 1), metrics
 
     return step

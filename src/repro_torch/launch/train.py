@@ -5,15 +5,18 @@
         --variant smoke --steps 5
 
 Defaults run the paper's regime: frozen base + ETHER adapters (n_blocks
-32; ``--method etherplus`` for two-sided ETHER+), AdamW (no weight
-decay, clip 1.0), cosine schedule with warmup, lr 2e-3, batch 8 × 128
-tokens, checkpoint/auto-resume when ``--ckpt-dir`` is given.  Weights
-are random, made from ``--seed``.  Runs on the card (``--device cuda``,
-the default) and raises when there is none;
+32), AdamW (no weight decay, clip 1.0), cosine schedule with warmup, lr
+2e-3, batch 8 × 128 tokens, checkpoint/auto-resume when ``--ckpt-dir`` is
+given.  ``--method`` takes every ported method: ``etherplus``
+(two-sided), ``delora`` and ``hyperadapt`` (on their own kernels),
+``oft``, ``naive``, ``lora`` and ``full`` (full finetuning of every base
+parameter); ``--rank`` sets the LoRA/DeLoRA rank, and alpha = rank as in
+the JAX CLI.  Weights are random, made from ``--seed``.  Runs on the card
+(``--device cuda``, the default) and raises when there is none;
 ``--device cpu`` runs the plain versions of the kernels on the CPU.
-``--backend`` picks the ETHER ops' implementation (torch, cuda, auto).
+``--backend`` picks the kernel ops' implementation (torch, cuda, auto).
 Not ported yet (NotPortedError): ``--mesh``, ``--peft-mode weight`` and
-``blockgemm``, and every ``--method`` but ``ether`` and ``etherplus``.
+``blockgemm``, and ``--method vera``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ def build_argparser():
                     help="PEFT method name (repro_torch.core.methods."
                          "available())")
     ap.add_argument("--n-blocks", type=int, default=32)
+    ap.add_argument("--rank", type=int, default=8)
     ap.add_argument("--peft-mode", default="activation",
                     choices=["activation", "weight", "blockgemm"])
     ap.add_argument("--lr", type=float, default=2e-3)
@@ -55,7 +59,7 @@ def build_argparser():
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default="auto",
                     choices=["torch", "cuda", "auto"],
-                    help="implementation of the ETHER ops: torch (plain), "
+                    help="implementation of the kernel ops: torch (plain), "
                          "cuda (kernels) or auto (cuda on the card)")
     return ap
 
@@ -71,6 +75,7 @@ def run(args) -> dict:
         raise NotPortedError("--mesh (sharded training)")
     cfg = get_config(args.arch, args.variant)
     peft = PEFTConfig(method=args.method, n_blocks=args.n_blocks,
+                      rank=args.rank, alpha=float(args.rank),
                       mode=args.peft_mode, targets=peft_targets(args.arch),
                       backend=args.backend)
     sched = {"cosine": lambda: cosine(args.lr, args.steps, args.warmup),

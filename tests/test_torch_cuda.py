@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the serving and training slices (ETHER and ETHER+) on the card against
-the same runs on the CPU.
+the serving and training slices (ETHER, ETHER+, DeLoRA, HyperAdapt and
+the plain-PyTorch methods) on the card against the same runs on the CPU.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -362,5 +362,210 @@ def test_etherplus_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
         assert calls == {"etherplus_gemm.cuda": per_pass * card["forwards"]}
         assert launched == _launched(
             etherplus_gemm=per_pass * card["forwards"])
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# DeLoRA and HyperAdapt: every operand below is off the methods' identity
+# init (b ≠ 0, r and c ≠ 1), so a kernel that dropped the low-rank term or
+# a scale would disagree
+# ---------------------------------------------------------------------------
+
+# (T, d, f): decode and prefill rows at smollm-360m widths and ragged edges
+METHOD_SHAPES = [(4, 960, 2560), (128, 2560, 960), (5, 96, 70),
+                 (67, 120, 96)]
+RANKS = [1, 8, 13, 64]
+
+
+def _method_inputs(device, t, d, f, r, dtype):
+    rng = np.random.default_rng(t * d + f + r)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, w, g = draw(t, d).to(device, dtype), (draw(d, f) / d ** .5).to(
+        device, dtype), draw(t, f).to(device, dtype)
+    a, b = draw(d, r).to(device), draw(r, f).to(device)
+    s = (draw(r).abs() + 0.1).to(device, dtype)
+    rr, c = (1 + 0.3 * draw(d)).to(device), (1 + 0.3 * draw(f)).to(device)
+    return x, w, g, a, b, s, rr, c
+
+
+@pytest.mark.parametrize("r", RANKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f", METHOD_SHAPES)
+def test_method_kernels_match_plain_versions(cuda_device, t, d, f, dtype, r):
+    x, w, _, a, b, s, rr, c = _method_inputs(cuda_device, t, d, f, r, dtype)
+    ops.reset_launches()
+    out = {"delora_gemm": (ops.delora_gemm(x, w, a, b, s),
+                           ref.ref_delora_gemm(x, w, a, b, s)),
+           "delora_merge": (ops.delora_merge(w, a, b, s),
+                            ref.ref_delora_merge(w, a, b, s)),
+           "hyperadapt_gemm": (ops.hyperadapt_gemm(x, w, rr, c),
+                               ref.ref_hyperadapt_gemm(x, w, rr, c)),
+           "hyperadapt_merge": (ops.hyperadapt_merge(w, rr, c),
+                                ref.ref_hyperadapt_merge(w, rr, c))}
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(**dict.fromkeys(out, 1))
+    for name, (got, want) in out.items():
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert _max_err(got, want) < TOL[dtype], name
+
+
+@pytest.mark.parametrize("need_dw", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f", [(1000, 960, 2560), (1000, 2560, 960),
+                                   (67, 120, 70)])
+def test_method_backward_compositions_match_plain_versions(
+        cuda_device, t, d, f, dtype, need_dw):
+    x, w, g, a, b, s, rr, c = _method_inputs(cuda_device, t, d, f, 8, dtype)
+    ops.reset_launches()
+    got = ops.delora_gemm_bwd(x, w, a, b, s, g, need_dw=need_dw)
+    want = ref.ref_delora_gemm_bwd(x, w, a, b, s, g, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(delora_gemm=1,
+                                       reflect_gemm_dw=int(need_dw))
+    for name, p, q in zip(("dx", "dw", "da", "db", "ds"), got, want):
+        if q is None:
+            assert p is None, name
+            continue
+        assert p.dtype == q.dtype and p.shape == q.shape, name
+        # dx and dW: one rounding apart; the rest the same f32 glue
+        assert _max_err(p, q) < TOL[dtype], name
+    ops.reset_launches()
+    got = ops.hyperadapt_gemm_bwd(x, w, rr, c, g, need_dw=need_dw)
+    want = ref.ref_hyperadapt_gemm_bwd(x, w, rr, c, g, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(hyperadapt_gemm=2,
+                                       reflect_gemm_dw=int(need_dw))
+    for name, p, q in zip(("dx", "dw", "dr", "dc"), got, want):
+        if q is None:
+            assert p is None, name
+            continue
+        assert p.dtype == q.dtype and p.shape == q.shape, name
+        # dr, dc sum z and y0, each rounded once to the activation dtype
+        assert _max_err(p, q) < TOL[dtype], name
+    ops.reset_launches()
+    gw = torch.randn(d, f, generator=torch.Generator().manual_seed(0)).to(
+        cuda_device, dtype)
+    for name, p, q in zip(("dw", "dr", "dc"),
+                          ops.hyperadapt_merge_bwd(w, rr, c, gw),
+                          ref.ref_hyperadapt_merge_bwd(w, rr, c, gw)):
+        assert _max_err(p, q) < TOL[dtype], name
+    assert ops.launches() == _launched(hyperadapt_merge=1)
+
+
+def test_delora_gemm_takes_the_largest_rank_and_refuses_beyond(cuda_device):
+    x, w, _, a, b, s, _, _ = _method_inputs(cuda_device, 128, 960, 320, 512,
+                                            torch.float32)
+    assert _max_err(ops.delora_gemm(x, w, a, b, s),
+                    ref.ref_delora_gemm(x, w, a, b, s)) < TOL[torch.float32]
+    x, w, _, a, b, s, _, _ = _method_inputs(cuda_device, 8, 96, 70, 513,
+                                            torch.float32)
+    with pytest.raises(ops.KernelInputError, match="r ≤ 512"):
+        ops.delora_gemm(x, w, a, b, s)
+
+
+def _method_peft(method):
+    return PEFTConfig(method=method, n_blocks=8, rank=8, alpha=8.0,
+                      targets=peft_targets("smollm-360m"))
+
+
+def _off_identity(adapters, method):
+    """Every method's adapters moved off its identity init, from a seed."""
+    g = torch.Generator().manual_seed(7)
+    spread = {("delora", "b"): 0.5, ("lora", "b"): 0.5,
+              ("hyperadapt", "r"): 0.2, ("hyperadapt", "c"): 0.2,
+              ("oft", "r"): 0.1, ("naive", "m"): 0.1}
+    return map_with_paths(
+        lambda p, t: (t + spread[(method, p.rsplit("/", 1)[-1])]
+                      * torch.randn(t.shape, generator=g)).detach()
+        if (method, p.rsplit("/", 1)[-1]) in spread else t.detach(),
+        adapters)
+
+
+@pytest.mark.parametrize("method", ["delora", "hyperadapt", "lora", "oft",
+                                    "naive", "full"])
+def test_method_smoke_train_step_on_the_card_matches_the_cpu(cuda_device,
+                                                             method):
+    cfg = get_config("smollm-360m", "smoke")
+    peft = _method_peft(method)
+    opt = adamw(schedules.cosine(2e-3, 4, 0))
+    state = steps.init_state(cfg, peft, opt, seed=0, device="cpu")
+    state = steps.make_state(state["params"],
+                             _off_identity(state["adapters"], method),
+                             peft, opt)
+    batch = {k: torch.from_numpy(v).long() for k, v in SyntheticLMStream(
+        vocab=cfg.vocab, batch=2, seq_len=16).batch_at(0).items()}
+    step = steps.make_train_step(cfg, peft, opt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        moved = map_with_paths(lambda _, t: t.detach().to(dev)
+                               .requires_grad_(t.requires_grad), state)
+        ops.reset_launches()
+        execute.reset_counters()
+        out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
+    per_pass = 7 * cfg.n_layers
+    want = {"delora": ({"delora_gemm.cuda": per_pass,
+                        "delora_gemm_bwd.cuda": per_pass},
+                       _launched(delora_gemm=2 * per_pass)),
+            "hyperadapt": ({"hyperadapt_gemm.cuda": per_pass,
+                            "hyperadapt_gemm_bwd.cuda": per_pass},
+                           _launched(hyperadapt_gemm=3 * per_pass))}.get(
+        method, ({}, _launched()))
+    assert (execute.counters(), ops.launches()) == want
+    (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(cm[k].item() - pm[k].item()) <= 1e-4 * abs(pm[k].item())
+    if method != "full":
+        want = dict(flatten_with_paths(cpu["adapters"]))
+        for path, leaf in flatten_with_paths(card["adapters"]):
+            assert _max_err(leaf.detach(), want[path].detach()) < 1e-4, path
+        return
+    # every base param takes Adam's first, sign-like step, which flips
+    # where a gradient is at rounding noise: the update as a whole, to
+    # the limit chip_smoke.py holds the train phases' updates to
+    old = dict(flatten_with_paths(state["params"]))
+    want = dict(flatten_with_paths(cpu["params"]))
+    num = den = 0.0
+    for path, leaf in flatten_with_paths(card["params"]):
+        ref_upd = want[path].detach().float() - old[path].float()
+        num += (leaf.detach().cpu().float() - old[path].float()
+                - ref_upd).square().sum().item()
+        den += ref_upd.square().sum().item()
+    assert den > 0 and (num / den) ** 0.5 < 5e-2
+
+
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("method", ["delora", "hyperadapt"])
+def test_method_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
+                                                          method, merged):
+    cfg = get_config("smollm-360m", "smoke")
+    peft = _method_peft(method)
+    params = init_model(cfg, seed=0, device="cpu")
+    adapters = _off_identity(init_adapters(torch.Generator().manual_seed(1),
+                                           params, peft), method)
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p, a = _to(params, dev), _to(adapters, dev)
+        execute.reset_counters()
+        ops.reset_launches()
+        if merged:
+            p, a, pc = merge_params(p, a, peft), None, None
+        else:
+            pc = peft
+        runs[str(dev)] = (serve.generate(p, a, tokens.to(dev), cfg, pc, 4),
+                          execute.counters(), ops.launches())
+    (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    per_pass = 7 * cfg.n_layers
+    if merged:
+        assert calls == {f"{method}_merge.cuda": per_pass}
+        assert launched == _launched(**{f"{method}_merge": per_pass})
+    else:
+        n = per_pass * card["forwards"]
+        assert calls == {f"{method}_gemm.cuda": n}
+        assert launched == _launched(**{f"{method}_gemm": n})
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])

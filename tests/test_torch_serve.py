@@ -61,11 +61,12 @@ def test_unported_modes_exit_naming_the_roadmap(flag):
 
 
 def test_unported_methods_raise_naming_the_roadmap():
-    assert methods.available() == ("ether", "etherplus")
+    assert methods.available() == ("ether", "etherplus", "oft", "naive",
+                                   "lora", "full", "delora", "hyperadapt")
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        methods.get("oft")
+        methods.get("vera")
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        serve.serve(method="lora", device="cpu", gen=1)
+        serve.serve(method="vera", device="cpu", gen=1)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

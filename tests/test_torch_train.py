@@ -399,9 +399,11 @@ def test_state_paths_match_the_jax_state_and_only_adapters_train():
                    in flatten_with_paths(tstate["params"]))
     assert all(a.requires_grad for _, a
                in flatten_with_paths(tstate["adapters"]))
-    with pytest.raises(NotPortedError):
-        trainable_mask(tstate["params"], tstate["adapters"],
-                       dataclasses.replace(tp, method="full"))
+    # full finetuning: every float base param trains, no adapter does
+    base, adapt = trainable_mask(tstate["params"], tstate["adapters"],
+                                 dataclasses.replace(tp, method="full"))
+    assert all(v for _, v in flatten_with_paths(base))
+    assert not any(v for _, v in flatten_with_paths(adapt))
 
 
 def test_checkpoint_layout_and_bf16_round_trip(tmp_path):
@@ -516,8 +518,9 @@ def test_train_cli_raises_without_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"],
                                   ["--peft-mode", "weight"],
                                   ["--peft-mode", "blockgemm"],
-                                  ["--method", "lora"],
-                                  ["--method", "full"]])
+                                  ["--method", "vera"],
+                                  ["--method", "hyperadapt",
+                                   "--peft-mode", "weight"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotPortedError):
         train.main(["--device", "cpu", "--steps", "1", *flag])

@@ -6,18 +6,21 @@
 BASE and NEW are the ``chiprun_out/chip_smoke.json`` of two runs, for
 example the parent commit and a change run one after the other in one
 call on one card.  Rows are matched on their shape keys (kernel, arch,
-dtype, T, d, f, n, rank, two_sided); for each kernel it prints how many
-rows matched, whether every matched row's error against the plain
-version is bitwise the same in both runs, and the new/base ratio of the
-kernel's time (median, min, max).  Exits non-zero if a kernel's errors
-differ.
+dtype, T, d, f, n, rank, two_sided, and r, the DeLoRA rank); for each
+kernel (the backward compositions ``delora_gemm_bwd`` and
+``hyperadapt_gemm_bwd`` each count as one) it prints how many rows
+matched, whether every matched row's error against the plain version is
+bitwise the same in both runs, and the new/base ratio of the kernel's
+time (median, min, max).  A kernel in only one of the runs is listed as
+such.  Exits non-zero if a kernel's errors differ.
 """
 
 import json
 import statistics
 import sys
 
-KEYS = ("kernel", "arch", "dtype", "t", "d", "f", "n", "rank", "two_sided")
+KEYS = ("kernel", "arch", "dtype", "t", "d", "f", "n", "rank", "two_sided",
+        "r")
 
 
 def key(row):
@@ -48,6 +51,10 @@ def main(argv):
               f"{'bitwise equal' if same else 'DIFFER'}  time new/base "
               f"median {statistics.median(ratio):.3f} (min {min(ratio):.3f}, "
               f"max {max(ratio):.3f})")
+    for name, run in (("base", base), ("new", new)):
+        only = sorted({k[0] for k in run} - set(by_kernel))
+        if only:
+            print(f"only in {name}: {', '.join(only)}")
     return 1 if differ else 0
 
 
