@@ -66,6 +66,18 @@
    merged, ``full`` unmerged; each trains 2 steps from its init through
    ``launch/steps`` with a finite loss; nothing dispatches to a kernel.
    Prints step ms and peak memory (full finetuning's above all).
+12. Serve banks: for ETHER, ETHER+, DeLoRA and HyperAdapt, phase 3's model
+   and requests served from a bank of BANK_TENANTS = 64 tenants (each
+   from its own seed, moved off its method's identity as phases 5, 7 and
+   9 move theirs) through ``serve.generate``'s bank path, ids BANK_IDS
+   (two tenants, one twice, A − 1), then tenant 0 merged (the
+   ``--tenants`` mode's baseline): counts (every adapted linear on its
+   bank kernel, twice for two-sided ETHER+; no plain call), bank vs the
+   plain path and each row vs single-tenant serving of its tenant on the
+   kernels, held to SERVE_TOL, and every row moved by more than SERVE_TOL
+   when served by another tenant; prints bank vs merged prefill and
+   decode times, the bank's bytes, peak memory and the bank's decode-step
+   trace, and, for DeLoRA, the cost of its scale over the whole bank.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -77,7 +89,10 @@ and ``hyperadapt_gemm`` at the forward rows, ``delora_merge`` and
 ``delora_gemm_bwd`` and ``hyperadapt_gemm_bwd`` at the backward rows, on
 operands off the methods' identity init, to METHOD_TOL; ``delora_merge``
 is also timed beside ``torch.addmm(w, a·s, b)``, the one PyTorch call
-that computes it.
+that computes it.  The four bank kernels (``householder_gemm_batched``,
+``etherplus_reflect_batched``, ``delora_gemm_batched``,
+``hyperadapt_gemm_batched``) are held to TOL at smollm-360m's linears
+with a 64-tenant bank at BANK_ROWS, bf16 and f32 (see bank_kernel_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -117,6 +132,10 @@ LAYER = {(960, 960): 2, (960, 320): 2, (960, 2560): 2, (2560, 960): 1}
 ROWS = (4, 128, 2048)
 BLOCKS = (8, 32)
 ARCH, B, P, GEN, N_BLOCKS = "smollm-360m", 4, 32, 16, 8
+# decode steps traced under torch.profiler (phases 3, 5, 7, 9, 12): the
+# trace reports means a step, and its post-processing in Python grows with
+# the steps traced (the script's serve phases took 64-76 s each with 16)
+TRACE_STEPS = 4
 # backward kernels: the train step's B·S = 8·128 rows, a longer 2048, and
 # a ragged 1000 at smollm-360m's linears with n = 32 (db = 30 and 80)
 BWD_ROWS = (1024, 2048)
@@ -158,6 +177,14 @@ DELORA_B0 = 0.05
 # this much: LoRA's b, OFT's R, Naive's m − I
 BASELINE_SPREAD = {"lora": 0.05, "oft": 0.01, "naive": 0.01}
 BASELINE_GEN, BASELINE_STEPS = 4, 2
+# multi-tenant banks (phase 2's bank rows, phase 12): A tenants, and the
+# ids of each group of four sequences: two different tenants, one twice,
+# the last row A − 1
+BANK_TENANTS = 64
+BANK_IDS = [5, 17, 5, BANK_TENANTS - 1]
+# phase 2's bank rows: (B, S) of decode, prefill, a long prefill and a
+# ragged S
+BANK_ROWS = ((4, 1), (4, 32), (16, 128), (4, 33))
 
 
 class SmokeFailure(RuntimeError):
@@ -744,6 +771,137 @@ def method_kernel_rows(torch, ops, ref):
     return rows
 
 
+def bank_kernel_rows(torch, ops, ref):
+    """Phase 2, multi-tenant banks: householder_gemm_batched,
+    etherplus_reflect_batched (a linear's two sides: H⁺ on x over d, then
+    on y0 = x·W over f, timed together), delora_gemm_batched (r ∈
+    METHOD_RANKS) and hyperadapt_gemm_batched on smollm-360m's four
+    linear shapes, n = 8, at BANK_ROWS, with a BANK_TENANTS-tenant bank
+    and ids BANK_IDS (a repeat and A − 1), every tenant drawn apart from
+    the others and off its method's identity, from a generator of its
+    own.  Each through its wrapper against its plain version (TOL), timed
+    beside it and, for the three GEMMs, beside ``torch.matmul`` of the
+    product inside; the reflection's row carries the matmul between its
+    two calls."""
+    from repro_torch.core.transforms import resolve_blocks
+    print("== phase 2: bank kernels against their plain versions "
+          f"(A={BANK_TENANTS}, ids {BANK_IDS})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    a_n = BANK_TENANTS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def add(kernel, dtype, got, want, **kw):
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        check(rel <= TOL[dtype], f"{kernel} disagrees with its plain version "
+              f"at {kw}: {rel:.3e} > {TOL[dtype]:g}")
+        row = dict(kernel=kernel, arch=ARCH, dtype=dtype, max_abs_err=err,
+                   rel_err=rel, tol=TOL[dtype], tenants=a_n,
+                   library_ms=None, **kw)
+        rows.append(row)
+        print("  {kernel:25s} {dtype:8s} B={b:2d} S={s:3d} d={d:4d} f={f:4d} "
+              "r={r!s:4s} err {rel_err:.2e} (tol {tol:g})  {ms:.4f} ms  "
+              "plain {plain_ms:.4f} ms  matmul {matmul_ms:.4f} ms  bound "
+              "{bound_ms:.4f} ms ({bound_by})".format(**row), flush=True)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for d, f in LINEARS[ARCH]:
+            w0 = randn(d, f) / d ** .5
+            ws = [w0.to(dt).clone() for _ in
+                  range(max(1, min(256, int(100e6 // (d * f * es)) + 1)))]
+            w = ws[0]
+            n_out = resolve_blocks(N_BLOCKS, f)
+            u, v = randn(a_n, N_BLOCKS, d // N_BLOCKS), randn(
+                a_n, N_BLOCKS, d // N_BLOCKS)
+            u2, v2 = randn(a_n, n_out, f // n_out), randn(a_n, n_out,
+                                                           f // n_out)
+            rb, cb = 1 + 0.3 * randn(a_n, d), 1 + 0.3 * randn(a_n, f)
+            lr = {r: (randn(a_n, d, r), randn(a_n, r, f),
+                      (randn(a_n, r).abs() + 0.1).to(dt))
+                  for r in METHOD_RANKS}
+            for b, s in BANK_ROWS:
+                ids = torch.tensor(BANK_IDS * (b // len(BANK_IDS)),
+                                   dtype=torch.int32, device="cuda")
+                tenants = len(set(ids.tolist()))   # rows of the bank read
+                m = b * s
+                x = randn(b, s, d).to(dt)
+                y0 = torch.matmul(x, w)
+                mm = timed_ms(torch, [lambda w=w: torch.matmul(x, w)
+                                      for w in ws])
+                io = (m * d + d * f + m * f) * es + 4 * b  # x, W, y, ids
+                common = dict(b=b, s=s, t=m, d=d, f=f, matmul_ms=mm)
+                ops.reset_launches()
+                got = ops.householder_gemm_batched(x, w, u, ids)
+                check(ops.launches()["householder_gemm_batched"] == 1,
+                      f"householder_gemm_batched launched {ops.launches()}")
+                add("householder_gemm_batched", dtype, got,
+                    ref.ref_householder_gemm_batched(x, w, u, ids), n=N_BLOCKS,
+                    r=None, **common,
+                    ms=timed_ms(torch, [
+                        lambda w=w: ops.householder_gemm_batched(x, w, u, ids)
+                        for w in ws]),
+                    plain_ms=timed_ms(torch, [
+                        lambda w=w: ref.ref_householder_gemm_batched(
+                            x, w, u, ids) for w in ws]),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        io + 4 * d * tenants,
+                        2 * m * d * f + 4 * m * d, dtype))))
+                got = torch.cat([
+                    ops.etherplus_reflect_batched(x, u, v, ids).flatten(),
+                    ops.etherplus_reflect_batched(y0, u2, v2, ids).flatten()])
+                want = torch.cat([
+                    ref.ref_etherplus_reflect_batched(x, u, v, ids).flatten(),
+                    ref.ref_etherplus_reflect_batched(y0, u2, v2, ids)
+                    .flatten()])
+                add("etherplus_reflect_batched", dtype, got, want, n=N_BLOCKS,
+                    r=None, **common,
+                    ms=timed_ms(torch, [lambda: (
+                        ops.etherplus_reflect_batched(x, u, v, ids),
+                        ops.etherplus_reflect_batched(y0, u2, v2, ids))]),
+                    plain_ms=timed_ms(torch, [lambda: (
+                        ref.ref_etherplus_reflect_batched(x, u, v, ids),
+                        ref.ref_etherplus_reflect_batched(y0, u2, v2, ids))]),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        2 * m * (d + f) * es + 8 * b + 8 * (d + f) * tenants,
+                        8 * m * (d + f), dtype))))
+                for r, (ab, bb, sb) in lr.items():
+                    add("delora_gemm_batched", dtype,
+                        ops.delora_gemm_batched(x, w, ab, bb, sb, ids),
+                        ref.ref_delora_gemm_batched(x, w, ab, bb, sb, ids),
+                        n=None, r=r, **common,
+                        ms=timed_ms(torch, [
+                            lambda w=w: ops.delora_gemm_batched(
+                                x, w, ab, bb, sb, ids) for w in ws]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w: ref.ref_delora_gemm_batched(
+                                x, w, ab, bb, sb, ids) for w in ws]),
+                        **dict(zip(("bound_ms", "bound_by"), bound(
+                            io + (4 * r * (d + f) + r * es) * tenants,
+                            2 * m * d * f + 2 * m * r * (d + f) + m * r,
+                            dtype))))
+                add("hyperadapt_gemm_batched", dtype,
+                    ops.hyperadapt_gemm_batched(x, w, rb, cb, ids),
+                    ref.ref_hyperadapt_gemm_batched(x, w, rb, cb, ids),
+                    n=None, r=None, **common,
+                    ms=timed_ms(torch, [
+                        lambda w=w: ops.hyperadapt_gemm_batched(
+                            x, w, rb, cb, ids) for w in ws]),
+                    plain_ms=timed_ms(torch, [
+                        lambda w=w: ref.ref_hyperadapt_gemm_batched(
+                            x, w, rb, cb, ids) for w in ws]),
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        io + 4 * (d + f) * tenants,
+                        2 * m * d * f + m * (d + f), dtype))))
+            del ws, w
+    torch.cuda.synchronize()
+    return rows
+
+
 def layer_summary(rows, kernel, n, t, **match):
     """Sum over one smollm-360m layer's seven linears (bf16, ``n``
     blocks, ``t`` rows; None for the merges; the rows whose other keys
@@ -838,18 +996,25 @@ def profile_decode(torch, serve, api, steps, **kw):
     """The trace of ``steps`` greedy decode steps of the model
     ``serve.build(**kw)`` makes, after as many untimed ones."""
     m = serve.build(**kw)
-    params, adapters, cfg, peft = (m[k] for k in
-                                   ("params", "adapters", "cfg", "peft"))
-    cache, logits = api.prefill(params, adapters, {"tokens": m["tokens"]},
-                                cfg, peft)
-    cache = api.pad_cache(cache, cfg, m["tokens"].shape[1] + 2 * steps + 1)
+    return trace_decode(torch, api, steps, m["params"], m["adapters"],
+                        m["tokens"], m["cfg"], m["peft"])
+
+
+def trace_decode(torch, api, steps, params, adapters, tokens, cfg, peft,
+                 tenant_ids=None):
+    """The trace of ``steps`` greedy decode steps of one model and batch
+    (``adapters`` may be a bank, with ``tenant_ids``), after as many
+    untimed ones."""
+    cache, logits = api.prefill(params, adapters, {"tokens": tokens}, cfg,
+                                peft, tenant_ids=tenant_ids)
+    cache = api.pad_cache(cache, cfg, tokens.shape[1] + 2 * steps + 1)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
 
     def decode():
         nonlocal tok, cache
         for _ in range(steps):
             logits, cache = api.decode_step(params, adapters, cache, tok,
-                                            cfg, peft)
+                                            cfg, peft, tenant_ids=tenant_ids)
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
 
@@ -933,7 +1098,7 @@ def phase_serve(torch, execute, ops, serve, api):
     # the decode step under torch.profiler, outside the counted runs
     traces = {}
     for name, r in (("unmerged", un), ("merged", mg)):
-        t = traces[name] = profile_decode(torch, serve, api, GEN,
+        t = traces[name] = profile_decode(torch, serve, api, TRACE_STEPS,
                                           merged=r["merge_s"] is not None,
                                           **kw)
         print_trace(name, t, r["per_token_s"] * 1e3)
@@ -1049,7 +1214,8 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
     traces = {}                     # the decode step, outside the counts
     for name, r in (("unmerged", un), ("merged", mg)):
         t = traces[name] = profile_decode(
-            torch, serve, api, GEN, merged=r["merge_s"] is not None, **kw)
+            torch, serve, api, TRACE_STEPS, merged=r["merge_s"] is not None,
+            **kw)
         print_trace(f"{method} {name}", t, r["per_token_s"] * 1e3)
     return dict(adapter_effect=effect, merged_vs_unmerged=merged_err,
                 kernels_vs_plain=plain_err,
@@ -1059,6 +1225,156 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches")},
                 traces=traces)
+
+
+BANK_OP = {"ether": "householder_gemm_batched",
+           "etherplus": "etherplus_reflect_batched",
+           "delora": "delora_gemm_batched",
+           "hyperadapt": "hyperadapt_gemm_batched"}
+# each tenant of phase 12 moved off its method's identity, as phases 5, 7
+# and 9 move their one tenant (ETHER's random u is no identity)
+BANK_MOVES = {"ether": {},
+              "etherplus": {k: lambda t, z: t + EP_SPREAD * z
+                            for k in ("v1", "v2")},
+              "delora": {"b": lambda t, z: z,
+                         "lam": lambda t, z: DELORA_LAM
+                         + DELORA_LAM_SPREAD * z},
+              "hyperadapt": {"r": lambda t, z: 1 + HA_SPREAD * z,
+                             "c": lambda t, z: 1 + HA_SPREAD * z}}
+
+
+def phase_serve_bank(torch, execute, ops, serve, api, method):
+    """Phase 12: phase 3's model and requests served from a bank of
+    BANK_TENANTS tenants (each from its own seed, moved off its method's
+    identity) through ``serve.generate``'s bank path, ids BANK_IDS (after
+    ``validate_tenant_ids``), then tenant 0 merged (the ``--tenants``
+    mode's baseline), each with every count set to 0 just before it.
+    Holds the bank against the plain path on the card and each row
+    against single-tenant unmerged serving of its tenant on the kernels
+    (a prefill per distinct tenant), requires every row to move by more
+    than SERVE_TOL when served by another tenant, and traces the bank's
+    decode step."""
+    import dataclasses
+
+    from repro_torch.core import methods
+    from repro_torch.core.peft import (AdapterBank,
+                                       _flatten_adapter_modules,
+                                       init_adapters, merge_params,
+                                       validate_tenant_ids)
+    op = BANK_OP[method]
+    print(f"== phase 12: serve {ARCH} full width from a bank of "
+          f"{BANK_TENANTS} {method} tenants (n_blocks={N_BLOCKS}, rank "
+          f"{METHOD_RANK}), B={B} P={P} gen={GEN}, ids {BANK_IDS}",
+          flush=True)
+    kw = dict(arch=ARCH, variant="full", method=method, n_blocks=N_BLOCKS,
+              rank=METHOD_RANK, batch=B, prompt_len=P, seed=0, device="cuda")
+    m = serve.build(**kw)
+    cfg, peft, params, tokens = (m[k] for k in ("cfg", "peft", "params",
+                                                "tokens"))
+    del m
+    t0 = time.perf_counter()
+    trees = [off_init(torch, init_adapters(
+        torch.Generator(device="cuda").manual_seed(100 + t), params, peft),
+        BANK_MOVES[method], 1000 + t) for t in range(BANK_TENANTS)]
+    bank = AdapterBank.stack(trees, params, peft)
+    del trees
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.as_tensor(validate_tenant_ids(BANK_IDS, BANK_TENANTS),
+                          device="cuda")
+
+    def merged():
+        t0 = time.perf_counter()
+        mp = merge_params(params, bank.select(0), peft)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        return dict(serve.generate(mp, None, tokens, cfg, None, GEN),
+                    merge_s=merge_s)
+
+    bk = counted(torch, execute, ops, lambda: dict(serve.generate(
+        params, bank, tokens, cfg, peft, GEN, tenant_ids=ids), merge_s=None))
+    mg = counted(torch, execute, ops, merged)
+    per_forward = 7 * cfg.n_layers * (2 if method == "etherplus" else 1)
+    none = dict.fromkeys(ops.launches(), 0)
+    merges = {"etherplus": ("etherplus_merge_left", "etherplus_merge_right")
+              }.get(method, (f"{method}_merge",))
+    want = {"bank": ({f"{op}.cuda": per_forward * bk["forwards"]},
+                     {**none, op: per_forward * bk["forwards"]}),
+            "merged t=0": ({f"{method}_merge.cuda": 7 * cfg.n_layers},
+                           {**none, **dict.fromkeys(merges,
+                                                    7 * cfg.n_layers)})}
+    check_served(torch, cfg, {"bank": bk, "merged t=0": mg}, want)
+
+    # outside the counted runs: the plain path on the card, each distinct
+    # tenant served alone on the single-tenant kernels, and every row
+    # served by another tenant
+    plain = serve.generate(params, bank, tokens, cfg,
+                           dataclasses.replace(peft, backend="torch"), 4,
+                           tenant_ids=ids)
+    plain_err = frob(bk["logits"], plain["logits"])
+    rows_err = {}
+    for t in sorted(set(BANK_IDS)):
+        sel = [i for i, x in enumerate(BANK_IDS) if x == t]
+        _, alone = api.prefill(params, bank.select(t),
+                               {"tokens": tokens[sel]}, cfg, peft)
+        rows_err[t] = frob(bk["logits"][sel], alone)
+    other = ids.roll(1)               # every row another tenant than before
+    _, moved = api.prefill(params, bank, {"tokens": tokens}, cfg, peft,
+                           tenant_ids=other)
+    apart = min(frob(moved[i], bk["logits"][i]) for i in range(B))
+    print(f"bank vs plain path: logits rel. Frobenius {plain_err:.3e} (tol "
+          f"{SERVE_TOL:g}), greedy tokens agree "
+          f"{agree(bk['tokens'][:, :5], plain['tokens']) * 100:.1f}%")
+    print("bank rows vs single-tenant serving of their tenant (unmerged, "
+          "the single-tenant kernels): " + ", ".join(
+              f"tenant {t} {e:.3e}" for t, e in rows_err.items())
+          + f" (tol {SERVE_TOL:g})")
+    print(f"every row served by another tenant ({other.tolist()}): logits "
+          f"move by at least {apart:.3e} (must exceed {SERVE_TOL:g})")
+    check(plain_err <= SERVE_TOL, f"{method} bank vs plain path "
+          f"{plain_err:.3e}")
+    check(max(rows_err.values()) <= SERVE_TOL, f"{method} bank rows vs "
+          f"single-tenant serving {rows_err}")
+    check(apart > SERVE_TOL, f"{method} tenants' logits differ by only "
+          f"{apart:.3e}")
+
+    scale = {}
+    if method == "delora":
+        # the bank forward's scale of every tenant (as in the JAX package),
+        # against the scale of the gathered ids only, over one layer's
+        # seven linears (layer 0's bank)
+        lay = [a for _, a in _flatten_adapter_modules(bank.tree)]
+        sc = methods.get("delora").scale
+        one = [(a["a"][0], a["b"][0], a["lam"][0]) for a in lay]
+        scale = {
+            "all_tenants_ms_per_layer": timed_ms(torch, [
+                lambda: [sc(*x) for x in one]]),
+            "gathered_ms_per_layer": timed_ms(torch, [
+                lambda: [sc(x[0][ids], x[1][ids], x[2][ids]) for x in one]]),
+            "bank_bytes_read_per_layer": sum(
+                (x[0].numel() + x[1].numel()) * 4 for x in one)}
+        print(f"DeLoRA's scale of all {BANK_TENANTS} tenants: "
+              f"{scale['all_tenants_ms_per_layer']:.4f} ms a layer "
+              f"({scale['bank_bytes_read_per_layer'] / 1e6:.1f} MB of a, b "
+              f"read), of the gathered ids only "
+              f"{scale['gathered_ms_per_layer']:.4f} ms")
+    overhead = bk["per_token_s"] / mg["per_token_s"] - 1
+    print(f"bank: {bank.size_bytes() / 1e6:.2f} MB for {BANK_TENANTS} "
+          f"tenants ({bank.size_bytes() / BANK_TENANTS / 1e3:.1f} KB a "
+          f"tenant, built in {build_s:.1f} s); decode overhead of the "
+          f"unmerged bank over merged tenant 0: {overhead * 100:+.1f}% a "
+          f"token")
+    trace = trace_decode(torch, api, TRACE_STEPS, params, bank, tokens, cfg,
+                         peft, tenant_ids=ids)
+    print_trace(f"{method} bank", trace, bk["per_token_s"] * 1e3)
+    return dict(bank_vs_plain=plain_err, rows_vs_single_tenant=rows_err,
+                other_tenant_min=apart, bank_bytes=bank.size_bytes(),
+                overhead=overhead, build_s=build_s, scale=scale,
+                **{f"{name}_{k}": r[k] for name, r in
+                   (("bank", bk), ("merged", mg))
+                   for k in ("prefill_s", "per_token_s", "peak_gb",
+                             "forwards", "merge_s", "counters", "launches")},
+                trace=trace)
 
 
 def phase_baselines(torch, execute, ops, serve):
@@ -1406,23 +1722,38 @@ def main() -> int:
     from repro_torch.models import api
 
     t0 = time.perf_counter()
-    smi = phase_device_and_build(torch, build)
-    rows = phase_kernels(torch, ops, ref)
-    rows += etherplus_kernel_rows(torch, ops, ref, kepm)
-    rows += bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb)
-    rows += method_kernel_rows(torch, ops, ref)
-    served = phase_serve(torch, execute, ops, serve, api)
-    trained = phase_train(torch, execute, ops, 4, "ether")
-    ep_served = phase_serve_method(torch, execute, ops, serve, api, 5,
-                                   "etherplus")
-    ep_trained = phase_train(torch, execute, ops, 6, "etherplus")
+    seconds = {}                        # wall seconds of each phase
+
+    def timed(name, run):
+        t = time.perf_counter()
+        out = run()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("1 build", lambda: phase_device_and_build(torch, build))
+    rows = timed("2 rows", lambda: phase_kernels(torch, ops, ref))
+    rows += timed("2 etherplus rows",
+                  lambda: etherplus_kernel_rows(torch, ops, ref, kepm))
+    rows += timed("2 backward rows",
+                  lambda: bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb))
+    rows += timed("2 method rows", lambda: method_kernel_rows(torch, ops, ref))
+    rows += timed("2 bank rows", lambda: bank_kernel_rows(torch, ops, ref))
+    served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
+    trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
+    ep_served = timed("5", lambda: phase_serve_method(
+        torch, execute, ops, serve, api, 5, "etherplus"))
+    ep_trained = timed("6", lambda: phase_train(torch, execute, ops, 6,
+                                                "etherplus"))
     served_m, trained_m = {}, {}
     for phase, method in ((7, "delora"), (9, "hyperadapt")):
-        served_m[method] = phase_serve_method(torch, execute, ops, serve,
-                                              api, phase, method)
-        trained_m[method] = phase_train(torch, execute, ops, phase + 1,
-                                        method)
-    baselines = phase_baselines(torch, execute, ops, serve)
+        served_m[method] = timed(str(phase), lambda: phase_serve_method(
+            torch, execute, ops, serve, api, phase, method))
+        trained_m[method] = timed(str(phase + 1), lambda: phase_train(
+            torch, execute, ops, phase + 1, method))
+    baselines = timed("11", lambda: phase_baselines(torch, execute, ops,
+                                                    serve))
+    served_bank = {method: timed(f"12 {method}", lambda: phase_serve_bank(
+        torch, execute, ops, serve, api, method)) for method in BANK_OP}
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -1435,6 +1766,9 @@ def main() -> int:
         paths.update({f"{method} serve": served_m[method]["unmerged_launches"],
                       f"{method} merge": served_m[method]["merged_launches"],
                       f"{method} train": trained_m[method]["launches"]})
+    for method, r in served_bank.items():
+        paths.update({f"{method} bank serve": r["bank_launches"],
+                      f"{method} bank merge": r["merged_launches"]})
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
@@ -1479,7 +1813,27 @@ def main() -> int:
         "hyperadapt_merge": ("method_merge",
                              "src/repro/kernels/method_merge.py:97",
                              (None, None, "one smollm-360m layer's weights"),
-                             {})}
+                             {}),
+        "householder_gemm_batched": (
+            "householder_gemm_batched",
+            "src/repro/kernels/householder_gemm_batched.py:96",
+            (N_BLOCKS, B, f"one smollm-360m decode layer, B=4 S=1, n=8, "
+                          f"A={BANK_TENANTS}"), {}),
+        "etherplus_reflect_batched": (
+            "etherplus_reflect_batched",
+            "src/repro/kernels/etherplus_reflect_batched.py:70",
+            (N_BLOCKS, B, f"one smollm-360m decode layer (both sides of "
+                          f"each linear), B=4 S=1, n=8, A={BANK_TENANTS}"),
+            {}),
+        "delora_gemm_batched": (
+            "delora_gemm_batched", "src/repro/kernels/delora_gemm.py:169",
+            (None, B, f"one smollm-360m decode layer, B=4 S=1, r=8, "
+                      f"A={BANK_TENANTS}"), {"r": METHOD_RANK}),
+        "hyperadapt_gemm_batched": (
+            "hyperadapt_gemm_batched",
+            "src/repro/kernels/hyperadapt_gemm.py:141",
+            (None, B, f"one smollm-360m decode layer, B=4 S=1, "
+                      f"A={BANK_TENANTS}"), {})}
     kernels = []
     for name, (source, replaces, (n, t, what), match) in table.items():
         s = layer_summary(rows, name, n, t, **match)
@@ -1514,9 +1868,10 @@ def main() -> int:
                                 "ms", "plain_ms", "bound_ms", "bound_by",
                                 "matmul_ms", "max_abs_err")}}
         kernels.append(entry)
-    check(len(kernels) == 12, f"the kernels line lists {len(kernels)}")
+    check(len(kernels) == 16, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-11 took {total_s:.1f} s")
+    print(f"chip_smoke: phases 1-12 took {total_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -1525,7 +1880,9 @@ def main() -> int:
                    "etherplus_train": ep_trained,
                    **{f"{m}_serve": r for m, r in served_m.items()},
                    **{f"{m}_train": r for m, r in trained_m.items()},
-                   "baselines": baselines, "kernels": kernels,
+                   "baselines": baselines,
+                   **{f"{m}_bank_serve": r for m, r in served_bank.items()},
+                   "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

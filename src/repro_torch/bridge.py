@@ -33,3 +33,13 @@ def to_torch(tree: Any, device="cpu") -> Any:
     """Nested dicts (and tuples) of numpy arrays → the same nesting of
     torch tensors on ``device``, dtypes and shapes unchanged."""
     return map_with_paths(lambda _, leaf: _tensor(leaf, device), tree)
+
+
+def bank_to_torch(bank: Any, device="cpu"):
+    """A JAX package's AdapterBank (anything with ``tree``, ``tenants`` and
+    ``stack_ndims``; its leaves numpy-convertible) → the port's
+    :class:`~repro_torch.core.peft.AdapterBank` on ``device``, leaves,
+    tenant count and tenant axes unchanged."""
+    from repro_torch.core.peft import AdapterBank
+    return AdapterBank(to_torch(bank.tree, device), int(bank.tenants),
+                       dict(bank.stack_ndims))

@@ -1,7 +1,8 @@
 """Execution-backend dispatch for the PEFT methods' hot ops.
 
 ``core.methods`` routes every ETHER, ETHER+, DeLoRA and HyperAdapt
-compute through this registry, which maps ``(op, backend)`` to an implementation:
+compute, single-tenant and bank (``*_batched``), through this registry,
+which maps ``(op, backend)`` to an implementation:
 
 ``torch``
     The plain PyTorch version of the op (``kernels/ref.py``): float32
@@ -69,6 +70,17 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("hyperadapt_merge", "cuda"): ops.hyperadapt_merge,
     ("hyperadapt_merge_bwd", "torch"): ref.ref_hyperadapt_merge_bwd,
     ("hyperadapt_merge_bwd", "cuda"): ops.hyperadapt_merge_bwd,
+    # multi-tenant bank serving (forward only, as in the JAX package's
+    # serving path)
+    ("householder_gemm_batched", "torch"): ref.ref_householder_gemm_batched,
+    ("householder_gemm_batched", "cuda"): ops.householder_gemm_batched,
+    ("etherplus_reflect_batched", "torch"):
+        ref.ref_etherplus_reflect_batched,
+    ("etherplus_reflect_batched", "cuda"): ops.etherplus_reflect_batched,
+    ("delora_gemm_batched", "torch"): ref.ref_delora_gemm_batched,
+    ("delora_gemm_batched", "cuda"): ops.delora_gemm_batched,
+    ("hyperadapt_gemm_batched", "torch"): ref.ref_hyperadapt_gemm_batched,
+    ("hyperadapt_gemm_batched", "cuda"): ops.hyperadapt_gemm_batched,
 }
 _COUNTERS: dict[str, int] = {}
 

@@ -1,16 +1,19 @@
 """PEFT method registry of the port.
 
 Every finetuning transform is a :class:`PEFTMethod`: adapter factory
-(``init``), adapted forward (``dense``), absorption (``merge``),
-parameter accounting and the identity adapter values (``identity_leaf``).
-The port has the JAX registry's methods in its order but VeRA: ETHER,
-ETHER+, OFT, Naive, LoRA, full finetuning, DeLoRA and HyperAdapt.
-:func:`get` raises :class:`repro_torch.NotPortedError` for every other
-name, known to the JAX package or not, and ``bank_dense`` (multi-tenant
-bank serving) raises it for every method.  The kernel ops (ETHER,
-ETHER+, DeLoRA, HyperAdapt) dispatch through
-:mod:`repro_torch.core.execute`; OFT, Naive, LoRA and ``full`` are plain
-PyTorch, as the JAX package runs them in jnp.
+(``init``), adapted forward (``dense``), multi-tenant bank forward
+(``bank_dense``), absorption (``merge``), parameter accounting and the
+identity adapter values (``identity_leaf``).  The port has the JAX
+registry's methods in its order but VeRA: ETHER, ETHER+, OFT, Naive,
+LoRA, full finetuning, DeLoRA and HyperAdapt.  :func:`get` raises
+:class:`repro_torch.NotPortedError` for every other name, known to the
+JAX package or not.  The methods flagged ``bank_servable`` (ETHER,
+ETHER+, DeLoRA, HyperAdapt, as in the JAX registry) serve an
+:class:`~repro_torch.core.peft.AdapterBank` through their batched
+kernels; ``bank_dense`` of any other method raises the JAX package's
+ValueError.  The kernel ops (ETHER, ETHER+, DeLoRA, HyperAdapt) dispatch
+through :mod:`repro_torch.core.execute`; OFT, Naive, LoRA and ``full``
+are plain PyTorch, as the JAX package runs them in jnp.
 """
 
 from __future__ import annotations
@@ -51,6 +54,11 @@ def get(name: str) -> "PEFTMethod":
                              f"{', '.join(available())})") from None
 
 
+def bank_servable() -> tuple[str, ...]:
+    """Methods an AdapterBank can host (``bank_servable`` set)."""
+    return tuple(n for n, m in _METHOD_REGISTRY.items() if m.bank_servable)
+
+
 def identity_like(name: str, tree: Params) -> Params:
     """Per-method identity adapter values shaped like ``tree`` (a single
     adapter tree or a stacked one): zeros for the reflections and the
@@ -70,14 +78,28 @@ def _needs_grad(*leaves) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
 
 
+def _serving_only(*leaves) -> None:
+    """Bank forwards have no backward in the port yet (the batched
+    backward kernels, ROADMAP Queue 2 items 14-15)."""
+    if _needs_grad(*leaves):
+        raise NotPortedError("training through an adapter bank")
+
+
 class PEFTMethod:
     """One PEFT method; ``cfg`` is a ``transforms.PEFTConfig``.
     ``dense`` takes x with any leading dims and does not add the bias."""
 
     name: str = ""
+    # Can an AdapterBank stack this method's adapters on a tenant axis and
+    # serve each request with its own tenant's through a batched kernel?
+    bank_servable: bool = False
 
     def bank_dense(self, x, W, adapter: Params, cfg) -> torch.Tensor:
-        raise NotPortedError(f"multi-tenant bank serving of {self.name!r}")
+        """The bank forward: x (B, S, d), every adapter leaf the whole bank
+        (tenant axis first) and ``adapter["ids"]`` (B,) the tenant of each
+        sequence."""
+        raise ValueError(f"method {self.name!r} is not bank-servable "
+                         f"(bank methods: {bank_servable()})")
 
     def identity_leaf(self, leaf_name: str, arr: torch.Tensor) -> torch.Tensor:
         """The identity adapter value of one leaf (default: zeros)."""
@@ -100,6 +122,7 @@ class PEFTMethod:
 @register_method
 class EtherMethod(PEFTMethod):
     name = "ether"
+    bank_servable = True
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         from repro_torch.core.transforms import resolve_blocks
@@ -116,6 +139,13 @@ class EtherMethod(PEFTMethod):
             return execute.HouseholderGemm.apply(x, W, u, cfg.backend)
         return execute.dispatch("householder_gemm", cfg.backend, x, W, u)
 
+    def bank_dense(self, x, W, adapter, cfg):
+        # u is the (A, n, db) bank; each sequence reflects with its own
+        # tenant's hyperplanes inside the GEMM (DESIGN.md §2)
+        _serving_only(x, W, adapter["u"])
+        return execute.dispatch("householder_gemm_batched", cfg.backend, x,
+                                W, adapter["u"], adapter["ids"])
+
     def merge(self, W, adapter, cfg):
         return execute.dispatch("ether_merge", cfg.backend, W, adapter["u"])
 
@@ -130,6 +160,7 @@ class EtherPlusMethod(PEFTMethod):
     blocks (u2, v2)."""
 
     name = "etherplus"
+    bank_servable = True
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         from repro_torch.core.transforms import resolve_blocks
@@ -168,6 +199,22 @@ class EtherPlusMethod(PEFTMethod):
                                                cfg.backend)
         return execute.dispatch("etherplus_gemm", cfg.backend, x, W, u1, v1,
                                 u2, v2)
+
+    def bank_dense(self, x, W, adapter, cfg):
+        # the input side's rank-2 bank update, the shared frozen product
+        # (a plain matmul, as the JAX package leaves it to XLA), then,
+        # two-sided, the output side's (u2/v2 banks over f)
+        u2, v2 = self._pair(adapter, cfg)
+        ids = adapter["ids"]
+        _serving_only(x, W, adapter["u1"], adapter["v1"],
+                      *(t for t in (u2, v2) if t is not None))
+        xr = execute.dispatch("etherplus_reflect_batched", cfg.backend, x,
+                              adapter["u1"], adapter["v1"], ids)
+        y = xr @ W.to(x.dtype)
+        if u2 is not None:
+            y = execute.dispatch("etherplus_reflect_batched", cfg.backend, y,
+                                 u2, v2, ids)
+        return y
 
     def merge(self, W, adapter, cfg):
         u2, v2 = self._pair(adapter, cfg)
@@ -323,6 +370,7 @@ class DeLoRAMethod(PEFTMethod):
     enters the kernels, as in the JAX package."""
 
     name = "delora"
+    bank_servable = True
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         dt = torch_dtype(cfg.adapter_dtype)
@@ -359,6 +407,15 @@ class DeLoRAMethod(PEFTMethod):
             return execute.DeloraGemm.apply(x, W, a, b, s, cfg.backend)
         return execute.dispatch("delora_gemm", cfg.backend, x, W, a, b, s)
 
+    def bank_dense(self, x, W, adapter, cfg):
+        # s for every tenant of the bank, (A, r), each forward, as the JAX
+        # package computes it (src/repro/core/methods.py:527-531)
+        a, b = adapter["a"], adapter["b"]
+        _serving_only(x, W, a, b, adapter["lam"])
+        s = self.scale(a, b, adapter["lam"]).to(x.dtype)
+        return execute.dispatch("delora_gemm_batched", cfg.backend, x, W, a,
+                                b, s, adapter["ids"])
+
     def merge(self, W, adapter, cfg):
         a, b = adapter["a"], adapter["b"]
         s = self.scale(a, b, adapter["lam"]).to(W.dtype)
@@ -375,6 +432,7 @@ class HyperAdaptMethod(PEFTMethod):
     Its identity is r = c = ones, not zeros (:meth:`identity_leaf`)."""
 
     name = "hyperadapt"
+    bank_servable = True
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         dt = torch_dtype(cfg.adapter_dtype)
@@ -389,6 +447,12 @@ class HyperAdaptMethod(PEFTMethod):
         if _needs_grad(x, W, r, c):
             return execute.HyperAdaptGemm.apply(x, W, r, c, cfg.backend)
         return execute.dispatch("hyperadapt_gemm", cfg.backend, x, W, r, c)
+
+    def bank_dense(self, x, W, adapter, cfg):
+        r, c = adapter["r"], adapter["c"]
+        _serving_only(x, W, r, c)
+        return execute.dispatch("hyperadapt_gemm_batched", cfg.backend, x, W,
+                                r, c, adapter["ids"])
 
     def merge(self, W, adapter, cfg):
         return execute.dispatch("hyperadapt_merge", cfg.backend, W,

@@ -3,7 +3,11 @@
 Builds, counts and merges adapter trees that mirror a model's parameter
 tree.  Stacked weights — the (L, d, f) kernels of the stacked layers —
 get adapters with the same leading stack dims, so a layer's slice of the
-params and of the adapters are taken together.
+params and of the adapters are taken together.  :class:`AdapterBank`
+stacks many tenants' trees for multi-tenant serving, with the tenant
+axis after the stack dims, as in the JAX package; its ``MergedCache``
+sibling and ``to_device`` (the serve engine's hot tier and mesh
+placement) wait for the engine (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import re
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
@@ -88,6 +93,163 @@ def _flatten_adapter_modules(adapters: Params, prefix: str = ""):
         for k, v in adapters.items():
             yield from _flatten_adapter_modules(
                 v, f"{prefix}/{k}" if prefix else k)
+
+
+def _module(tree: Params, path: str) -> Params:
+    node = tree
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+class AdapterBank:
+    """N tenants' adapter trees stacked for multi-tenant serving.
+
+    Each module's adapter leaves carry the tenant axis at position
+    ``stack_ndims[module]``, after the module's param stack dims: a
+    stacked (L, n, db) ETHER ``u`` becomes (L, A, n, db), so the backbone
+    slices layers as it slices the params and each layer sees its whole
+    (A, n, db) bank.  Only the methods flagged ``bank_servable`` stack
+    (ETHER's u; ETHER+'s u1/v1/u2/v2; DeLoRA's a, b and λ; HyperAdapt's
+    r and c).  Every operation returns a new bank or tree; none changes
+    this one's tensors."""
+
+    BANK_METHODS = _methods.bank_servable()
+
+    def __init__(self, tree: Params, tenants: int,
+                 stack_ndims: dict[str, int]):
+        self.tree = tree
+        self.tenants = tenants
+        self.stack_ndims = stack_ndims
+
+    @classmethod
+    def stack(cls, trees: list, params: Params,
+              cfg: PEFTConfig) -> "AdapterBank":
+        """Stack N standard adapter trees (each mirroring ``params``)."""
+        if cfg.method not in cls.BANK_METHODS:
+            raise ValueError(f"AdapterBank supports {cls.BANK_METHODS} "
+                             f"only (got {cfg.method!r})")
+        if not trees:
+            raise ValueError("need at least one tenant tree")
+        stack_ndims = {
+            path.rsplit("/", 1)[0]: leaf.ndim - 2
+            for path, leaf in flatten_with_paths(params)
+            if is_target(path, leaf, cfg)}
+        bank: Params = {}
+        for mod, adapter in _flatten_adapter_modules(trees[0]):
+            nd = stack_ndims[mod]
+            _insert(bank, mod, {
+                k: torch.stack([_module(t, mod)[k] for t in trees], dim=nd)
+                for k in adapter})
+        return cls(bank, len(trees), stack_ndims)
+
+    def _map(self, fn) -> Params:
+        """A tree of ``fn(leaf name, leaf, tenant axis)`` per leaf."""
+        out: Params = {}
+        for mod, adapter in _flatten_adapter_modules(self.tree):
+            nd = self.stack_ndims[mod]
+            _insert(out, mod, {k: fn(mod, k, v, nd)
+                               for k, v in adapter.items()})
+        return out
+
+    def with_capacity(self, capacity: int,
+                      method: Optional[str] = None) -> "AdapterBank":
+        """Pad the tenant axis to ``capacity`` rows.  With ``method`` the
+        new rows hold the method's identity adapter
+        (``methods.identity_like`` values: ones for HyperAdapt's scales),
+        without it zeros."""
+        if capacity < self.tenants:
+            raise ValueError(f"capacity {capacity} < resident tenants "
+                             f"{self.tenants}")
+        if capacity == self.tenants:
+            return self
+        m = _methods.get(method) if method is not None else None
+        pad = capacity - self.tenants
+
+        def padded(mod, k, v, nd):
+            block = v.new_zeros((*v.shape[:nd], pad, *v.shape[nd + 1:]))
+            if m is not None:
+                block = m.identity_leaf(k, block)
+            return torch.cat([v, block], dim=nd)
+        return AdapterBank(self._map(padded), capacity, self.stack_ndims)
+
+    def replace_slot(self, slot: int, adapters: Params) -> "AdapterBank":
+        """A new bank whose tenant row ``slot`` holds ``adapters`` (a
+        standard single-tenant tree); every other row, and this bank, are
+        untouched.  ``slot`` is clamped into [0, tenants), as the JAX
+        package's ``dynamic_update_slice`` clamps its start."""
+        slot = min(max(int(slot), 0), self.tenants - 1)
+
+        def swapped(mod, k, v, nd):
+            out = v.clone()
+            out.select(nd, slot).copy_(_module(adapters, mod)[k])
+            return out
+        return AdapterBank(self._map(swapped), self.tenants,
+                           self.stack_ndims)
+
+    def select(self, tenant: int) -> Params:
+        """One tenant's standard adapter tree (e.g. for merge_params)."""
+        return self._map(lambda mod, k, v, nd: v.select(nd, tenant)
+                         .contiguous())
+
+    def request(self, ids) -> Params:
+        """The adapter tree of one batch of requests: every module keeps
+        its whole bank and gains an ``ids`` leaf, int32 on the bank's
+        device, broadcast over the module's stack dims so the backbone
+        slices it with the layers; ``adapted_dense`` then runs the
+        method's bank forward.  Ids outside [0, tenants) are mapped into
+        it by the bank kernels (from the end if negative, then clamped),
+        as the JAX package's gather maps them:
+        frontends call :func:`validate_tenant_ids` first."""
+        some = next(iter(next(_flatten_adapter_modules(self.tree))[1]
+                         .values()))
+        ids = torch.as_tensor(ids).to(device=some.device, dtype=torch.int32)
+
+        def with_ids(mod, adapter):
+            nd = self.stack_ndims[mod]
+            stack = next(iter(adapter.values())).shape[:nd]
+            return {**adapter, "ids": ids.expand(*stack, *ids.shape)}
+        out: Params = {}
+        for mod, adapter in _flatten_adapter_modules(self.tree):
+            _insert(out, mod, with_ids(mod, adapter))
+        return out
+
+    def size_bytes(self) -> int:
+        """Device bytes of the whole bank."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for _, a in _flatten_adapter_modules(self.tree)
+                   for leaf in a.values())
+
+
+def validate_tenant_ids(ids, tenants: int) -> np.ndarray:
+    """Host-side guard for serving frontends: raise on any id outside
+    ``[0, tenants)`` instead of letting the bank kernels map it to a
+    neighbour's adapter (a bad id would otherwise be served tenant
+    ``tenants - 1``'s weights).  Returns the ids as int32 numpy.  The
+    errors are the JAX package's."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.cpu().numpy()
+    arr = np.asarray(ids)
+    if arr.size and not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(f"tenant ids must be integers, got {arr.dtype}")
+    bad = arr[(arr < 0) | (arr >= tenants)] if arr.size else arr
+    if bad.size:
+        raise ValueError(f"tenant id(s) {sorted(set(bad.tolist()))} out "
+                         f"of range [0, {tenants})")
+    return arr.astype(np.int32)
+
+
+def init_adapter_bank(seed: int, params: Params, cfg: PEFTConfig,
+                      tenants: int) -> AdapterBank:
+    """``tenants`` independent adapter trees, stacked.  Tenant t's tree
+    comes from a ``torch.Generator`` of its own on the params' device,
+    seeded from the t-th child of ``numpy.random.SeedSequence(seed)``."""
+    device = next(leaf for _, leaf in flatten_with_paths(params)).device
+    seeds = [int(c.generate_state(1)[0])
+             for c in np.random.SeedSequence(seed).spawn(tenants)]
+    trees = [init_adapters(torch.Generator(device=device).manual_seed(sd),
+                           params, cfg) for sd in seeds]
+    return AdapterBank.stack(trees, params, cfg)
 
 
 @torch.no_grad()

@@ -21,7 +21,10 @@ DeLoRA and HyperAdapt run their own fused GEMM and merge kernels
 ``hyperadapt_merge``); OFT, Naive and LoRA are plain PyTorch, as the JAX
 package runs them in jnp, and ``full`` is the plain product.
 ``PEFTConfig.backend`` picks the implementation of the kernel ops through
-:mod:`repro_torch.core.execute`.
+:mod:`repro_torch.core.execute`.  An adapter that carries ``ids`` is a
+request of a multi-tenant :class:`~repro_torch.core.peft.AdapterBank`:
+every leaf is the whole bank and ``adapted_dense`` runs the method's
+``bank_dense``.
 """
 
 from __future__ import annotations
@@ -163,12 +166,31 @@ def adapted_dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
                   adapter: Optional[Params],
                   cfg: Optional[PEFTConfig]) -> torch.Tensor:
     """``y = (T_L W T_R)ᵀx + ΔWᵀx + b``; a plain dense layer without an
-    adapter or under full finetuning.  x: (..., d_in); W: (d_in, d_out)."""
+    adapter or under full finetuning.  x: (..., d_in); W: (d_in, d_out).
+    With an ``ids`` leaf in the adapter (a bank request), x is (B, S, d_in)
+    and sequence b takes tenant ids[b]'s adapter."""
     if not adapter or cfg is None or cfg.method == "full":
         y = x @ W.to(x.dtype)
+    elif "ids" in adapter:
+        _check_bank_inputs(x, adapter, cfg)
+        y = _methods.get(cfg.method).bank_dense(x, W, adapter, cfg)
     else:
         y = _methods.get(cfg.method).dense(x, W, adapter, cfg)
     return y if b is None else y + b.to(x.dtype)
+
+
+def _check_bank_inputs(x: torch.Tensor, adapter: Params,
+                       cfg: PEFTConfig) -> None:
+    """The bank forward's inputs, as the JAX package checks them."""
+    if cfg.mode != "activation":
+        raise ValueError(
+            "AdapterBank serving requires mode='activation' "
+            f"(got {cfg.mode!r}); merge a single tenant via "
+            "bank.select(i) + merge_params instead")
+    if x.dim() != 3 or x.shape[0] != adapter["ids"].shape[0]:
+        raise ValueError(
+            f"bank adapters need per-request (B, S, d) inputs; "
+            f"got x {tuple(x.shape)} for ids {tuple(adapter['ids'].shape)}")
 
 
 def merge_weight(W: torch.Tensor, adapter: Optional[Params],

@@ -1,11 +1,13 @@
 // Device code shared by the port's GEMM kernels (householder_gemm,
 // reflect_gemm_dx, reflect_gemm_dw, etherplus_gemm, delora_gemm,
-// hyperadapt_gemm) and its row kernels (etherplus_merge,
-// etherplus_reflect_bwd, method_merge): dtype conversions, a warp sum, the
-// block-projection prologue, the one register-tiled f32 SIMT GEMM that
-// every product runs on (with DeLoRA's and HyperAdapt's fused variants),
-// the per-row rank-2 update and the reflection backward with its
-// fixed-order dL/dû sum.
+// hyperadapt_gemm and the bank variants householder_gemm_batched,
+// delora_gemm_batched, hyperadapt_gemm_batched) and its row kernels
+// (etherplus_merge, etherplus_reflect_bwd, etherplus_reflect_batched,
+// method_merge): dtype conversions, a warp sum, the per-row tenant of a
+// multi-tenant bank, the block-projection prologue, the one
+// register-tiled f32 SIMT GEMM that every product runs on (with DeLoRA's
+// and HyperAdapt's fused variants), the per-row rank-2 update and the
+// reflection backward with its fixed-order dL/dû sum.
 //
 // R is the blockwise Householder reflection I − 2ûûᵀ over n blocks of db
 // elements, û = u / (‖u‖ + 1e-8) with ε outside the square root, as in
@@ -41,6 +43,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Multi-tenant bank serving: row m of the (B·S, ·) operand belongs to
+// sequence m / seq, which is served by tenant ids[m / seq] of a bank of
+// `count` tenants (ids int32, or int64 under is64).  An id outside
+// [0, count) is mapped into it as the JAX package's gather maps an index
+// (src/repro/core/peft.py:266-270): a negative id counts from the end,
+// then the id is clamped.  So the kernel never reads past the bank, and
+// the wrappers never read ids on the host.  The default (one tenant, no
+// ids) is what every single-tenant kernel is launched with.
+struct Tenants {
+  const void* ids = nullptr;
+  int is64 = 0;
+  int seq = 1;
+  int count = 1;
+};
+
+__device__ __forceinline__ int row_tenant(const Tenants& tn, int m) {
+  const int b = m / tn.seq;
+  const long long id =
+      tn.is64 ? __ldg(static_cast<const long long*>(tn.ids) + b)
+              : static_cast<long long>(
+                    __ldg(static_cast<const int*>(tn.ids) + b));
+  const long long wrapped = id < 0 ? id + tn.count : id;
+  return wrapped < 0 ? 0
+                     : wrapped >= tn.count ? tn.count - 1
+                                           : static_cast<int>(wrapped);
+}
+
 // The hyperplanes of one reflection (raw (n, db) rows; v only for ETHER+'s
 // rank 2) and what the projection prologue writes for them: the per-row
 // block projections p[t*n + i] = x_t,i · û_i (q likewise for v̂) and the
@@ -68,9 +97,13 @@ inline Proj carve(const float* u, const float* v, float* scratch, int M,
 
 // One warp per (row t, block i): p[t*n + i] = Σ_j x[t, i*db + j] u[i, j]
 // / (‖u_i‖ + ε), and under RANK2 q likewise for v.  Row 0's warps also
-// write the norms.  x is read once for both directions.
-template <typename T, bool RANK2>
-__global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K) {
+// write the norms.  x is read once for both directions.  Under BANK, u is
+// an (A, n, db) bank, row t reads its tenant's hyperplanes (`tn`) and
+// every warp writes its own norm, unorm[t*n + i] (an (M, n) scratch).
+template <typename T, bool RANK2, bool BANK = false>
+__global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K,
+                            Tenants tn) {
+  static_assert(!(BANK && RANK2), "the bank prologue is rank 1");
   const int n = pr.n, db = pr.db;
   const int warps = blockDim.x / 32;
   const long long pair =
@@ -79,7 +112,10 @@ __global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K) {
   if (pair >= static_cast<long long>(M) * n) return;  // whole warps exit
   const long long t = pair / n;
   const int i = static_cast<int>(pair % n);
-  const float* ui = pr.u + static_cast<long long>(i) * db;
+  const long long bank =
+      BANK ? static_cast<long long>(row_tenant(tn, static_cast<int>(t))) * K
+           : 0;
+  const float* ui = pr.u + bank + static_cast<long long>(i) * db;
   const float* vi = RANK2 ? pr.v + static_cast<long long>(i) * db : nullptr;
   const T* xt = x + t * K + static_cast<long long>(i) * db;
   float ss = 0.f, xu = 0.f, sv = 0.f, xv = 0.f;
@@ -102,7 +138,10 @@ __global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K) {
   if (lane == 0) {
     const float nrm = sqrtf(ss) + kEps;
     pr.p[pair] = xu / nrm;
-    if (t == 0) pr.unorm[i] = nrm;
+    if (BANK)
+      pr.unorm[pair] = nrm;
+    else if (t == 0)
+      pr.unorm[i] = nrm;
     if constexpr (RANK2) {
       const float vn = sqrtf(sv) + kEps;
       pr.q[pair] = xv / vn;
@@ -111,14 +150,14 @@ __global__ void proj_kernel(const T* __restrict__ x, Proj pr, int M, int K) {
   }
 }
 
-template <typename T, bool RANK2>
+template <typename T, bool RANK2, bool BANK = false>
 cudaError_t launch_proj(const T* x, const Proj& pr, int M, int K,
-                        cudaStream_t s) {
+                        cudaStream_t s, const Tenants& tn = Tenants{}) {
   constexpr int kThreads = 256;
   const long long pairs = static_cast<long long>(M) * pr.n;
   const unsigned blocks =
       static_cast<unsigned>((pairs + kThreads / 32 - 1) / (kThreads / 32));
-  proj_kernel<T, RANK2><<<blocks, kThreads, 0, s>>>(x, pr, M, K);
+  proj_kernel<T, RANK2, BANK><<<blocks, kThreads, 0, s>>>(x, pr, M, K, tn);
   return cudaGetLastError();
 }
 
@@ -148,17 +187,25 @@ enum Fuse {
   // to the f32 sum before the one rounding (DeLoRA: la = a, ls = s,
   // lb = b; its dx runs G·Wᵀ + ((G·bᵀ)·s)·aᵀ with la = bᵀ, lb = aᵀ).
   kFuseLowRank,
+  // C = A·B + ((h · diag(ls_t)) · lb_t) with h = A·a_t (M × r, f32) given
+  // by a pass before the GEMM and ls, lb at each row's tenant t (BANK
+  // only: delora_gemm_batched).  The epilogue adds it to the f32 sum
+  // before the one rounding.
+  kFuseRowLowRank,
 };
 
 // The operands of a Fuse variant: rs (K,), cs (N,) f32 for kFuseScale; la
 // (K, r), lb (r, N) f32 row-major and ls (r,) in A's dtype for
-// kFuseLowRank.
+// kFuseLowRank.  Under BANK each is a bank with the tenant axis first
+// (rs (A, K), cs (A, N); ls (A, r), lb (A, r, N) and h (M, r) f32 for
+// kFuseRowLowRank), read at each row's tenant.
 struct Side {
   const float* rs = nullptr;
   const float* cs = nullptr;
   const float* la = nullptr;
   const float* lb = nullptr;
   const void* ls = nullptr;
+  const float* h = nullptr;
   int r = 0;
 };
 
@@ -180,19 +227,29 @@ constexpr int kMaxRank = 512;
 // thread owns TM×TN outputs at rows ty + i·(BM/TM), columns tx + j·(BN/TN)
 // (strided, so a warp's shared reads and global stores touch consecutive
 // words).  C is written at c[m*N + col] in TC.  Indices stay 32-bit
-// (every dimension is an int); only addresses are 64-bit.  The launch bounds ask for one resident block
+// (every dimension is an int); only addresses are 64-bit.  BANK (bank
+// serving, rows of several tenants in one tile) reads û and its per-row
+// norm (kReflectK), rs and cs (kFuseScale) or ls and lb (kFuseRowLowRank)
+// at each row's tenant (`tn`), so W is read once for all tenants.  The
+// launch bounds ask for one resident block
 // a SM: with the thread count alone, ptxas squeezed the dXr instantiation
 // to 32 registers with spills, 1.2-1.3x slower at the train step's
 // 960-wide shapes on the H100 (PERF.md, run J).
 template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
           int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT,
-          Fuse FUSE = kFuseNone>
+          Fuse FUSE = kFuseNone, bool BANK = false>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
     gemm_kernel(const TA* __restrict__ a, int lda, const TB* __restrict__ b,
                 int ldb, TC* __restrict__ c, int M, int N, int K, Proj pr,
-                Side sd) {
+                Side sd, Tenants tn) {
   static_assert(FUSE == kFuseNone || REFLECT == kReflectNone,
                 "a fused update replaces the reflection");
+  static_assert(!BANK || (A_K_CONTIG && (REFLECT == kReflectK ||
+                                         (REFLECT == kReflectNone &&
+                                          FUSE != kFuseLowRank))),
+                "a bank reads rows of x: the forward along k only");
+  static_assert(BANK || FUSE != kFuseRowLowRank,
+                "kFuseRowLowRank reads its operands at the rows' tenants");
   constexpr bool kAlongK = REFLECT == kReflectK || REFLECT == kRank2K;
   constexpr bool kRank2 = REFLECT == kRank2K || REFLECT == kRank2M;
   constexpr bool kLowRank = FUSE == kFuseLowRank;
@@ -231,14 +288,23 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
           const long long tb = static_cast<long long>(t) * pr.n + blk;
           // read-only loads (ld.global.nc): the struct's pointers carry
           // no __restrict__
-          const float uh = __ldg(pr.u + j) / __ldg(pr.unorm + blk);
+          float uh;
+          if constexpr (BANK)  // the row's tenant's û, the row's own norm
+            uh = __ldg(pr.u + static_cast<long long>(row_tenant(tn, t)) * K +
+                       j) /
+                 __ldg(pr.unorm + tb);
+          else
+            uh = __ldg(pr.u + j) / __ldg(pr.unorm + blk);
           if (kRank2)
             val = val - __ldg(pr.p + tb) * uh +
                   __ldg(pr.q + tb) * (__ldg(pr.v + j) / __ldg(pr.vnorm + blk));
           else
             val -= 2.f * __ldg(pr.p + tb) * uh;
         }
-        if constexpr (FUSE == kFuseScale) val *= __ldg(sd.rs + k);
+        if constexpr (FUSE == kFuseScale)
+          val *= __ldg(sd.rs + (BANK ? static_cast<long long>(
+                                           row_tenant(tn, m)) * K
+                                     : 0) + k);
       }
       As[kk][r] = val;
     }
@@ -311,6 +377,32 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
         for (int j = 0; j < TN; ++j) lr[i][j] = fmaf(hv[i], bv[j], lr[i][j]);
     }
   }
+  if constexpr (FUSE == kFuseRowLowRank) {
+    // each row's own h and tenant: lr = Σ_q (h[m, q]·ls_t[q])·lb_t[q, col]
+    const TA* ls = static_cast<const TA*>(sd.ls);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) lr[i][j] = 0.f;
+      const int m = m0 + ty + i * TY;
+      if (m >= M) continue;
+      const long long ten = row_tenant(tn, m);
+      const float* hm = sd.h + static_cast<long long>(m) * sd.r;
+      const TA* lst = ls + ten * sd.r;
+      const float* lbt = sd.lb + ten * sd.r * N;
+      for (int q = 0; q < sd.r; ++q) {
+        const float hv = __ldg(hm + q) * to_f32(lst[q]);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = n0 + tx + j * TX;
+          if (col < N)
+            lr[i][j] = fmaf(hv, __ldg(lbt + static_cast<long long>(q) * N +
+                                      col),
+                            lr[i][j]);
+        }
+      }
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -322,8 +414,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
       if (col < N) {
         float v = acc[i][j];
         if constexpr (FUSE == kFuseScale)
-          if (sd.cs) v *= __ldg(sd.cs + col);
-        if constexpr (kLowRank) v += lr[i][j];
+          if (sd.cs)
+            v *= __ldg(sd.cs + (BANK ? static_cast<long long>(
+                                           row_tenant(tn, m)) * N
+                                     : 0) + col);
+        if constexpr (kLowRank || FUSE == kFuseRowLowRank) v += lr[i][j];
         c[static_cast<long long>(m) * N + col] = from_f32<TC>(v);
       }
     }
@@ -344,13 +439,13 @@ inline int sm_count() {
 
 template <typename TA, typename TB, typename TC, int BM, int BN, int BK,
           int TM, int TN, bool A_K_CONTIG, bool B_N_CONTIG, Reflect REFLECT,
-          Fuse FUSE>
+          Fuse FUSE, bool BANK>
 cudaError_t launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c,
                         int M, int N, int K, const Proj& pr, const Side& sd,
-                        cudaStream_t s) {
+                        const Tenants& tn, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   auto kernel = gemm_kernel<TA, TB, TC, BM, BN, BK, TM, TN, A_K_CONTIG,
-                            B_N_CONTIG, REFLECT, FUSE>;
+                            B_N_CONTIG, REFLECT, FUSE, BANK>;
   // kFuseLowRank's h and la tile; beyond 48 KB with the static tiles the
   // block must ask for the shared memory
   const size_t dyn =
@@ -363,29 +458,36 @@ cudaError_t launch_tile(const TA* a, int lda, const TB* b, int ldb, TC* c,
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, (BM / TM) * (BN / TN), dyn, s>>>(a, lda, b, ldb, c, M, N, K,
-                                                  pr, sd);
+                                                  pr, sd, tn);
   return cudaSuccess;
 }
 
 // Skinny M (decode, M ≤ 8) takes an 8×32 tile, so that more blocks stream
 // B at once; larger M the largest tile that still gives every SM a block:
-// 64×64 (4×4 a thread), else 32×32 (2×2 a thread).
+// 64×64 (4×4 a thread), else 32×32 (2×2 a thread).  The tile depends on M
+// alone, so a bank GEMM over B·S rows takes the tile its single-tenant
+// counterpart takes at the same rows.
 template <typename TA, typename TB, typename TC, bool A_K_CONTIG,
-          bool B_N_CONTIG, Reflect REFLECT, Fuse FUSE = kFuseNone>
+          bool B_N_CONTIG, Reflect REFLECT, Fuse FUSE = kFuseNone,
+          bool BANK = false>
 cudaError_t launch_gemm(const TA* a, int lda, const TB* b, int ldb, TC* c,
                         int M, int N, int K, const Proj& pr, cudaStream_t s,
-                        const Side& sd = Side{}) {
+                        const Side& sd = Side{},
+                        const Tenants& tn = Tenants{}) {
   const long long big = static_cast<long long>((M + 63) / 64) * ((N + 63) / 64);
   cudaError_t err;
   if (M <= 8)
     err = launch_tile<TA, TB, TC, 8, 32, 32, 1, 1, A_K_CONTIG, B_N_CONTIG,
-                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
+                      REFLECT, FUSE, BANK>(a, lda, b, ldb, c, M, N, K, pr, sd,
+                                           tn, s);
   else if (big < sm_count())
     err = launch_tile<TA, TB, TC, 32, 32, 16, 2, 2, A_K_CONTIG, B_N_CONTIG,
-                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
+                      REFLECT, FUSE, BANK>(a, lda, b, ldb, c, M, N, K, pr, sd,
+                                           tn, s);
   else
     err = launch_tile<TA, TB, TC, 64, 64, 16, 4, 4, A_K_CONTIG, B_N_CONTIG,
-                      REFLECT, FUSE>(a, lda, b, ldb, c, M, N, K, pr, sd, s);
+                      REFLECT, FUSE, BANK>(a, lda, b, ldb, c, M, N, K, pr, sd,
+                                           tn, s);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -395,12 +497,14 @@ cudaError_t launch_gemm(const TA* a, int lda, const TB* b, int ldb, TC* c,
 // in f32 from Y in TI, written once in TO (out must not alias Y).  The
 // two-sided etherplus_gemm epilogue (Y the GEMM's f32 result) and the
 // right ETHER+ merge (Y = W) run on it.  The warp reads its db elements
-// of Y twice, the second time from L1.
-template <typename TI, typename TO>
+// of Y twice, the second time from L1.  Under BANK u and v are (A, n, db)
+// banks and row t takes its tenant's (`tn`): etherplus_reflect_batched.
+template <typename TI, typename TO, bool BANK = false>
 __global__ void rank2_rows_kernel(const TI* __restrict__ y,
                                   const float* __restrict__ u,
                                   const float* __restrict__ v,
-                                  TO* __restrict__ out, int M, int n, int db) {
+                                  TO* __restrict__ out, int M, int n, int db,
+                                  Tenants tn) {
   const int warps = blockDim.x / 32;
   const long long pair =
       static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
@@ -408,8 +512,12 @@ __global__ void rank2_rows_kernel(const TI* __restrict__ y,
   if (pair >= static_cast<long long>(M) * n) return;  // whole warps exit
   const int j = static_cast<int>(pair % n);
   const long long off = pair * db;  // (t·n + j)·db = t·(n·db) + j·db
-  const float* uj = u + static_cast<long long>(j) * db;
-  const float* vj = v + static_cast<long long>(j) * db;
+  // block j of the hyperplanes (under BANK, of row t's tenant)
+  const int t = static_cast<int>(pair / n);
+  const long long hj =
+      (BANK ? static_cast<long long>(row_tenant(tn, t)) * n : 0) + j;
+  const float* uj = u + hj * db;
+  const float* vj = v + hj * db;
   float su = 0.f, sv = 0.f;
   for (int c = lane; c < db; c += 32) {
     su = fmaf(uj[c], uj[c], su);
@@ -430,14 +538,15 @@ __global__ void rank2_rows_kernel(const TI* __restrict__ y,
                                 pv * (vj[c] / nv));
 }
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, bool BANK = false>
 cudaError_t launch_rank2_rows(const TI* y, const float* u, const float* v,
-                              TO* out, int M, int n, int db, cudaStream_t s) {
+                              TO* out, int M, int n, int db, cudaStream_t s,
+                              const Tenants& tn = Tenants{}) {
   constexpr int kThreads = 256;
   const long long pairs = static_cast<long long>(M) * n;
-  rank2_rows_kernel<TI, TO>
+  rank2_rows_kernel<TI, TO, BANK>
       <<<static_cast<unsigned>((pairs + kThreads / 32 - 1) / (kThreads / 32)),
-         kThreads, 0, s>>>(y, u, v, out, M, n, db);
+         kThreads, 0, s>>>(y, u, v, out, M, n, db, tn);
   return cudaGetLastError();
 }
 

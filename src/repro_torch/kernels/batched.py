@@ -1,0 +1,131 @@
+"""The bank kernels on the card: multi-tenant adapter-bank serving, each
+sequence b of a (B, S, d) batch served by tenant ids[b] of a bank.
+
+The CUDA counterparts of ``householder_gemm_batched_pallas``
+(src/repro/kernels/householder_gemm_batched.py:58),
+``etherplus_reflect_batched_pallas``
+(src/repro/kernels/etherplus_reflect_batched.py:44),
+``delora_gemm_batched_pallas`` (src/repro/kernels/delora_gemm.py:129) and
+``hyperadapt_gemm_batched_pallas`` (src/repro/kernels/hyperadapt_gemm.py:105).
+The sources and their design notes are ``csrc/<name>.cu``; the plain
+versions are ``repro_torch.kernels.ref.ref_<name>``.  Callers go through
+the checked wrappers of :mod:`repro_torch.kernels.ops`, which count
+launches.  Each launcher takes CUDA tensors already checked there: x
+(B, S, d) contiguous, ids (B,) int32 or int64 on x's device, which the
+kernels read on the device (mapping an id outside [0, A) into it as the
+JAX package's gather maps an index), so no launcher looks at the ids'
+values on the host.  Each returns (cudaError_t, out) with out (B, S, ·)
+in x's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.householder_gemm import DTYPE_CODE
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, w, u, ids, ids64, seq, tenants, p, unorm, y, M, K, N, n, db, dtype, stream
+_HH = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, stream
+_EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
+# x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, dtype, stream
+_DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 5 + (_P,)
+# x, w, r, c, ids, ids64, seq, tenants, y, M, K, N, dtype, stream
+_HG = (_P,) * 5 + (_I,) * 3 + (_P,) + (_I,) * 4 + (_P,)
+
+
+def _tenants(x: torch.Tensor, ids: torch.Tensor, bank: torch.Tensor):
+    """The kernels' (ids, ids64, seq, tenants) arguments."""
+    return (ids.data_ptr(), int(ids.dtype == torch.int64), x.shape[1],
+            bank.shape[0])
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _on_device(fn):
+    """Run the launcher with x's card current, as the other launchers do."""
+    def launch(x, *args):
+        if x.device.index != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                return fn(x, *args)
+        return fn(x, *args)
+    launch.__doc__ = fn.__doc__
+    return launch
+
+
+@_on_device
+def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                             u_bank: torch.Tensor, ids: torch.Tensor):
+    """R_{ids[b]}(x[b]) · w: x (B, S, d), w (d, f), u_bank (A, n, db) f32."""
+    b, s, d = x.shape
+    f = w.shape[1]
+    _, n, db = u_bank.shape
+    m = b * s
+    fn = build.function("householder_gemm_batched", "hh_gemm_batched", _HH)
+    y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
+    # f32 scratch: p (m, n) block projections, then unorm (m, n) row norms
+    scratch = torch.empty((2 * m * n,), dtype=torch.float32, device=x.device)
+    p = scratch.data_ptr()
+    err = fn(x.data_ptr(), w.data_ptr(), u_bank.data_ptr(),
+             *_tenants(x, ids, u_bank), p, p + 4 * m * n, y.data_ptr(), m, d,
+             f, n, db, DTYPE_CODE[x.dtype], _stream())
+    return err, y
+
+
+@_on_device
+def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                              v_bank: torch.Tensor, ids: torch.Tensor):
+    """H⁺_{ids[b]} x[b]: x (B, S, d), u_bank/v_bank (A, n, db) f32."""
+    b, s, _ = x.shape
+    _, n, db = u_bank.shape
+    fn = build.function("etherplus_reflect_batched",
+                        "etherplus_reflect_batched", _EP)
+    out = torch.empty_like(x)
+    err = fn(x.data_ptr(), u_bank.data_ptr(), v_bank.data_ptr(),
+             *_tenants(x, ids, u_bank), out.data_ptr(), b * s, n, db,
+             DTYPE_CODE[x.dtype], _stream())
+    return err, out
+
+
+@_on_device
+def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                        a_bank: torch.Tensor, b_bank: torch.Tensor,
+                        s_bank: torch.Tensor, ids: torch.Tensor):
+    """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]: x (B, S, d), w (d, f),
+    a_bank (A, d, r) f32, b_bank (A, r, f) f32, s_bank (A, r) in x's
+    dtype."""
+    b, s, d = x.shape
+    f = w.shape[1]
+    r = a_bank.shape[2]
+    m = b * s
+    fn = build.function("delora_gemm_batched", "delora_gemm_batched", _DG)
+    y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
+    h = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), w.data_ptr(), a_bank.data_ptr(),
+             b_bank.data_ptr(), s_bank.data_ptr(), *_tenants(x, ids, a_bank),
+             h.data_ptr(), y.data_ptr(), m, d, f, r, DTYPE_CODE[x.dtype],
+             _stream())
+    return err, y
+
+
+@_on_device
+def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                            r_bank: torch.Tensor, c_bank: torch.Tensor,
+                            ids: torch.Tensor):
+    """((x[b]·r_t)·w)·c_t, t = ids[b]: x (B, S, d), w (d, f), r_bank (A, d)
+    f32, c_bank (A, f) f32."""
+    b, s, d = x.shape
+    f = w.shape[1]
+    fn = build.function("hyperadapt_gemm_batched", "hyperadapt_gemm_batched",
+                        _HG)
+    y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
+    err = fn(x.data_ptr(), w.data_ptr(), r_bank.data_ptr(),
+             c_bank.data_ptr(), *_tenants(x, ids, r_bank), y.data_ptr(),
+             b * s, d, f, DTYPE_CODE[x.dtype], _stream())
+    return err, y

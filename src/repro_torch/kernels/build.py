@@ -26,7 +26,9 @@ BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("householder_gemm", "ether_merge", "reflect_gemm_dx",
            "reflect_gemm_dw", "etherplus_gemm", "etherplus_merge",
            "etherplus_reflect_bwd", "delora_gemm", "hyperadapt_gemm",
-           "method_merge")
+           "method_merge", "householder_gemm_batched",
+           "etherplus_reflect_batched", "delora_gemm_batched",
+           "hyperadapt_gemm_batched")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,7 +17,9 @@ launches those two with ETHER+'s second hyperplanes and, two-sided,
 for dx and ``reflect_gemm_dw`` with a zero hyperplane only when asked for
 dW; ``hyperadapt_gemm_bwd`` launches ``hyperadapt_gemm`` twice, for z and
 y0, and ``reflect_gemm_dw`` likewise; ``hyperadapt_merge_bwd`` launches
-``hyperadapt_merge``), so a run can show that its path went through the
+``hyperadapt_merge``; each bank wrapper launches its one kernel, which
+for ``householder_gemm_batched`` and ``delora_gemm_batched`` is a short
+pass and a GEMM), so a run can show that its path went through the
 kernels.  The rank-r and per-feature cotangents of DeLoRA and HyperAdapt
 are a few thin PyTorch ops beside the kernels, as the JAX package leaves
 them to XLA.
@@ -29,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import batched as _bk
 from repro_torch.kernels import delora_gemm as _dg
 from repro_torch.kernels import ether_merge as _merge
 from repro_torch.kernels import etherplus_gemm as _ep
@@ -45,8 +48,11 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "reflect_gemm_dw": 0, "etherplus_gemm": 0,
              "etherplus_merge_left": 0, "etherplus_merge_right": 0,
              "etherplus_reflect_bwd": 0, "delora_gemm": 0,
-             "hyperadapt_gemm": 0, "delora_merge": 0, "hyperadapt_merge": 0}
+             "hyperadapt_gemm": 0, "delora_merge": 0, "hyperadapt_merge": 0,
+             "householder_gemm_batched": 0, "etherplus_reflect_batched": 0,
+             "delora_gemm_batched": 0, "hyperadapt_gemm_batched": 0}
 _F32 = torch.float32
+_ID_DTYPES = (torch.int32, torch.int64)
 
 
 class KernelInputError(ValueError):
@@ -501,3 +507,143 @@ def hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
     _launched("hyperadapt_merge", err)
     wg = w.float() * g.float()
     return dw, wg @ c, wg.T @ r
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant banks: sequence b of x (B, S, d) served by tenant ids[b]
+# ---------------------------------------------------------------------------
+
+def _check_bank(op: str, x: torch.Tensor, w: Optional[torch.Tensor],
+                ids: torch.Tensor, side: dict) -> None:
+    """The bank wrappers' check: x a (B, S, d) activation, w (d, f) in its
+    dtype (None for the reflection alone), ids an int32 or int64 (B,)
+    tensor, each bank operand of ``side`` (name → (tensor, shape, dtype);
+    a shape holding a str names what the bank must be), all contiguous on
+    one device.  The ids' values are not read (that would synchronise
+    with the card): the kernels map them into [0, A).  Raises KernelInputError
+    naming the first check the operands fail."""
+    dev = x.device
+    named = {"x": x, **({} if w is None else {"w": w}), "ids": ids,
+             **{k: t for k, (t, _, _) in side.items()}}
+    if (x.dtype in _hh.DTYPE_CODE and x.dim() == 3
+            and (w is None or (w.dtype == x.dtype and w.dim() == 2
+                               and w.shape[0] == x.shape[2]))
+            and ids.dtype in _ID_DTYPES and ids.shape == x.shape[:1]
+            and all(t.dtype == dt and t.shape == shape
+                    for t, shape, dt in side.values())
+            and all(t.device == dev and t.is_contiguous()
+                    for t in named.values())
+            and dev.type in ("cpu", "cuda") and x.numel() > 0
+            and (w is None or w.numel() > 0)):
+        return
+    bad = [k for k, (t, shape, dt) in side.items()
+           if t.dtype != dt or t.shape != shape]
+    if x.dtype not in _hh.DTYPE_CODE:
+        why = "the kernel takes float32 or bfloat16 activations and weights"
+    elif x.dim() != 3:
+        why = "x must be a (B, S, d) batch of sequences"
+    elif w is not None and (w.dim() != 2 or w.dtype != x.dtype):
+        why = "w must be a (d, f) matrix in the activations' dtype"
+    elif w is not None and w.shape[0] != x.shape[2]:
+        why = "need x (B, S, d) and w (d, f)"
+    elif ids.dtype not in _ID_DTYPES or ids.shape != x.shape[:1]:
+        why = "ids must be an int32 or int64 (B,) tensor, one id a sequence"
+    elif bad:
+        _, shape, dt = side[bad[0]]
+        why = f"{bad[0]} must be {str(dt)[6:]} of shape {tuple(shape)}"
+    elif len({t.device for t in named.values()}) != 1:
+        why = "all operands must be on one device"
+    elif dev.type not in ("cpu", "cuda"):
+        why = "operands must be on the CPU or a CUDA device"
+    elif not all(t.is_contiguous() for t in named.values()):
+        why = "operands must be contiguous"
+    else:
+        why = "operands must not be empty"
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in named.items())
+    raise KernelInputError(f"{op} refuses {desc}: {why}")
+
+
+def _planes(bank: torch.Tensor, d: int) -> tuple:
+    """The shape a hyperplane bank must have: its own when it is (A, n, db)
+    with A ≥ 1 and n·db = d, else a description of that."""
+    if (bank.dim() == 3 and bank.shape[0] >= 1
+            and bank.shape[1] * bank.shape[2] == d):
+        return tuple(bank.shape)
+    return ("A ≥ 1", "n", f"db with n·db = {d}")
+
+
+def _bank_size(bank: torch.Tensor, ndim: int) -> int:
+    """A, the bank's tenant count (-1 where it has not ``ndim`` dims or
+    no tenant)."""
+    return bank.shape[0] if bank.dim() == ndim and bank.shape[0] >= 1 else -1
+
+
+def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                             u_bank: torch.Tensor,
+                             ids: torch.Tensor) -> torch.Tensor:
+    """reflect_{ids[b]}(x[b]) @ w; x: (B, S, d); w: (d, f); u_bank:
+    (A, n, db) f32 with n·db = d; ids: (B,) int32 or int64."""
+    d = x.shape[-1] if x.dim() else -1
+    _check_bank("householder_gemm_batched", x, w, ids,
+                {"u_bank": (u_bank, _planes(u_bank, d), _F32)})
+    if x.device.type == "cpu":
+        return ref.ref_householder_gemm_batched(x, w, u_bank, ids)
+    err, y = _bk.householder_gemm_batched(x, w, u_bank, ids)
+    _launched("householder_gemm_batched", err)
+    return y
+
+
+def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                              v_bank: torch.Tensor,
+                              ids: torch.Tensor) -> torch.Tensor:
+    """H⁺_{ids[b]} x[b]; x: (B, S, d); u_bank/v_bank: (A, n, db) f32 of one
+    shape with n·db = d; ids: (B,) int32 or int64."""
+    d = x.shape[-1] if x.dim() else -1
+    shape = _planes(u_bank, d)
+    _check_bank("etherplus_reflect_batched", x, None, ids,
+                {"u_bank": (u_bank, shape, _F32),
+                 "v_bank": (v_bank, shape, _F32)})
+    if x.device.type == "cpu":
+        return ref.ref_etherplus_reflect_batched(x, u_bank, v_bank, ids)
+    err, out = _bk.etherplus_reflect_batched(x, u_bank, v_bank, ids)
+    _launched("etherplus_reflect_batched", err)
+    return out
+
+
+def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                        a_bank: torch.Tensor, b_bank: torch.Tensor,
+                        s_bank: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]; x: (B, S, d); w: (d, f);
+    a_bank: (A, d, r) f32; b_bank: (A, r, f) f32; s_bank: (A, r) in x's
+    dtype, r ≥ 1; ids: (B,) int32 or int64."""
+    d, f = _dims(x, w)
+    a = _bank_size(a_bank, 3)
+    r = a_bank.shape[2] if a_bank.dim() == 3 and a_bank.shape[2] else -1
+    _check_bank("delora_gemm_batched", x, w, ids,
+                {"a_bank": (a_bank, (a, d, r), _F32),
+                 "b_bank": (b_bank, (a, r, f), _F32),
+                 "s_bank": (s_bank, (a, r), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_delora_gemm_batched(x, w, a_bank, b_bank, s_bank, ids)
+    err, y = _bk.delora_gemm_batched(x, w, a_bank, b_bank, s_bank, ids)
+    _launched("delora_gemm_batched", err)
+    return y
+
+
+def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                            r_bank: torch.Tensor, c_bank: torch.Tensor,
+                            ids: torch.Tensor) -> torch.Tensor:
+    """((x[b]·r_t)·w)·c_t, t = ids[b]; x: (B, S, d); w: (d, f); r_bank:
+    (A, d) f32; c_bank: (A, f) f32; ids: (B,) int32 or int64."""
+    d, f = _dims(x, w)
+    a = _bank_size(r_bank, 2)
+    _check_bank("hyperadapt_gemm_batched", x, w, ids,
+                {"r_bank": (r_bank, (a, d), _F32),
+                 "c_bank": (c_bank, (a, f), _F32)})
+    if x.device.type == "cpu":
+        return ref.ref_hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
+    err, y = _bk.hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
+    _launched("hyperadapt_gemm_batched", err)
+    return y

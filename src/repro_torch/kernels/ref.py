@@ -10,6 +10,12 @@ activation dtype first, which only differs under bf16.
 ETHER+ replaces the reflection by the blockwise rank-2 update
 H⁺x = x − û(ûᵀx) + v̂(v̂ᵀx), both projections read off the original x.
 
+The bank versions (``ref_*_batched``, multi-tenant serving) serve
+sequence b of x (B, S, d) with tenant ids[b] of a bank whose tenant axis
+is first; an id outside [0, A) is mapped into it as the JAX package's
+gather maps an index (and the kernels do): from the end if negative, then
+clamped.
+
 DeLoRA (``y = xW + ((x a)·s) b``) and HyperAdapt (``y = ((x·r) W)·c``)
 take their scales as given: DeLoRA's s is the method layer's primal, in
 the activation dtype (the weight's for the merge), so these never
@@ -336,3 +342,75 @@ def ref_hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor,
     wg = w.float() * g.float()
     return (ref_hyperadapt_merge(g, r, c).to(w.dtype),
             (wg @ c.float()).to(r.dtype), (wg.T @ r.float()).to(c.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant banks
+# ---------------------------------------------------------------------------
+
+def gather(bank: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """bank[ids] along the tenant axis (first), an id outside [0, A)
+    mapped into it as the JAX package's gather maps an index: a negative
+    id counts from the end, then the id is clamped."""
+    a = bank.shape[0]
+    ids = ids.long()
+    return bank[torch.where(ids < 0, ids + a, ids).clamp(0, a - 1)]
+
+
+def _rank2_bank_f32(x: torch.Tensor, u_bank: torch.Tensor,
+                    v_bank: Optional[torch.Tensor],
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Each sequence's blockwise update in float32: the reflection
+    x − 2û(ûᵀx) without v_bank, ETHER+'s x − û(ûᵀx) + v̂(v̂ᵀx) with it.
+    x: (B, S, d); banks (A, n, db), n·db = d."""
+    b, s, d = x.shape
+    _, n, db = u_bank.shape
+    xb = x.float().reshape(b, s, n, db)
+    uh = unit(gather(u_bank, ids).float())                   # (B, n, db)
+    pu = torch.einsum("bsnd,bnd->bsn", xb, uh)
+    if v_bank is None:
+        return (xb - 2.0 * pu[..., None] * uh[:, None]).reshape(b, s, d)
+    vh = unit(gather(v_bank, ids).float())
+    pv = torch.einsum("bsnd,bnd->bsn", xb, vh)
+    return (xb - pu[..., None] * uh[:, None]
+            + pv[..., None] * vh[:, None]).reshape(b, s, d)
+
+
+def ref_householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                                 u_bank: torch.Tensor,
+                                 ids: torch.Tensor) -> torch.Tensor:
+    """y[b] = R_{ids[b]}(x[b]) @ W in float32, rounded once.  x: (B, S, d);
+    w: (d, f); u_bank: (A, n, db); ids: (B,)."""
+    return (_rank2_bank_f32(x, u_bank, None, ids) @ w.float()).to(x.dtype)
+
+
+def ref_etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                                  v_bank: torch.Tensor,
+                                  ids: torch.Tensor) -> torch.Tensor:
+    """H⁺_{ids[b]} x[b] in float32, rounded once.  x: (B, S, d);
+    u_bank/v_bank: (A, n, db); ids: (B,)."""
+    return _rank2_bank_f32(x, u_bank, v_bank, ids).to(x.dtype)
+
+
+def ref_delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                            a_bank: torch.Tensor, b_bank: torch.Tensor,
+                            s_bank: torch.Tensor,
+                            ids: torch.Tensor) -> torch.Tensor:
+    """y[b] = x[b]W + ((x[b] a_t)·s_t) b_t, t = ids[b], in float32,
+    rounded once.  x: (B, S, d); a_bank: (A, d, r); b_bank: (A, r, f);
+    s_bank: (A, r); ids: (B,)."""
+    xf = x.float()
+    h = torch.einsum("bsd,bdr->bsr", xf, gather(a_bank, ids).float())
+    h = h * gather(s_bank, ids).float()[:, None, :]
+    return (xf @ w.float() + torch.einsum(
+        "bsr,brf->bsf", h, gather(b_bank, ids).float())).to(x.dtype)
+
+
+def ref_hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                                r_bank: torch.Tensor, c_bank: torch.Tensor,
+                                ids: torch.Tensor) -> torch.Tensor:
+    """y[b] = ((x[b]·r_t) W)·c_t, t = ids[b], in float32, rounded once.
+    x: (B, S, d); r_bank: (A, d); c_bank: (A, f); ids: (B,)."""
+    r = gather(r_bank, ids).float()[:, None, :]
+    c = gather(c_bank, ids).float()[:, None, :]
+    return (((x.float() * r) @ w.float()) * c).to(x.dtype)

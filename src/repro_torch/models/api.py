@@ -3,13 +3,17 @@
 
     init_model(cfg, seed=, device=)              → params
     train_loss(params, adapters, batch, cfg, peft) → (loss, metrics)
-    prefill(params, adapters, batch, cfg, peft)  → (cache, last logits)
+    prefill(params, adapters, batch, cfg, peft, tenant_ids=)
+                                                 → (cache, last logits)
     pad_cache(cache, cfg, max_len)               → cache with room to decode
-    decode_step(params, adapters, cache, tokens, cfg, peft) → (logits, cache)
+    decode_step(params, adapters, cache, tokens, cfg, peft, tenant_ids=)
+                                                 → (logits, cache)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no such request they raise (never move to the CPU on
-their own).  Logits are (B, 1, V) float32.
+their own).  Logits are (B, 1, V) float32.  Multi-tenant serving passes
+an :class:`~repro_torch.core.peft.AdapterBank` as ``adapters`` and one
+tenant id per batch row as ``tenant_ids``.
 """
 
 from __future__ import annotations
@@ -79,12 +83,32 @@ def validate_true_lens(true_lens, seq_len: int) -> np.ndarray:
     return arr.astype(np.int32)
 
 
+def _resolve_adapters(adapters, tenant_ids):
+    """Multi-tenant serving: an AdapterBank and one tenant id per batch
+    row become a request's adapter tree (the bank and the ids at every
+    module); any other adapter tree passes through.  A bank needs ids,
+    and ids need a bank."""
+    from repro_torch.core.peft import AdapterBank
+    if isinstance(adapters, AdapterBank):
+        if tenant_ids is None:
+            raise ValueError("AdapterBank serving requires tenant_ids "
+                             "(one int32 id per batch row)")
+        return adapters.request(tenant_ids)
+    if tenant_ids is not None and adapters is not None:
+        raise ValueError("tenant_ids only applies to AdapterBank adapters")
+    return adapters
+
+
 @torch.no_grad()
 def prefill(params: Params, adapters: Optional[Params], batch: dict,
-            cfg: ModelConfig, peft: Optional[PEFTConfig], true_lens=None):
+            cfg: ModelConfig, peft: Optional[PEFTConfig], tenant_ids=None,
+            true_lens=None):
     """Build the serving cache from a full prompt ``batch['tokens']``
     (B, P); returns (cache, logits (B, 1, V) f32 at each row's last real
-    token: position ``true_lens[b] - 1``, or P - 1 without true_lens)."""
+    token: position ``true_lens[b] - 1``, or P - 1 without true_lens).
+    With a bank as ``adapters``, row b is served by tenant
+    ``tenant_ids[b]``."""
+    adapters = _resolve_adapters(adapters, tenant_ids)
     tokens = batch["tokens"]
     hidden, cache = backbone.forward(params, cfg, tokens=tokens,
                                      adapters=adapters, peft=peft,
@@ -116,10 +140,12 @@ def pad_cache(cache: Params, cfg: ModelConfig, max_len: int) -> Params:
 @torch.no_grad()
 def decode_step(params: Params, adapters: Optional[Params], cache: Params,
                 tokens: torch.Tensor, cfg: ModelConfig,
-                peft: Optional[PEFTConfig]):
+                peft: Optional[PEFTConfig], tenant_ids=None):
     """One serving step: (B, 1) new tokens against the cache.  The KV of
     the new tokens is written into ``cache`` in place; returns
-    (logits (B, 1, V) f32, cache with its cursor advanced)."""
+    (logits (B, 1, V) f32, cache with its cursor advanced).  With a bank
+    as ``adapters``, row b is served by tenant ``tenant_ids[b]``."""
+    adapters = _resolve_adapters(adapters, tenant_ids)
     hidden, new_cache = backbone.forward(params, cfg, tokens=tokens,
                                          adapters=adapters, peft=peft,
                                          mode="decode", cache=cache)

@@ -17,7 +17,8 @@ import torch
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute
-from repro_torch.core.peft import init_adapters, merge_params
+from repro_torch.core.peft import (AdapterBank, init_adapter_bank,
+                                   init_adapters, merge_params)
 from repro_torch.core.transforms import PEFTConfig, resolve_blocks
 from repro_torch.data.pipeline import SyntheticLMStream
 from repro_torch.kernels import etherplus_reflect_bwd, ops, ref
@@ -567,5 +568,168 @@ def test_method_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
         n = per_pass * card["forwards"]
         assert calls == {f"{method}_gemm.cuda": n}
         assert launched == _launched(**{f"{method}_gemm": n})
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant banks: sequence b served by tenant ids[b]
+# ---------------------------------------------------------------------------
+
+# (B, S, d, f, n, A): decode and prefill at smollm-360m widths with a
+# 64-tenant bank, a ragged S (33), and small ragged widths (db = 15, 24)
+BANK_SHAPES = [(4, 1, 960, 2560, 8, 64), (4, 33, 2560, 960, 8, 64),
+               (4, 32, 960, 320, 8, 64), (3, 5, 120, 70, 8, 5),
+               (4, 7, 96, 96, 4, 3)]
+
+
+def _bank_inputs(device, b, s, d, f, n, a, dtype, r=8):
+    """x, w, the four methods' banks (each tenant drawn apart from the
+    others and off its identity) and ids with a repeat and A − 1."""
+    rng = np.random.default_rng(b * s + d + f + a + r)
+
+    def draw(*shape, dt=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).to(device, dt)
+    n_out = resolve_blocks(n, f)
+    banks = {"u": draw(a, n, d // n), "v": draw(a, n, d // n),
+             "u2": draw(a, n_out, f // n_out),
+             "v2": draw(a, n_out, f // n_out),
+             "a": draw(a, d, r), "b": draw(a, r, f),
+             "s": (draw(a, r).abs() + 0.1).to(dtype),
+             "r": 1 + 0.3 * draw(a, d), "c": 1 + 0.3 * draw(a, f)}
+    ids = torch.tensor([5 % a, 17 % a, 5 % a][:b - 1] + [a - 1],
+                       dtype=torch.int32, device=device)
+    w = (draw(d, f) / d ** .5).to(dtype)
+    return draw(b, s, d, dt=dtype), w, banks, ids
+
+
+def _bank_calls(x, w, k, ids):
+    """The four bank wrappers on one input: name → (kernel, plain)."""
+    y0 = x @ w
+    return {
+        "householder_gemm_batched": (
+            lambda i: ops.householder_gemm_batched(x, w, k["u"], i),
+            lambda i: ref.ref_householder_gemm_batched(x, w, k["u"], i)),
+        "etherplus_reflect_batched": (
+            lambda i: ops.etherplus_reflect_batched(y0, k["u2"], k["v2"], i),
+            lambda i: ref.ref_etherplus_reflect_batched(y0, k["u2"], k["v2"],
+                                                        i)),
+        "delora_gemm_batched": (
+            lambda i: ops.delora_gemm_batched(x, w, k["a"], k["b"], k["s"], i),
+            lambda i: ref.ref_delora_gemm_batched(x, w, k["a"], k["b"],
+                                                  k["s"], i)),
+        "hyperadapt_gemm_batched": (
+            lambda i: ops.hyperadapt_gemm_batched(x, w, k["r"], k["c"], i),
+            lambda i: ref.ref_hyperadapt_gemm_batched(x, w, k["r"], k["c"],
+                                                      i))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,f,n,a", BANK_SHAPES)
+def test_bank_kernels_match_plain_versions(cuda_device, b, s, d, f, n, a,
+                                           dtype):
+    x, w, k, ids = _bank_inputs(cuda_device, b, s, d, f, n, a, dtype)
+    outside = ids.clone()
+    outside[-1] = a + 3                     # clamped into the bank: A − 1
+    for name, (kernel, plain) in _bank_calls(x, w, k, ids).items():
+        ops.reset_launches()
+        got = kernel(ids)
+        torch.cuda.synchronize()
+        assert ops.launches() == _launched(**{name: 1}), name
+        assert got.dtype == dtype and got.shape[:2] == (b, s)
+        assert _max_err(got, plain(ids)) < TOL[dtype], name
+        assert torch.equal(kernel(ids.long()), got), name
+        assert torch.equal(kernel(outside), got), name
+        assert torch.equal(plain(outside), plain(ids)), name
+
+
+def test_bank_rows_match_single_tenant_kernels(cuda_device):
+    """Each row of a bank GEMM against the single-tenant kernel of its own
+    tenant, and distinct tenants' rows apart."""
+    b, s, d, f = 4, 3, 960, 320
+    x, w, k, ids = _bank_inputs(cuda_device, b, s, d, f, 8, 64,
+                                torch.float32)
+    bank = {"hh": ops.householder_gemm_batched(x, w, k["u"], ids),
+            "dl": ops.delora_gemm_batched(x, w, k["a"], k["b"], k["s"], ids),
+            "ha": ops.hyperadapt_gemm_batched(x, w, k["r"], k["c"], ids)}
+    for i, t in enumerate(ids.tolist()):
+        one = {"hh": ops.householder_gemm(x[i], w, k["u"][t]),
+               "dl": ops.delora_gemm(x[i], w, k["a"][t], k["b"][t],
+                                     k["s"][t]),
+               "ha": ops.hyperadapt_gemm(x[i], w, k["r"][t], k["c"][t])}
+        for name in bank:
+            assert _max_err(bank[name][i], one[name]) < TOL[torch.float32]
+    for name, y in bank.items():            # tenants 5 and 17 differ
+        assert _max_err(y[0], y[1]) > 1e-2, name
+
+
+def test_bank_wrappers_refuse_on_the_card_without_fallback(cuda_device):
+    x, w, k, ids = _bank_inputs(cuda_device, 2, 3, 96, 64, 4, 3,
+                                torch.float32)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="int32 or int64"):
+        ops.householder_gemm_batched(x, w, k["u"], ids.float())
+    with pytest.raises(ops.KernelInputError, match="int32 or int64"):
+        ops.hyperadapt_gemm_batched(x, w, k["r"], k["c"], ids[:1])
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.delora_gemm_batched(x, w, k["a"], k["b"], k["s"], ids.cpu())
+    with pytest.raises(ops.KernelInputError, match="u_bank must be"):
+        ops.householder_gemm_batched(x, w, k["u"][:, :3], ids)
+    with pytest.raises(ops.KernelInputError, match="v_bank must be"):
+        ops.etherplus_reflect_batched(x, k["u"], k["v"][:2], ids)
+    with pytest.raises(ops.KernelInputError, match="s_bank must be"):
+        ops.delora_gemm_batched(x, w, k["a"], k["b"], k["s"].double(), ids)
+    with pytest.raises(ops.KernelInputError, match="c_bank must be"):
+        ops.hyperadapt_gemm_batched(x, w, k["r"], k["c"][:, :5], ids)
+    with pytest.raises(ops.KernelInputError, match=r"\(B, S, d\)"):
+        ops.hyperadapt_gemm_batched(x[0], w, k["r"], k["c"], ids)
+    assert ops.launches() == _launched()
+
+
+# each leaf moved off the method's identity (ETHER+ v = u, DeLoRA b = 0,
+# HyperAdapt r = c = 1); the noise spans the tenant axis, so every tenant
+# moves differently
+BANK_MOVES = {"v1": lambda t, z: t + 0.5 * z, "v2": lambda t, z: t + 0.5 * z,
+              "b": lambda t, z: z, "lam": lambda t, z: 2 + 0.5 * z,
+              "r": lambda t, z: 1 + 0.1 * z, "c": lambda t, z: 1 + 0.1 * z}
+
+
+@pytest.mark.parametrize("method", ["ether", "etherplus", "delora",
+                                    "hyperadapt"])
+def test_bank_smoke_serving_on_the_card_matches_the_cpu(cuda_device, method):
+    """A bank of 8 tenants at smoke width, drawn on the CPU and served on
+    both devices: every adapted linear on its bank kernel on the card."""
+    cfg = get_config("smollm-360m", "smoke")
+    pc = PEFTConfig(method=method, n_blocks=8, rank=8, alpha=8.0,
+                    targets=peft_targets("smollm-360m"))
+    params = init_model(cfg, seed=0, device="cpu")
+    bank = init_adapter_bank(1, params, pc, 8)
+    gen = torch.Generator().manual_seed(3)
+
+    def move(path, t):
+        fn = BANK_MOVES.get(path.rsplit("/", 1)[-1])
+        return t if fn is None else fn(t, torch.randn(t.shape, generator=gen))
+    tree = map_with_paths(move, bank.tree)
+    tokens = torch.randint(0, cfg.vocab, (3, 8),
+                           generator=torch.Generator().manual_seed(2))
+    ids = torch.tensor([5, 1, 7], dtype=torch.int32)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        bk = AdapterBank(_to(tree, dev), 8, bank.stack_ndims)
+        execute.reset_counters()
+        ops.reset_launches()
+        runs[str(dev)] = (serve.generate(_to(params, dev), bk,
+                                         tokens.to(dev), cfg, pc, 4,
+                                         tenant_ids=ids.to(dev)),
+                          execute.counters(), ops.launches())
+    (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    op = {"ether": "householder_gemm_batched",
+          "etherplus": "etherplus_reflect_batched"}.get(
+              method, f"{method}_gemm_batched")
+    n = 7 * cfg.n_layers * card["forwards"] * (2 if method == "etherplus"
+                                               else 1)
+    assert calls == {f"{op}.cuda": n}
+    assert launched == _launched(**{op: n})
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])

@@ -13,8 +13,10 @@ raising, and whatever else fails (a wrong key, shape or argument) raises
 as it would on the card.  No time printed here is a device time.
 
 PART picks phases instead of the whole script: ``rows`` (phase 2's
-DeLoRA and HyperAdapt rows), ``serve:<method>`` (phase 7's serving),
-``train:<method>`` (phase 4's training), ``base`` (phase 11).
+DeLoRA and HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
+``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
+training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
+serving of ether, etherplus, delora or hyperadapt).
 """
 
 import os
@@ -69,7 +71,7 @@ def fake_card():
     torch.Generator = _HostGenerator
     torch.Tensor.cuda = lambda self, *a, **k: self
     for name in ("randn", "randint", "rand", "zeros", "ones", "full",
-                 "empty", "tensor", "arange"):
+                 "empty", "tensor", "as_tensor", "arange"):
         setattr(torch, name, _on_host(getattr(torch, name)))
 
     import repro_torch.configs as configs
@@ -103,6 +105,7 @@ def small(cs, failed):
                   "llama-2-7b": [(128, 128)]}
     cs.LAYER = {(96, 96): 2, (96, 32): 2, (96, 256): 2, (256, 96): 1}
     cs.ROWS, cs.BWD_ROWS, cs.BWD_RAGGED = (4, 20), (40,), 37
+    cs.BANK_ROWS = ((4, 1), (8, 5), (4, 3))
     cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_STEPS, cs.TRAIN_CKPT = 2, 20, 4, 2
     cs.GEN = 4
     cs.timed_ms = lambda torch, fns: (fns[0](), 0.0)[1]
@@ -133,6 +136,10 @@ def main(parts):
             cs.phase_train(torch, execute, ops, 4, method)
         elif name == "base":
             cs.phase_baselines(torch, execute, ops, serve)
+        elif name == "bankrows":
+            print(len(cs.bank_kernel_rows(torch, ops, ref)), "rows")
+        elif name == "bank":
+            cs.phase_serve_bank(torch, execute, ops, serve, api, method)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
