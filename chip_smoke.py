@@ -78,6 +78,19 @@
    when served by another tenant; prints bank vs merged prefill and
    decode times, the bank's bytes, peak memory and the bank's decode-step
    trace, and, for DeLoRA, the cost of its scale over the whole bank.
+13. Train in weight mode (``--peft-mode weight``: y = x·merge(W)): phase
+   4's model, batch and optimizer for ETHER and two-sided ETHER+ (v
+   drawn apart from u; TRAIN_STEPS steps, checkpoint at TRAIN_CKPT) and
+   DeLoRA (from b ≠ 0)
+   and HyperAdapt (off r = c = 1), 4 steps each (WEIGHT_STEPS), through
+   ``Trainer``: counted (each linear's merge kernel twice a step, forward
+   and remat recompute; its backward once: ``merge_left_bwd`` for ETHER,
+   ``etherplus_merge_left`` (H⁺W again), ``merge_right_bwd`` and
+   ``merge_left_bwd`` for ETHER+; no plain call, no ``householder_gemm``),
+   kernels vs plain path to TRAIN_TOL, the restore bitwise, the step's
+   trace; each step printed beside the method's activation-mode step.
+   Then ETHER and ETHER+ in blockgemm mode (dense blocks, plain PyTorch)
+   for BLOCKGEMM_STEPS steps, their losses held to weight mode's.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -93,10 +106,14 @@ that computes it.  The four bank kernels (``householder_gemm_batched``,
 ``etherplus_reflect_batched``, ``delora_gemm_batched``,
 ``hyperadapt_gemm_batched``) are held to TOL at smollm-360m's linears
 with a 64-tenant bank at BANK_ROWS, bf16 and f32 (see bank_kernel_rows).
+The two merge backward kernels (``merge_left_bwd`` at rank 1 and 2, with
+and without dW, and ``merge_right_bwd``) are held to TOL (du, dv to
+DU_TOL) on phase 2's linears, n ∈ {8, 32}, bf16 and f32, including the
+left kernel's branch for strips past shared memory (see merge_bwd_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
-cuBLAS is deterministic in phases 4 and 6.
+cuBLAS is deterministic in the train phases.
 
 Any failure raises and exits non-zero; the last line is the device JSON
 object, the line before it the kernels' JSON line.  Full tables go to
@@ -185,6 +202,20 @@ BANK_IDS = [5, 17, 5, BANK_TENANTS - 1]
 # phase 2's bank rows: (B, S) of decode, prefill, a long prefill and a
 # ragged S
 BANK_ROWS = ((4, 1), (4, 32), (16, 128), (4, 33))
+# phase 13, weight mode: (steps, checkpoint step) per method, None for
+# TRAIN_STEPS and TRAIN_CKPT; DeLoRA and
+# HyperAdapt take fewer steps (their merges have no backward kernel of
+# their own: dW' runs through thin glue and the merge kernel)
+WEIGHT_STEPS = {"ether": (None, None), "etherplus": (None, None),
+                "delora": (4, 2), "hyperadapt": (4, 2)}
+# blockgemm mode (plain PyTorch): its first steps' losses (the third
+# after the first update: the warmup's first lr is 0) against weight
+# mode's, per-step relative difference.  The dense blocks are rounded to
+# bf16 before n block GEMMs in bf16, where the merge kernel computes in
+# f32 and rounds W' once: W' differs by a rounding or two (2^-8) per
+# element, which moved the losses by 6.5e-5 (ETHER) and 1.3e-4 (ETHER+)
+# on the H100 (PERF.md); 2e-3 catches a wrong block or side
+BLOCKGEMM_STEPS, BLOCKGEMM_TOL = 3, 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -902,6 +933,121 @@ def bank_kernel_rows(torch, ops, ref):
     return rows
 
 
+def merge_bwd_rows(torch, ops, ref, kmb):
+    """Phase 2, weight mode: merge_left_bwd (rank 1 and 2, with and
+    without dW) and merge_right_bwd (ETHER+'s output side, n_out =
+    resolve_blocks(n, f): db_out 10, 30, 80 at smollm-360m's linears and
+    n = 32, 1,376 at Llama-2-7B's gate/up and n = 8) through their
+    wrappers against their plain versions, on phase 2's linears with v
+    drawn apart from u, then timed through their launchers (``kmb``)
+    beside their plain versions, rotating (W, G) pairs past the L2.  The
+    left kernel keeps its strips of W and G in shared memory up to db 160
+    in f32, 320 in bf16, and re-reads them past that: smollm-360m's
+    down_proj at n = 8 (db 320) in f32 and Llama-2-7B's linears at n = 8
+    (db 512, 1,376) take the re-read branch."""
+    from repro_torch.core.transforms import resolve_blocks
+    print("== phase 2: merge backward kernels against their plain versions",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def errors(got, want, dtype, what):
+        """max abs error over every output; the normalised max error of
+        each, held to TOL[dtype]; du/dv also by relative Frobenius, held
+        to DU_TOL."""
+        e = [(a.float() - b.float()).abs().max().item()
+             for a, b in zip(got, want) if b is not None]
+        rel = [x / b.float().abs().max().item()
+               for x, b in zip(e, [b for b in want if b is not None])]
+        fr = [frob(a, b) for a, b in zip(got[1:], want[1:])]
+        check(max(rel) <= TOL[dtype] and max(fr) <= DU_TOL,
+              f"{what} disagrees with its plain version: {rel} (tol "
+              f"{TOL[dtype]:g}), du/dv {fr} (tol {DU_TOL:g})")
+        return max(e), max(rel), max(fr)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for arch, shapes in LINEARS.items():
+            for d, f in shapes:
+                pairs = [((randn(d, f) / d ** .5).to(dt), randn(d, f).to(dt))
+                         for _ in range(max(1, min(256, int(
+                             100e6 // (2 * d * f * es)) + 1)))]
+                w, g = pairs[0]
+                for n in BLOCKS:
+                    n_out = resolve_blocks(n, f)
+                    u, v = randn(n, d // n), randn(n, d // n)
+                    u2, v2 = randn(n_out, f // n_out), randn(n_out,
+                                                             f // n_out)
+                    common = dict(arch=arch, dtype=dtype, t=None, d=d, f=f,
+                                  n=n, tol=TOL[dtype], matmul_ms=None)
+                    for rank in (1, 2):
+                        vv = v if rank == 2 else None
+                        for need_dw in (False, True):
+                            ops.reset_launches()
+                            got = ops.merge_left_bwd(w, u, g, vv,
+                                                     need_dw=need_dw)
+                            torch.cuda.synchronize()
+                            check(ops.launches()["merge_left_bwd"] == 1,
+                                  f"merge_left_bwd launched {ops.launches()}")
+                            err, rel, fr = errors(
+                                got, ref.ref_merge_left_bwd(
+                                    w, u, g, vv, need_dw=need_dw), dtype,
+                                f"merge_left_bwd r{rank} {dtype} d={d} f={f}"
+                                f" n={n} need_dw={need_dw}")
+                            b_ms, b_by = bound(
+                                (2 + need_dw) * d * f * es + 8 * rank * d,
+                                10 * rank * d * f, dtype)
+                            rows.append(dict(
+                                common, kernel="merge_left_bwd", rank=rank,
+                                need_dw=need_dw, db=d // n, max_abs_err=err,
+                                rel_err=rel, du_rel_frob=fr, bound_ms=b_ms,
+                                bound_by=b_by,
+                                ms=timed_ms(torch, [
+                                    lambda w=w, g=g: kmb.launch_left(
+                                        w, u, g, vv, need_dw)
+                                    for w, g in pairs]),
+                                plain_ms=timed_ms(torch, [
+                                    lambda w=w, g=g: ref.ref_merge_left_bwd(
+                                        w, u, g, vv, need_dw=need_dw)
+                                    for w, g in pairs])))
+                    ops.reset_launches()
+                    got = ops.merge_right_bwd(w, u2, v2, g)
+                    torch.cuda.synchronize()
+                    check(ops.launches()["merge_right_bwd"] == 1,
+                          f"merge_right_bwd launched {ops.launches()}")
+                    err, rel, fr = errors(
+                        got, ref.ref_etherplus_reflect_bwd(w, u2, v2, g),
+                        dtype,
+                        f"merge_right_bwd {dtype} d={d} f={f} n_out={n_out}")
+                    b_ms, b_by = bound(3 * d * f * es + 16 * f, 20 * d * f,
+                                       dtype)
+                    rows.append(dict(
+                        common, kernel="merge_right_bwd", rank=2,
+                        need_dw=True, db=f // n_out, max_abs_err=err,
+                        rel_err=rel, du_rel_frob=fr, bound_ms=b_ms,
+                        bound_by=b_by,
+                        ms=timed_ms(torch, [
+                            lambda w=w, g=g: kmb.launch_right(w, u2, v2, g)
+                            for w, g in pairs]),
+                        plain_ms=timed_ms(torch, [
+                            lambda w=w, g=g: ref.ref_etherplus_reflect_bwd(
+                                w, u2, v2, g) for w, g in pairs])))
+                    for r in rows[-5:]:
+                        print("  {kernel:15s} r{rank} dW={need_dw:d} "
+                              "{arch:11s} {dtype:8s} d={d:5d} f={f:5d} "
+                              "db={db:4d}  err {rel_err:.2e} (tol {tol:g}) "
+                              "du {du_rel_frob:.2e}  {ms:.4f} ms  plain "
+                              "{plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                              "({bound_by})".format(**r), flush=True)
+                del pairs, w, g
+    torch.cuda.synchronize()
+    return rows
+
+
 def layer_summary(rows, kernel, n, t, **match):
     """Sum over one smollm-360m layer's seven linears (bf16, ``n``
     blocks, ``t`` rows; None for the merges; the rows whose other keys
@@ -1476,11 +1622,84 @@ def phase_baselines(torch, execute, ops, serve):
     return out
 
 
-def phase_train(torch, execute, ops, phase, method):
+def moved_off_init(torch, method):
+    """Phase 13's start for ETHER+ (v1, v2 drawn EP_SPREAD·N(0, 1) apart
+    from u1, u2: the init's v = u is H⁺ = I, under which blockgemm and
+    weight mode agree trivially), DeLoRA (b = DELORA_B0·N(0, 1), where its
+    update is no sign pattern) and HyperAdapt (r, c = 1 + HA_SPREAD·N(0,
+    1)): a function that moves a new Trainer's adapters there in place,
+    from one seed, so every run of a method starts equal.  None for ETHER
+    (its init is a random hyperplane)."""
+    from repro_torch.common.pytree import flatten_with_paths
+    # leaf → (base, spread): the leaf becomes base + spread·N(0, 1), or,
+    # with base None, moves by spread·N(0, 1) from where it is
+    spread = {"etherplus": {"v1": (None, EP_SPREAD), "v2": (None, EP_SPREAD)},
+              "delora": {"b": (0.0, DELORA_B0)},
+              "hyperadapt": {"r": (1.0, HA_SPREAD),
+                             "c": (1.0, HA_SPREAD)}}.get(method)
+    if spread is None:
+        return None
+
+    def start(tr):
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        with torch.no_grad():
+            for p, leaf in flatten_with_paths(tr.state["adapters"]):
+                name = p.rsplit("/", 1)[-1]
+                if name in spread:
+                    base, sd = spread[name]
+                    leaf.copy_((leaf if base is None else base) + sd
+                               * torch.randn(leaf.shape, generator=gen,
+                                             device="cuda"))
+    return start
+
+
+def expected_train_counts(method, mode, n, launch_keys):
+    """Per train run of n = 7·L·steps adapted-linear steps, the dispatch
+    counters and kernel launches of ``method`` in ``mode``: each linear's
+    forward and its remat recompute, and one backward (no dW: PEFT
+    freezes W)."""
+    if mode == "weight":
+        # the merge forward twice (remat), its backward once; ETHER+'s
+        # two-sided backward recomputes H⁺W (etherplus_merge_left)
+        op = f"{method}_merge"
+        counters = {f"{op}.cuda": 2 * n, f"{op}_bwd.cuda": n}
+        launches = {"ether": {"ether_merge": 2 * n, "merge_left_bwd": n},
+                    "etherplus": {"etherplus_merge_left": 3 * n,
+                                  "etherplus_merge_right": 2 * n,
+                                  "merge_right_bwd": n, "merge_left_bwd": n},
+                    "delora": {"delora_merge": 2 * n},
+                    "hyperadapt": {"hyperadapt_merge": 2 * n}}[method]
+    elif mode == "blockgemm":         # plain PyTorch, as in the JAX package
+        counters, launches = {}, {}
+    else:
+        # the reflections' backward runs reflect_gemm_dx, which under
+        # two-sided ETHER+ comes after a y0 recompute by the one-sided
+        # forward kernel and etherplus_reflect_bwd; DeLoRA's dx is its
+        # forward kernel on Wᵀ; HyperAdapt's z and y0 are its forward
+        # kernel without the column scale
+        fwd = f"{method}_gemm" if method in ("delora", "hyperadapt") else {
+            "ether": "householder_gemm", "etherplus": "etherplus_gemm"}[
+            method]
+        counters = {f"{fwd}.cuda": 2 * n, f"{fwd}_bwd.cuda": n}
+        launches = {"ether": {"householder_gemm": 2 * n,
+                              "reflect_gemm_dx": n},
+                    "etherplus": {"etherplus_gemm": 3 * n,
+                                  "etherplus_reflect_bwd": n,
+                                  "reflect_gemm_dx": n},
+                    "delora": {"delora_gemm": 3 * n},
+                    "hyperadapt": {"hyperadapt_gemm": 4 * n}}[method]
+    return counters, {**dict.fromkeys(launch_keys, 0), **launches}
+
+
+def phase_train(torch, execute, ops, phase, method, mode="activation",
+                steps=None, ckpt=None, start=None):
     """Phases 4 (``method`` "ether"), 6 ("etherplus", two-sided), 8
     ("delora") and 10 ("hyperadapt"): PEFT training of smollm-360m at full
     width through the port's Trainer, from the method's own init; see the
-    module docstring."""
+    module docstring.  Phase 13 runs it in weight mode (``mode``), for
+    ``steps`` steps with a checkpoint at ``ckpt``, each Trainer's adapters
+    first moved by ``start`` (:func:`moved_off_init`); TRAIN_STEPS and
+    TRAIN_CKPT by default."""
     import shutil
     import tempfile
 
@@ -1492,15 +1711,22 @@ def phase_train(torch, execute, ops, phase, method):
     from repro_torch.runtime.trainer import Trainer
 
     cfg = get_config(ARCH, "full")
+    steps = TRAIN_STEPS if steps is None else steps
+    ckpt = TRAIN_CKPT if ckpt is None else ckpt
     tokens = TRAIN_B * TRAIN_S
     label = {"ether": f"ETHER n_blocks={TRAIN_BLOCKS}",
              "etherplus": f"ETHER+ two-sided n_blocks={TRAIN_BLOCKS}",
              "delora": f"DeLoRA rank {METHOD_RANK}",
              "hyperadapt": "HyperAdapt"}[method]
+    if start is not None:
+        label += {"etherplus": f", v from u + {EP_SPREAD:g}·N(0, 1)",
+                  "delora": f", from b = {DELORA_B0:g}·N(0, 1)",
+                  "hyperadapt": f", from r, c = 1 + {HA_SPREAD:g}·N(0, 1)"
+                  }[method]
     print(f"== phase {phase}: train {ARCH} full width ({cfg.n_layers} layers, "
-          f"{cfg.param_dtype}, remat {cfg.remat!r}), {label}, "
+          f"{cfg.param_dtype}, remat {cfg.remat!r}), {label}, mode {mode}, "
           f"B={TRAIN_B} S={TRAIN_S}, AdamW lr "
-          f"{TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps",
+          f"{TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {steps} steps",
           flush=True)
     stream = SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
                                seq_len=TRAIN_S, seed=0)
@@ -1508,10 +1734,14 @@ def phase_train(torch, execute, ops, phase, method):
     def trainer(backend, name, **kw):
         peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS,
                           rank=METHOD_RANK, alpha=float(METHOD_RANK),
-                          targets=peft_targets(ARCH), backend=backend)
-        opt = adamw(cosine(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
-        return Trainer(cfg, peft, opt, seed=0, device="cuda",
-                       log_path=os.path.join(tmp, f"{name}.jsonl"), **kw)
+                          targets=peft_targets(ARCH), mode=mode,
+                          backend=backend)
+        opt = adamw(cosine(TRAIN_LR, steps, TRAIN_WARMUP))
+        t = Trainer(cfg, peft, opt, seed=0, device="cuda",
+                    log_path=os.path.join(tmp, f"{name}.jsonl"), **kw)
+        if start is not None and t.step == 0:
+            start(t)
+        return t
 
     def logged(name):
         """The metrics of every step a Trainer ran, from its JSONL log."""
@@ -1526,13 +1756,13 @@ def phase_train(torch, execute, ops, phase, method):
     try:
         # the main path, counted: every count set to 0 just before fit
         tr = trainer("auto", "a", ckpt_dir=os.path.join(tmp, "a"),
-                     ckpt_every=TRAIN_CKPT)
+                     ckpt_every=ckpt)
         init = snapshot(tr.state["adapters"])
         execute.reset_counters()
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tr.fit(stream, steps=TRAIN_STEPS)
+        tr.fit(stream, steps=steps)
         fit_s = time.perf_counter() - t0
         counters, launches = execute.counters(), ops.launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1541,26 +1771,9 @@ def phase_train(torch, execute, ops, phase, method):
         tr.close()
         log = logged("a")
 
-        # per step, each of the 7·L adapted linears: the forward and its
-        # remat recompute, and one backward (no dW: PEFT freezes W).  The
-        # reflections' backward runs reflect_gemm_dx, which under
-        # two-sided ETHER+ comes after a y0 recompute by the one-sided
-        # forward kernel and etherplus_reflect_bwd; DeLoRA's dx is its
-        # forward kernel on Wᵀ; HyperAdapt's z and y0 are its forward
-        # kernel without the column scale
-        n = 7 * cfg.n_layers * TRAIN_STEPS
-        fwd = f"{method}_gemm" if method in ("delora", "hyperadapt") else {
-            "ether": "householder_gemm", "etherplus": "etherplus_gemm"}[
-            method]
-        want = ({f"{fwd}.cuda": 2 * n, f"{fwd}_bwd.cuda": n},
-                {**dict.fromkeys(ops.launches(), 0), **{
-                    "ether": {"householder_gemm": 2 * n,
-                              "reflect_gemm_dx": n},
-                    "etherplus": {"etherplus_gemm": 3 * n,
-                                  "etherplus_reflect_bwd": n,
-                                  "reflect_gemm_dx": n},
-                    "delora": {"delora_gemm": 3 * n},
-                    "hyperadapt": {"hyperadapt_gemm": 4 * n}}[method]})
+        # per step, each of the 7·L adapted linears
+        n = 7 * cfg.n_layers * steps
+        want = expected_train_counts(method, mode, n, ops.launches())
         print(f"[kernels] dispatch counters: {counters}  kernel launches: "
               f"{launches}")
         check((counters, launches) == want,
@@ -1568,10 +1781,10 @@ def phase_train(torch, execute, ops, phase, method):
               f"{want[0]} / {want[1]} (forward + remat recompute + backward "
               f"of {7 * cfg.n_layers} linears a step, no plain version)")
         losses = [m["loss"] for m in log]
-        check(len(losses) == TRAIN_STEPS
+        check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
                                                     for m in log])),
-              f"train losses {losses} are not {TRAIN_STEPS} finite values")
+              f"train losses {losses} are not {steps} finite values")
         step_ms = [m["step_time"] * 1e3 for m in log]
         steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
         print(f"[kernels] losses {[round(x, 4) for x in losses]}")
@@ -1582,7 +1795,7 @@ def phase_train(torch, execute, ops, phase, method):
 
         # the plain path on the card, outside the counted run
         ref_tr = trainer("torch", "plain")
-        ref_tr.fit(stream, steps=TRAIN_STEPS)
+        ref_tr.fit(stream, steps=steps)
         ref_final = snapshot(ref_tr.state["adapters"])
         ref_tr.close()
         ref_log = logged("plain")
@@ -1620,10 +1833,10 @@ def phase_train(torch, execute, ops, phase, method):
         # on either path, and the two updates part by 0.107 (PERF.md, run
         # P) where the losses and gradient norms agree.  The update is
         # held to its limit on a pair of runs from b ≠ 0 instead, below
-        sign_led = method == "delora"
+        sign_led = method == "delora" and start is None
         report("kernels vs plain path", loss_rel, gnorm_rel, upd_rel,
                not sign_led)
-        check(len(ref_log) == TRAIN_STEPS and loss_rel <= TRAIN_TOL["loss"]
+        check(len(ref_log) == steps and loss_rel <= TRAIN_TOL["loss"]
               and gnorm_rel <= TRAIN_TOL["grad_norm"]
               and (sign_led or upd_rel <= TRAIN_TOL["update"]),
               "the kernels' training path disagrees with the plain path")
@@ -1638,9 +1851,9 @@ def phase_train(torch, execute, ops, phase, method):
                         if p.endswith("/b"):
                             leaf.copy_(DELORA_B0 * torch.randn(
                                 leaf.shape, generator=gen, device="cuda"))
-                start = snapshot(t.state["adapters"])
-                t.fit(stream, steps=TRAIN_STEPS)
-                runs[backend] = (logged(f"b0_{backend}"), start,
+                first = snapshot(t.state["adapters"])
+                t.fit(stream, steps=steps)
+                runs[backend] = (logged(f"b0_{backend}"), first,
                                  snapshot(t.state["adapters"]))
                 t.close()
             check(all(torch.equal(runs["auto"][1][p], runs["torch"][1][p])
@@ -1657,22 +1870,21 @@ def phase_train(torch, execute, ops, phase, method):
                   "from b ≠ 0, the kernels' DeLoRA training path disagrees "
                   "with the plain path")
 
-        # restore from the step-TRAIN_CKPT checkpoint in a new Trainer
-        shutil.copytree(os.path.join(tmp, "a", f"step_{TRAIN_CKPT}"),
-                        os.path.join(tmp, "b", f"step_{TRAIN_CKPT}"))
+        # restore from the step-ckpt checkpoint in a new Trainer
+        shutil.copytree(os.path.join(tmp, "a", f"step_{ckpt}"),
+                        os.path.join(tmp, "b", f"step_{ckpt}"))
         res_tr = trainer("auto", "b", ckpt_dir=os.path.join(tmp, "b"),
-                         ckpt_every=TRAIN_CKPT)
-        check(res_tr.step == TRAIN_CKPT
-              and res_tr.data_state.step == TRAIN_CKPT,
-              f"restored at step {res_tr.step}, want {TRAIN_CKPT}")
-        res_tr.fit(stream, steps=TRAIN_STEPS)
+                         ckpt_every=ckpt)
+        check(res_tr.step == ckpt and res_tr.data_state.step == ckpt,
+              f"restored at step {res_tr.step}, want {ckpt}")
+        res_tr.fit(stream, steps=steps)
         mism = [f"{k}/{p}" for k in final
                 for p, t in flatten_with_paths(res_tr.state[k])
                 if not torch.equal(t, final[k][p])]
         check(not mism and [m["loss"] for m in logged("b")]
-              == losses[TRAIN_CKPT:],
+              == losses[ckpt:],
               f"resumed run differs from the uninterrupted one: {mism[:5]}")
-        print(f"restore from step {TRAIN_CKPT} -> {TRAIN_STEPS}: adapters, "
+        print(f"restore from step {ckpt} -> {steps}: adapters, "
               f"optimizer state and step bitwise equal "
               f"({sum(len(v) for v in final.values())} tensors), losses "
               f"equal")
@@ -1689,7 +1901,8 @@ def phase_train(torch, execute, ops, phase, method):
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(losses=losses, plain_losses=ref_losses, step_ms=step_ms,
+    return dict(mode=mode, steps=steps, losses=losses,
+                plain_losses=ref_losses, step_ms=step_ms,
                 steady_ms=steady_ms, plain_step_ms=ref_ms,
                 tokens_per_s=tokens / steady_ms * 1e3, peak_gb=peak_gb,
                 fit_s=fit_s, loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
@@ -1697,6 +1910,83 @@ def phase_train(torch, execute, ops, phase, method):
                 grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
                 counters=counters, launches=launches, trace=trace)
+
+
+def phase_blockgemm(torch, execute, ops, method, weight):
+    """Phase 13, blockgemm: ``method`` trained BLOCKGEMM_STEPS steps in
+    blockgemm mode (the paper's dense (db × db) blocks and n block GEMMs,
+    plain PyTorch as in the JAX package) from the same start
+    (:func:`moved_off_init`) and schedule as the weight-mode run
+    ``weight``, counted: no kernel op dispatches.  Its per-step losses
+    are held to weight mode's within BLOCKGEMM_TOL; the schedule's first
+    step has lr 0 (warmup), so the last loss is the first to follow an
+    update."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = get_config(ARCH, "full")
+    print(f"== phase 13: train {ARCH} full width, {method} blockgemm mode, "
+          f"{BLOCKGEMM_STEPS} steps against weight mode's", flush=True)
+    peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS,
+                      targets=peft_targets(ARCH), mode="blockgemm")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_blockgemm_")
+    try:
+        log_path = os.path.join(tmp, "log.jsonl")
+        tr = Trainer(cfg, peft, adamw(cosine(TRAIN_LR, weight["steps"],
+                                             TRAIN_WARMUP)),
+                     seed=0, device="cuda", log_path=log_path)
+        start = moved_off_init(torch, method)
+        if start is not None:
+            start(tr)
+        execute.reset_counters()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        tr.fit(SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
+                                 seq_len=TRAIN_S, seed=0),
+               steps=BLOCKGEMM_STEPS)
+        counters, launches = execute.counters(), ops.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tr.close()
+        with open(log_path) as fh:
+            log = [json.loads(line) for line in fh]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not counters and not any(launches.values()),
+          f"blockgemm mode dispatched {counters} / launched {launches}")
+    losses = [m["loss"] for m in log]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, weight["losses"]))
+    step_ms = [m["step_time"] * 1e3 for m in log]
+    want = weight["losses"][:len(losses)]
+    print(f"[blockgemm] losses {[round(x, 5) for x in losses]} against "
+          f"weight mode's {[round(x, 5) for x in want]}: rel. diff max "
+          f"{rel:.3e} (tol {BLOCKGEMM_TOL:g}); step ms "
+          f"{[round(x, 1) for x in step_ms]} (first includes warm-up); "
+          f"peak memory {peak_gb:.3f} GB", flush=True)
+    check(len(losses) == BLOCKGEMM_STEPS and rel <= BLOCKGEMM_TOL,
+          f"blockgemm mode's losses {losses} differ from weight mode's")
+    return dict(losses=losses, loss_rel=rel, step_ms=step_ms,
+                peak_gb=peak_gb, counters=counters, launches=launches)
+
+
+def print_modes(weight, activation, card):
+    """Phase 13's step beside the same method's activation-mode step
+    (phases 4, 6, 8, 10), on ``card`` (nvidia-smi's name and power
+    limit)."""
+    print(f"== phase 13: weight vs activation mode on {card}", flush=True)
+    for method, w in weight.items():
+        a = activation[method]
+        print(f"[{method}] weight vs activation mode: step "
+              f"{w['steady_ms']:.1f} vs {a['steady_ms']:.1f} ms, "
+              f"{w['tokens_per_s']:.0f} vs {a['tokens_per_s']:.0f} tokens/s,"
+              f" device busy {w['trace']['device_busy_ms']:.1f} vs "
+              f"{a['trace']['device_busy_ms']:.1f} ms a step, peak "
+              f"{w['peak_gb']:.3f} vs {a['peak_gb']:.3f} GB", flush=True)
 
 
 def main() -> int:
@@ -1716,6 +2006,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import etherplus_merge as kepm
     from repro_torch.kernels import etherplus_reflect_bwd as krb
+    from repro_torch.kernels import merge_bwd as kmb
     from repro_torch.kernels import reflect_gemm_dw as kdw
     from repro_torch.kernels import reflect_gemm_dx as kdx
     from repro_torch.launch import serve
@@ -1738,6 +2029,8 @@ def main() -> int:
                   lambda: bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb))
     rows += timed("2 method rows", lambda: method_kernel_rows(torch, ops, ref))
     rows += timed("2 bank rows", lambda: bank_kernel_rows(torch, ops, ref))
+    rows += timed("2 merge backward rows",
+                  lambda: merge_bwd_rows(torch, ops, ref, kmb))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -1754,6 +2047,14 @@ def main() -> int:
                                                     serve))
     served_bank = {method: timed(f"12 {method}", lambda: phase_serve_bank(
         torch, execute, ops, serve, api, method)) for method in BANK_OP}
+    trained_w = {method: timed(f"13 {method}", lambda: phase_train(
+        torch, execute, ops, 13, method, "weight", *WEIGHT_STEPS[method],
+        moved_off_init(torch, method))) for method in WEIGHT_STEPS}
+    blockgemm = {method: timed(f"13 {method} blockgemm", lambda: (
+        phase_blockgemm(torch, execute, ops, method, trained_w[method])))
+        for method in ("ether", "etherplus")}
+    print_modes(trained_w, {"ether": trained, "etherplus": ep_trained,
+                            **trained_m}, smi)
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -1769,10 +2070,16 @@ def main() -> int:
     for method, r in served_bank.items():
         paths.update({f"{method} bank serve": r["bank_launches"],
                       f"{method} bank merge": r["merged_launches"]})
+    for method, r in trained_w.items():
+        paths[f"{method} weight train"] = r["launches"]
+    for method, r in blockgemm.items():
+        paths[f"{method} blockgemm train"] = r["launches"]
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
              "one smollm-360m train layer, T=1024, n=32")
+    train_weights = (TRAIN_BLOCKS, None,
+                     "one smollm-360m train layer's weights, n=32")
     # name: (source, the TPU kernel's pallas_call, the layer summed in the
     # kernel table (n, T, what), the rows' other keys)
     table = {
@@ -1833,7 +2140,12 @@ def main() -> int:
             "hyperadapt_gemm_batched",
             "src/repro/kernels/hyperadapt_gemm.py:141",
             (None, B, f"one smollm-360m decode layer, B=4 S=1, "
-                      f"A={BANK_TENANTS}"), {})}
+                      f"A={BANK_TENANTS}"), {}),
+        "merge_left_bwd": ("merge_bwd", "src/repro/kernels/merge_bwd.py:146",
+                           train_weights, {"rank": 1, "need_dw": False}),
+        "merge_right_bwd": ("merge_bwd",
+                            "src/repro/kernels/merge_bwd.py:185",
+                            train_weights, {})}
     kernels = []
     for name, (source, replaces, (n, t, what), match) in table.items():
         s = layer_summary(rows, name, n, t, **match)
@@ -1851,12 +2163,14 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"] or None,
             "matmul_ms": s["matmul_ms"] or None,
             "shapes": f"sum over the 7 linears of {what}, bf16"
-                      + (", two-sided" if match.get("two_sided") else "")}
+                      + (", two-sided" if match.get("two_sided") else "")
+                      + (", rank 1, no dW" if match.get("need_dw") is False
+                         else "")}
         if match.get("rank") == 1:          # ETHER+'s rank-2 branch
-            r2 = layer_summary(rows, name, n, t, rank=2)
+            r2 = layer_summary(rows, name, n, t, **dict(match, rank=2))
             entry["rank2"] = {k: r2[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms",
-                "max_abs_err")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            entry["rank2"]["matmul_ms"] = r2["matmul_ms"] or None
         if name in ("delora_gemm", "hyperadapt_gemm"):
             # its backward composition, which runs this kernel on Wᵀ
             bw = layer_summary(rows, f"{name}_bwd", None, TRAIN_B * TRAIN_S,
@@ -1868,9 +2182,9 @@ def main() -> int:
                                 "ms", "plain_ms", "bound_ms", "bound_by",
                                 "matmul_ms", "max_abs_err")}}
         kernels.append(entry)
-    check(len(kernels) == 16, f"the kernels line lists {len(kernels)}")
+    check(len(kernels) == 18, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-12 took {total_s:.1f} s (" + ", ".join(
+    print(f"chip_smoke: phases 1-13 took {total_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1882,6 +2196,9 @@ def main() -> int:
                    **{f"{m}_train": r for m, r in trained_m.items()},
                    "baselines": baselines,
                    **{f"{m}_bank_serve": r for m, r in served_bank.items()},
+                   **{f"{m}_weight_train": r for m, r in trained_w.items()},
+                   **{f"{m}_blockgemm_train": r
+                      for m, r in blockgemm.items()},
                    "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,9 @@ can show which implementation it went through.
 Training differentiates ``householder_gemm`` through
 :class:`HouseholderGemm`, ``etherplus_gemm`` through
 :class:`EtherPlusGemm`, ``delora_gemm`` through :class:`DeloraGemm` and
-``hyperadapt_gemm`` through :class:`HyperAdaptGemm`,
+``hyperadapt_gemm`` through :class:`HyperAdaptGemm`, and, in weight mode,
+the merges through :class:`EtherMerge`, :class:`EtherPlusMerge`,
+:class:`DeloraMerge` and :class:`HyperAdaptMerge`:
 ``torch.autograd.Function``s whose backward dispatches ``<op>_bwd`` on
 the backend its forward resolved (counted as ``<op>_bwd.<backend>``), as
 the JAX package's ``_registry_vjp`` dispatches ``<op>_bwd``.
@@ -46,12 +48,16 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("householder_gemm_bwd", "cuda"): ops.householder_gemm_bwd,
     ("ether_merge", "torch"): ref.ref_ether_merge,
     ("ether_merge", "cuda"): ops.ether_merge,
+    ("ether_merge_bwd", "torch"): ref.ref_ether_merge_bwd,
+    ("ether_merge_bwd", "cuda"): ops.merge_left_bwd,
     ("etherplus_gemm", "torch"): ref.ref_etherplus_gemm,
     ("etherplus_gemm", "cuda"): ops.etherplus_gemm,
     ("etherplus_gemm_bwd", "torch"): ref.ref_etherplus_gemm_bwd,
     ("etherplus_gemm_bwd", "cuda"): ops.etherplus_gemm_bwd,
     ("etherplus_merge", "torch"): ref.ref_etherplus_merge,
     ("etherplus_merge", "cuda"): ops.etherplus_merge,
+    ("etherplus_merge_bwd", "torch"): ref.ref_etherplus_merge_bwd,
+    ("etherplus_merge_bwd", "cuda"): ops.etherplus_merge_bwd,
     ("delora_gemm", "torch"): ref.ref_delora_gemm,
     ("delora_gemm", "cuda"): ops.delora_gemm,
     ("delora_gemm_bwd", "torch"): ref.ref_delora_gemm_bwd,
@@ -199,6 +205,90 @@ class HyperAdaptGemm(torch.autograd.Function):
         grads = dispatch("hyperadapt_gemm_bwd", ctx.backend,
                          *ctx.saved_tensors, g.contiguous(),
                          need_dw=ctx.needs_input_grad[1])
+        return (*grads, None)
+
+
+class EtherMerge(torch.autograd.Function):
+    """W' = H_B·w with the registry's backward, as
+    ``EtherMerge.apply(w, u, backend)``.  Saves the operands themselves,
+    as the JAX package's ``_registry_vjp`` does; dW only when w needs a
+    gradient (never under PEFT, which freezes w)."""
+
+    @staticmethod
+    def forward(ctx, w, u, backend):
+        be = selected_backend("ether_merge", backend, w)
+        ctx.backend = be
+        ctx.save_for_backward(w, u)
+        return dispatch("ether_merge", be, w, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, u = ctx.saved_tensors
+        dw, du = dispatch("ether_merge_bwd", ctx.backend, w, u,
+                          g.contiguous(), need_dw=ctx.needs_input_grad[0])
+        return dw, du, None
+
+
+class EtherPlusMerge(torch.autograd.Function):
+    """W' = H⁺·w [·H̃⁺] with the registry's backward, as
+    ``EtherPlusMerge.apply(w, u1, v1, u2, v2, backend)`` (u2, v2 None
+    one-sided).  Saves the operands: the two-sided backward recomputes
+    H⁺·w, as the JAX package's does; dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, w, u1, v1, u2, v2, backend):
+        be = selected_backend("etherplus_merge", backend, w)
+        ctx.backend = be
+        ctx.save_for_backward(w, u1, v1, u2, v2)
+        return dispatch("etherplus_merge", be, w, u1, v1, u2, v2)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("etherplus_merge_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous(),
+                         need_dw=ctx.needs_input_grad[0])
+        return (*grads, None)
+
+
+class DeloraMerge(torch.autograd.Function):
+    """W' = w + (a·s)·b with the registry's backward, as
+    ``DeloraMerge.apply(w, a, b, s, backend)``.  s is a primal here, its
+    ε-norm chain left to plain autograd outside, as in
+    :class:`DeloraGemm`; the backward is thin glue on either backend (the
+    JAX package's ``ops.delora_merge_bwd``); dW only when w needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, w, a, b, s, backend):
+        be = selected_backend("delora_merge", backend, w)
+        ctx.backend = be
+        ctx.save_for_backward(w, a, b, s)
+        return dispatch("delora_merge", be, w, a, b, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("delora_merge_bwd", ctx.backend, *ctx.saved_tensors,
+                         g.contiguous(), need_dw=ctx.needs_input_grad[0])
+        return (*grads, None)
+
+
+class HyperAdaptMerge(torch.autograd.Function):
+    """W' = diag(r)·w·diag(c) with the registry's backward, as
+    ``HyperAdaptMerge.apply(w, r, c, backend)``; dW (the merge kernel on
+    the cotangent) only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, w, r, c, backend):
+        be = selected_backend("hyperadapt_merge", backend, w)
+        ctx.backend = be
+        ctx.save_for_backward(w, r, c)
+        return dispatch("hyperadapt_merge", be, w, r, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("hyperadapt_merge_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous(),
+                         need_dw=ctx.needs_input_grad[0])
         return (*grads, None)
 
 

@@ -6,9 +6,15 @@ Every finetuning transform is a :class:`PEFTMethod`: adapter factory
 identity adapter values (``identity_leaf``).  The port has the JAX
 registry's methods in its order but VeRA: ETHER, ETHER+, OFT, Naive,
 LoRA, full finetuning, DeLoRA and HyperAdapt.  :func:`get` raises
-:class:`repro_torch.NotPortedError` for every other name, known to the
-JAX package or not.  The methods flagged ``bank_servable`` (ETHER,
-ETHER+, DeLoRA, HyperAdapt, as in the JAX registry) serve an
+:class:`repro_torch.NotPortedError` for VeRA and the JAX package's
+:class:`UnknownMethodError` for a name neither registry has.  ``dense``
+follows ``cfg.mode`` as the JAX methods do: ``activation`` runs the
+fused kernels, ``weight`` computes ``x @ merge(W)`` (the merge kernels,
+differentiated through their autograd Functions), ``blockgemm`` the
+paper-literal block GEMMs in plain PyTorch; ``merge(..., literal=True)``
+and ``materialize`` build the dense blocks.  The methods flagged
+``bank_servable`` (ETHER, ETHER+, DeLoRA, HyperAdapt, as in the JAX
+registry) serve an
 :class:`~repro_torch.core.peft.AdapterBank` through their batched
 kernels; ``bank_dense`` of any other method raises the JAX package's
 ValueError.  The kernel ops (ETHER, ETHER+, DeLoRA, HyperAdapt) dispatch
@@ -32,6 +38,19 @@ Params = dict[str, Any]
 
 _METHOD_REGISTRY: dict[str, "PEFTMethod"] = {}
 _EPS = 1e-8     # DeLoRA's scale: ε beside the norms' product, as in JAX
+# the JAX registry's methods that the port has not ported (ROADMAP.md)
+UNPORTED = ("vera",)
+
+
+class UnknownMethodError(ValueError):
+    """A method name in neither registry; carries the valid names, with
+    the JAX package's message."""
+
+    def __init__(self, name):
+        self.name = name
+        self.valid = available()
+        super().__init__(f"unknown PEFT method {name!r}; valid methods: "
+                         f"{', '.join(self.valid)}")
 
 
 def register_method(cls):
@@ -47,11 +66,17 @@ def available() -> tuple[str, ...]:
 
 
 def get(name: str) -> "PEFTMethod":
+    """Resolve a method name: :class:`UnknownMethodError` (a ValueError
+    listing the valid names) for a name the JAX registry lacks too,
+    :class:`repro_torch.NotPortedError` for one of its methods that the
+    port has not ported (``UNPORTED``)."""
     try:
         return _METHOD_REGISTRY[name]
     except KeyError:
-        raise NotPortedError(f"PEFT method {name!r} (ported: "
-                             f"{', '.join(available())})") from None
+        if name in UNPORTED:
+            raise NotPortedError(f"PEFT method {name!r} (ported: "
+                                 f"{', '.join(available())})") from None
+        raise UnknownMethodError(name) from None
 
 
 def bank_servable() -> tuple[str, ...]:
@@ -112,8 +137,14 @@ class PEFTMethod:
     def dense(self, x, W, adapter: Params, cfg) -> torch.Tensor:
         raise NotImplementedError
 
-    def merge(self, W, adapter: Params, cfg) -> torch.Tensor:
+    def merge(self, W, adapter: Params, cfg, *,
+              literal: bool = False) -> torch.Tensor:
         raise NotImplementedError
+
+    def materialize(self, adapter: Params, cfg, d_in: int, d_out: int):
+        """(T_left, T_right): the dense transform matrices, or None each
+        (small dims only: metrics and tests)."""
+        return (None, None)
 
     def param_count(self, d_in: int, d_out: int, cfg) -> int:
         raise NotImplementedError
@@ -135,6 +166,10 @@ class EtherMethod(PEFTMethod):
 
     def dense(self, x, W, adapter, cfg):
         u = adapter["u"]
+        if cfg.mode == "weight":
+            return x @ self.merge(W, adapter, cfg).to(x.dtype)
+        if cfg.mode == "blockgemm":                 # paper-literal §3.4
+            return x @ self.merge(W, adapter, cfg, literal=True).to(x.dtype)
         if _needs_grad(x, W, u):
             return execute.HouseholderGemm.apply(x, W, u, cfg.backend)
         return execute.dispatch("householder_gemm", cfg.backend, x, W, u)
@@ -146,8 +181,19 @@ class EtherMethod(PEFTMethod):
         return execute.dispatch("householder_gemm_batched", cfg.backend, x,
                                 W, adapter["u"], adapter["ids"])
 
-    def merge(self, W, adapter, cfg):
-        return execute.dispatch("ether_merge", cfg.backend, W, adapter["u"])
+    def merge(self, W, adapter, cfg, *, literal=False):
+        from repro_torch.core import transforms as T
+        u = adapter["u"]
+        if literal:
+            return T.block_diag_matmul(T.householder_blocks(u), W)
+        if _needs_grad(W, u):
+            return execute.EtherMerge.apply(W, u, cfg.backend)
+        return execute.dispatch("ether_merge", cfg.backend, W, u)
+
+    def materialize(self, adapter, cfg, d_in, d_out):
+        from repro_torch.core import transforms as T
+        return (T.materialize_block_diag(
+            T.householder_blocks(adapter["u"])), None)
 
     def param_count(self, d_in, d_out, cfg):
         return d_in                                 # O(d), n-independent
@@ -191,6 +237,10 @@ class EtherPlusMethod(PEFTMethod):
         return adapter["u2"], adapter["v2"]
 
     def dense(self, x, W, adapter, cfg):
+        if cfg.mode != "activation":
+            Wt = self.merge(W, adapter, cfg,
+                            literal=(cfg.mode == "blockgemm"))
+            return x @ Wt.to(x.dtype)
         u1, v1 = adapter["u1"], adapter["v1"]
         u2, v2 = self._pair(adapter, cfg)
         if _needs_grad(*(t for t in (x, W, u1, v1, u2, v2)
@@ -216,10 +266,36 @@ class EtherPlusMethod(PEFTMethod):
                                  u2, v2, ids)
         return y
 
-    def merge(self, W, adapter, cfg):
+    def merge(self, W, adapter, cfg, *, literal=False):
+        from repro_torch.core import transforms as T
+        if literal:
+            Wt = T.block_diag_matmul(self._factor(adapter, "1"), W)
+            if cfg.two_sided:
+                Wt = T.block_diag_matmul(self._factor(adapter, "2"), Wt,
+                                         side="right")
+            return Wt
+        u1, v1 = adapter["u1"], adapter["v1"]
         u2, v2 = self._pair(adapter, cfg)
-        return execute.dispatch("etherplus_merge", cfg.backend, W,
-                                adapter["u1"], adapter["v1"], u2, v2)
+        if _needs_grad(*(t for t in (W, u1, v1, u2, v2) if t is not None)):
+            return execute.EtherPlusMerge.apply(W, u1, v1, u2, v2,
+                                                cfg.backend)
+        return execute.dispatch("etherplus_merge", cfg.backend, W, u1, v1,
+                                u2, v2)
+
+    @staticmethod
+    def _factor(adapter, side):
+        """The dense H⁺ blocks (n, db, db) of one side ("1": input, "2":
+        output): (I − ûûᵀ) + (I + v̂v̂ᵀ) − I."""
+        from repro_torch.core import transforms as T
+        return T._addmul((
+            T.householder_blocks(adapter["u" + side], coeff=1.0, sign=-1.0),
+            T.householder_blocks(adapter["v" + side], coeff=1.0, sign=1.0)))
+
+    def materialize(self, adapter, cfg, d_in, d_out):
+        from repro_torch.core import transforms as T
+        right = (T.materialize_block_diag(self._factor(adapter, "2"))
+                 if cfg.two_sided else None)
+        return (T.materialize_block_diag(self._factor(adapter, "1")), right)
 
     def param_count(self, d_in, d_out, cfg):
         return 2 * d_in + (2 * d_out if cfg.two_sided else 0)
@@ -242,16 +318,22 @@ class _BlockSquareMethod(PEFTMethod):
         raise NotImplementedError
 
     def dense(self, x, W, adapter, cfg):
-        from repro_torch.core.transforms import _blockify, _deblockify
-        # (Q_B W)ᵀx = Wᵀ Q_Bᵀ x: Qᵀ applied blockwise to the activations
+        from repro_torch.core import transforms as T
         Q = self._blocks(adapter)
-        xb = torch.einsum("...ni,nij->...nj", _blockify(x, Q.shape[0]),
+        if cfg.mode != "activation":
+            return x @ T.block_diag_matmul(Q, W).to(x.dtype)
+        # (Q_B W)ᵀx = Wᵀ Q_Bᵀ x: Qᵀ applied blockwise to the activations
+        xb = torch.einsum("...ni,nij->...nj", T._blockify(x, Q.shape[0]),
                           Q.to(x.dtype))
-        return _deblockify(xb) @ W.to(x.dtype)
+        return T._deblockify(xb) @ W.to(x.dtype)
 
-    def merge(self, W, adapter, cfg):
+    def merge(self, W, adapter, cfg, *, literal=False):
         from repro_torch.core.transforms import block_diag_matmul
         return block_diag_matmul(self._blocks(adapter), W)
+
+    def materialize(self, adapter, cfg, d_in, d_out):
+        from repro_torch.core.transforms import materialize_block_diag
+        return (materialize_block_diag(self._blocks(adapter)), None)
 
 
 @register_method
@@ -327,7 +409,7 @@ class LoRAMethod(PEFTMethod):
         return y + ((x @ a.to(x.dtype)) @ b.to(x.dtype)) * (
             cfg.alpha / a.shape[-1])
 
-    def merge(self, W, adapter, cfg):
+    def merge(self, W, adapter, cfg, *, literal=False):
         a, b = adapter["a"], adapter["b"]
         return W + (a @ b).to(W.dtype) * (cfg.alpha / a.shape[-1])
 
@@ -349,7 +431,7 @@ class FullFinetune(PEFTMethod):
     def dense(self, x, W, adapter, cfg):
         return x @ W.to(x.dtype)
 
-    def merge(self, W, adapter, cfg):
+    def merge(self, W, adapter, cfg, *, literal=False):
         return W
 
     def param_count(self, d_in, d_out, cfg):
@@ -399,6 +481,10 @@ class DeLoRAMethod(PEFTMethod):
         return (lam.float()[..., None] / r) / (na * nb + _EPS)
 
     def dense(self, x, W, adapter, cfg):
+        if cfg.mode != "activation":
+            # s rounded to W's dtype inside the merge, as the JAX package
+            # rounds it in these modes
+            return x @ self.merge(W, adapter, cfg).to(x.dtype)
         a, b = adapter["a"], adapter["b"]
         # s rounded to the activation dtype before the GEMM, as the JAX
         # package rounds it
@@ -416,9 +502,11 @@ class DeLoRAMethod(PEFTMethod):
         return execute.dispatch("delora_gemm_batched", cfg.backend, x, W, a,
                                 b, s, adapter["ids"])
 
-    def merge(self, W, adapter, cfg):
+    def merge(self, W, adapter, cfg, *, literal=False):
         a, b = adapter["a"], adapter["b"]
         s = self.scale(a, b, adapter["lam"]).to(W.dtype)
+        if _needs_grad(W, a, b, s):
+            return execute.DeloraMerge.apply(W, a, b, s, cfg.backend)
         return execute.dispatch("delora_merge", cfg.backend, W, a, b, s)
 
     def param_count(self, d_in, d_out, cfg):
@@ -443,6 +531,8 @@ class HyperAdaptMethod(PEFTMethod):
         return torch.ones_like(arr)
 
     def dense(self, x, W, adapter, cfg):
+        if cfg.mode != "activation":
+            return x @ self.merge(W, adapter, cfg).to(x.dtype)
         r, c = adapter["r"], adapter["c"]
         if _needs_grad(x, W, r, c):
             return execute.HyperAdaptGemm.apply(x, W, r, c, cfg.backend)
@@ -454,9 +544,14 @@ class HyperAdaptMethod(PEFTMethod):
         return execute.dispatch("hyperadapt_gemm_batched", cfg.backend, x, W,
                                 r, c, adapter["ids"])
 
-    def merge(self, W, adapter, cfg):
-        return execute.dispatch("hyperadapt_merge", cfg.backend, W,
-                                adapter["r"], adapter["c"])
+    def merge(self, W, adapter, cfg, *, literal=False):
+        r, c = adapter["r"], adapter["c"]
+        if _needs_grad(W, r, c):
+            return execute.HyperAdaptMerge.apply(W, r, c, cfg.backend)
+        return execute.dispatch("hyperadapt_merge", cfg.backend, W, r, c)
+
+    def materialize(self, adapter, cfg, d_in, d_out):
+        return (torch.diag(adapter["r"]), torch.diag(adapter["c"]))
 
     def param_count(self, d_in, d_out, cfg):
         return d_in + d_out

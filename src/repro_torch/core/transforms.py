@@ -11,10 +11,15 @@ Conventions, as in the JAX package:
   factored as the raw hyperplanes ``u: (n, db)``; the (d × d) transform
   is never built.
 
-Activation mode (the port's only mode so far) reflects the activations
-inside the GEMM (``householder_gemm``); merging absorbs the reflection
-into W (``ether_merge``).  ETHER+ (``method="etherplus"``) replaces the
-reflection by the rank-2 ``H⁺ = I − ûûᵀ + v̂v̂ᵀ`` per block, on the input
+Three modes (``PEFTConfig.mode``), as in the JAX package: ``activation``
+reflects the activations inside the GEMM (``householder_gemm``);
+``weight`` computes ``x @ merge(W, adapter)``, the merge kernels
+(``ether_merge``, …) forward and their backwards (``merge_left_bwd``,
+``merge_right_bwd``) in training; ``blockgemm`` materialises the n
+(db × db) blocks and runs n block GEMMs (paper §3.4) in plain PyTorch.
+Merging absorbs the reflection into W (``ether_merge``).  ETHER+
+(``method="etherplus"``) replaces the reflection by the rank-2
+``H⁺ = I − ûûᵀ + v̂v̂ᵀ`` per block, on the input
 and, two-sided, the output dim (``etherplus_gemm``, ``etherplus_merge``).
 DeLoRA and HyperAdapt run their own fused GEMM and merge kernels
 (``delora_gemm``, ``delora_merge``, ``hyperadapt_gemm``,
@@ -34,7 +39,6 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.core import execute
 from repro_torch.core import methods as _methods
 from repro_torch.kernels import ref
@@ -50,7 +54,7 @@ class PEFTConfig:
     n_blocks: int = 32             # ETHER/ETHER+/OFT/Naive diagonal blocks
     rank: int = 8                  # LoRA / DeLoRA rank
     alpha: float = 8.0             # LoRA scale numerator (alpha/rank), DeLoRA λ
-    mode: str = "activation"
+    mode: str = "activation"       # activation | weight | blockgemm
     # '+'- or '|'-separated regexes of the module paths to adapt
     targets: str = "q_proj+k_proj+v_proj+o_proj+gate_proj+up_proj+down_proj"
     adapter_dtype: str = "float32"
@@ -60,9 +64,10 @@ class PEFTConfig:
     backend: str = "auto"
 
     def __post_init__(self):
-        _methods.get(self.method)        # raises NotPortedError
-        if self.mode != "activation":
-            raise NotPortedError(f"PEFT mode {self.mode!r}")
+        # UnknownMethodError (a ValueError), or NotPortedError for VeRA
+        _methods.get(self.method)
+        if self.mode not in ("activation", "weight", "blockgemm"):
+            raise ValueError(f"unknown mode {self.mode!r}")
         if self.backend not in execute.BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"one of {execute.BACKENDS}")
@@ -120,14 +125,43 @@ def _deblockify(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
-def block_diag_matmul(blocks: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """diag(blocks) @ W as n block GEMMs in W's dtype; blocks (n, db, db),
-    W (n·db, f) (the JAX package's ``block_diag_matmul``, side 'left')."""
+def householder_blocks(u: torch.Tensor, *, coeff: float = 2.0,
+                       sign: float = -1.0) -> torch.Tensor:
+    """The n dense (db × db) blocks I + sign·coeff·ûûᵀ (paper-literal; the
+    defaults give the Householder reflections).  u: (n, db)."""
+    uh = _unit(u)
+    eye = torch.eye(u.shape[-1], dtype=uh.dtype, device=uh.device)
+    return eye[None] + (sign * coeff) * torch.einsum("ni,nj->nij", uh, uh)
+
+
+def block_diag_matmul(blocks: torch.Tensor, W: torch.Tensor,
+                      side: str = "left") -> torch.Tensor:
+    """n block GEMMs in W's dtype: diag(blocks) @ W (side 'left', W
+    (n·db, f)) or W @ diag(blocks) (side 'right', W (d, n·db)) — the
+    paper's §3.4 scheme.  blocks: (n, db, db)."""
     n, db, _ = blocks.shape
     d, f = W.shape
-    out = torch.einsum("nij,njf->nif", blocks.to(W.dtype),
-                       W.reshape(n, db, f))
+    if side == "left":
+        out = torch.einsum("nij,njf->nif", blocks.to(W.dtype),
+                           W.reshape(n, db, f))
+    else:
+        out = torch.einsum("dni,nij->dnj", W.reshape(d, n, db),
+                           blocks.to(W.dtype))
     return out.reshape(d, f)
+
+
+def materialize_block_diag(blocks: torch.Tensor) -> torch.Tensor:
+    """(n, db, db) -> the dense (n·db, n·db) block-diagonal matrix (tests
+    and metrics only)."""
+    return torch.block_diag(*blocks)
+
+
+def _addmul(pair) -> torch.Tensor:
+    """H⁺'s blocks from its two factored halves: (I − ûûᵀ) + (I + v̂v̂ᵀ)
+    − I."""
+    hu, hv = pair
+    eye = torch.eye(hu.shape[-1], dtype=hu.dtype, device=hu.device)
+    return hu + hv - eye[None]
 
 
 def delora_gemm(x: torch.Tensor, W: torch.Tensor, a: torch.Tensor,
@@ -193,12 +227,29 @@ def _check_bank_inputs(x: torch.Tensor, adapter: Params,
             f"got x {tuple(x.shape)} for ids {tuple(adapter['ids'].shape)}")
 
 
+def init_adapter(generator: torch.Generator, method: str, d_in: int,
+                 d_out: int, cfg: PEFTConfig, *, device=None) -> Params:
+    """The trainable adapter parameters of one (d_in × d_out) linear."""
+    return _methods.get(method).init(generator, d_in, d_out, cfg, (),
+                                     device)
+
+
 def merge_weight(W: torch.Tensor, adapter: Optional[Params],
-                 cfg: PEFTConfig) -> torch.Tensor:
-    """Absorb the adapter into W — zero-latency inference (paper §3.1)."""
+                 cfg: PEFTConfig, *, literal: bool = False) -> torch.Tensor:
+    """Absorb the adapter into W — zero-latency inference (paper §3.1);
+    ``literal`` builds the dense blocks (paper §3.4) where the method has
+    them."""
     if adapter is None or cfg.method == "full":
         return W
-    return _methods.get(cfg.method).merge(W, adapter, cfg)
+    return _methods.get(cfg.method).merge(W, adapter, cfg, literal=literal)
+
+
+def materialize_transform(adapter: Params, cfg: PEFTConfig, d_in: int,
+                          d_out: int):
+    """Dense (T_left (d_in, d_in) or None, T_right (d_out, d_out) or None)
+    for metrics — small dims only; (None, None) for the additive
+    methods."""
+    return _methods.get(cfg.method).materialize(adapter, cfg, d_in, d_out)
 
 
 def adapter_param_count(method: str, d_in: int, d_out: int,

@@ -28,7 +28,7 @@ SOURCES = ("householder_gemm", "ether_merge", "reflect_gemm_dx",
            "etherplus_reflect_bwd", "delora_gemm", "hyperadapt_gemm",
            "method_merge", "householder_gemm_batched",
            "etherplus_reflect_batched", "delora_gemm_batched",
-           "hyperadapt_gemm_batched")
+           "hyperadapt_gemm_batched", "merge_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

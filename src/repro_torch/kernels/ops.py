@@ -17,12 +17,14 @@ launches those two with ETHER+'s second hyperplanes and, two-sided,
 for dx and ``reflect_gemm_dw`` with a zero hyperplane only when asked for
 dW; ``hyperadapt_gemm_bwd`` launches ``hyperadapt_gemm`` twice, for z and
 y0, and ``reflect_gemm_dw`` likewise; ``hyperadapt_merge_bwd`` launches
-``hyperadapt_merge``; each bank wrapper launches its one kernel, which
-for ``householder_gemm_batched`` and ``delora_gemm_batched`` is a short
-pass and a GEMM), so a run can show that its path went through the
-kernels.  The rank-r and per-feature cotangents of DeLoRA and HyperAdapt
-are a few thin PyTorch ops beside the kernels, as the JAX package leaves
-them to XLA.
+``hyperadapt_merge`` only when asked for dW; ``etherplus_merge_bwd``
+launches ``merge_left_bwd`` (rank 2) after, two-sided,
+``etherplus_merge_left`` (w1) and ``merge_right_bwd``; each bank wrapper
+launches its one kernel, which for ``householder_gemm_batched`` and
+``delora_gemm_batched`` is a short pass and a GEMM), so a run can show
+that its path went through the kernels.  The rank-r and per-feature
+cotangents of DeLoRA and HyperAdapt are a few thin PyTorch ops beside the
+kernels, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.kernels import etherplus_merge as _epm
 from repro_torch.kernels import etherplus_reflect_bwd as _rb
 from repro_torch.kernels import householder_gemm as _hh
 from repro_torch.kernels import hyperadapt_gemm as _hg
+from repro_torch.kernels import merge_bwd as _mb
 from repro_torch.kernels import method_merge as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import reflect_gemm_dw as _dw
@@ -50,7 +53,8 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "etherplus_reflect_bwd": 0, "delora_gemm": 0,
              "hyperadapt_gemm": 0, "delora_merge": 0, "hyperadapt_merge": 0,
              "householder_gemm_batched": 0, "etherplus_reflect_batched": 0,
-             "delora_gemm_batched": 0, "hyperadapt_gemm_batched": 0}
+             "delora_gemm_batched": 0, "hyperadapt_gemm_batched": 0,
+             "merge_left_bwd": 0, "merge_right_bwd": 0}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -494,19 +498,103 @@ def hyperadapt_gemm_bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
 
 
 def hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
-                         g: torch.Tensor):
+                         g: torch.Tensor, *, need_dw: bool = True):
     """(dw, dr, dc) of :func:`hyperadapt_merge` under cotangent g (d, f):
-    dw is the merge kernel on g (the op is linear in w), dr and dc single
-    reductions of w⊙g, as the JAX package's ``ops.hyperadapt_merge_bwd``."""
+    dw is the merge kernel on g (the op is linear in w), launched only
+    when ``need_dw`` (else None); dr and dc single reductions of w⊙g, as
+    the JAX package's ``ops.hyperadapt_merge_bwd``."""
     side = _hyperadapt_side(w, w, r, c)
     side["g"] = (g, w.shape, w.dtype)
     _check("hyperadapt_merge_bwd", w, w, side)
     if w.device.type == "cpu":
-        return ref.ref_hyperadapt_merge_bwd(w, r, c, g)
-    err, dw = _mm.launch_hyperadapt(g, r, c)
-    _launched("hyperadapt_merge", err)
+        return ref.ref_hyperadapt_merge_bwd(w, r, c, g, need_dw=need_dw)
+    dw = None
+    if need_dw:
+        err, dw = _mm.launch_hyperadapt(g, r, c)
+        _launched("hyperadapt_merge", err)
     wg = w.float() * g.float()
     return dw, wg @ c, wg.T @ r
+
+
+# ---------------------------------------------------------------------------
+# The merges' backwards (weight-mode training)
+# ---------------------------------------------------------------------------
+
+def _planes_side(w: torch.Tensor, u: torch.Tensor, v: Optional[torch.Tensor],
+                 g: torch.Tensor, dim: int):
+    """:func:`_check`'s operands of a merge backward and its ``extra``:
+    u (and v, of u's shape) float32 (n, db) with n·db = ``dim``, g like
+    w."""
+    shape = tuple(u.shape) if u.dim() == 2 else (-1, -1)
+    side = {"u": (u, shape, _F32)}
+    if v is not None:
+        side["v"] = (v, shape, _F32)
+    side["g"] = (g, tuple(w.shape), w.dtype)
+    fits = u.dim() == 2 and u.shape[0] * u.shape[1] == dim and u.numel()
+    return side, None if fits else (
+        f"need u (n, db) with n·db = {dim}, the merged side of w")
+
+
+def merge_left_bwd(w: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                   v: Optional[torch.Tensor] = None, *, need_dw: bool):
+    """(dw, du[, dv]) of W' = H·W on w's input dim under cotangent g
+    (d, f): ETHER's reflection (rank 1: the registry's
+    ``ether_merge_bwd``), or ETHER+'s H⁺ with v (rank 2, dv too).  dw is
+    None unless ``need_dw``, and then is not written.  w, g: (d, f)
+    alike; u[/v]: (n, db) f32, n·db = d."""
+    side, extra = _planes_side(w, u, v, g, w.shape[0] if w.dim() else -1)
+    _check("merge_left_bwd", w, w, side, extra)
+    if w.device.type == "cpu":
+        return ref.ref_merge_left_bwd(w, u, g, v, need_dw=need_dw)
+    err, *grads = _mb.launch_left(w, u, g, v, need_dw)
+    _launched("merge_left_bwd", err)
+    return tuple(grads)
+
+
+def merge_right_bwd(w: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor):
+    """(dw, du, dv) of W' = W·H̃⁺ on w's output dim (ETHER+'s right
+    factor) under cotangent g (d, f).  w, g: (d, f) alike; u, v:
+    (n_out, db_out) f32, n_out·db_out = f."""
+    side, extra = _planes_side(w, u, v, g, w.shape[1] if w.dim() == 2
+                               else -1)
+    _check("merge_right_bwd", w, w, side, extra)
+    if w.device.type == "cpu":
+        # each row of w takes the rank-2 update: its plain backward
+        return ref.ref_etherplus_reflect_bwd(w, u, v, g)
+    err, dw, du, dv = _mb.launch_right(w, u, v, g)
+    _launched("merge_right_bwd", err)
+    return dw, du, dv
+
+
+def etherplus_merge_bwd(w: torch.Tensor, u1: torch.Tensor, v1: torch.Tensor,
+                        u2: Optional[torch.Tensor],
+                        v2: Optional[torch.Tensor], g: torch.Tensor, *,
+                        need_dw: bool):
+    """(dw, du1, dv1, du2, dv2) of :func:`etherplus_merge` under cotangent
+    g (d, f), composed as the JAX package's ``ops.etherplus_merge_bwd``:
+    one-sided, the rank-2 ``merge_left_bwd``; two-sided, w1 = H⁺·w again
+    (``etherplus_merge_left``, in w's dtype), ``merge_right_bwd`` on (w1,
+    g) for dw1, du2, dv2, then ``merge_left_bwd`` on (w, dw1).  du2/dv2
+    None one-sided; dw None unless ``need_dw``."""
+    if u2 is None:
+        dw, du1, dv1 = merge_left_bwd(w, u1, g, v1, need_dw=need_dw)
+        return dw, du1, dv1, None, None
+    d = w.shape[0] if w.dim() else -1
+    if not (_ok(w, d, w, u1) and _twin_ok(u1, v1)
+            and _side_ok(u2, v2, w.shape[1]) and u2.device == w.device
+            and _g_ok(w, w, g) and g.device == w.device
+            and g.is_contiguous()):
+        _refuse("etherplus_merge_bwd", w, d,
+                **_given(w=w, u=u1, v=v1, u2=u2, v2=v2, g=g))
+    if w.device.type == "cpu":
+        return ref.ref_etherplus_merge_bwd(w, u1, v1, u2, v2, g,
+                                           need_dw=need_dw)
+    err, w1 = _epm.launch_left(w, u1, v1)
+    _launched("etherplus_merge_left", err)
+    dw1, du2, dv2 = merge_right_bwd(w1, u2, v2, g)
+    dw, du1, dv1 = merge_left_bwd(w, u1, dw1, v1, need_dw=need_dw)
+    return dw, du1, dv1, du2, dv2
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,11 @@ the activation dtype (the weight's for the merge), so these never
 re-derive its norm chain.  Their backwards compose the steps of the JAX
 package's ``ops.delora_gemm_bwd`` / ``ops.hyperadapt_gemm_bwd`` with the
 same intermediate roundings.
+
+The merges' backwards (weight-mode training) use the kernels' explicit
+formulas, not autograd: the left merge's is the reflection backward of
+W's columns (``ref_merge_left_bwd``), the right merge's that of W's rows
+(``ref_etherplus_reflect_bwd``).
 """
 
 from __future__ import annotations
@@ -239,6 +244,60 @@ def ref_etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The merges' backwards (weight-mode training)
+# ---------------------------------------------------------------------------
+
+def ref_merge_left_bwd(w: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                       v: Optional[torch.Tensor] = None, *,
+                       need_dw: bool = True):
+    """(dw, du[, dv]) of W' = H·W (H⁺·W with v) on the input dim under
+    cotangent g, by the kernel's formula in float32 (``merge_left_bwd``):
+    per block i, dW_i = G_i + c û(ûᵀG_i) and ĝ = c [G_i(W_iᵀû) +
+    W_i(G_iᵀû)] over the directions (û, c = −2; with v, û with −1 and v̂
+    with +1), which is the reflection backward of the columns of W.  dw in
+    w's dtype (None unless ``need_dw``), du/dv through the norm chain in
+    u's/v's dtype.  w, g: (d, f); u, v: (n, db), n·db = d."""
+    n, db = u.shape
+    d, f = w.shape
+    dwt, ghats = _reflect_bwd_f32(w.float().T.reshape(f, n, db),
+                                  g.float().T.reshape(f, n, db), _dirs(u, v))
+    dw = dwt.reshape(f, d).T.contiguous().to(w.dtype) if need_dw else None
+    grads = [norm_chain(a.float(), gh).to(a.dtype)
+             for a, gh in zip((u, v), ghats)]
+    return (dw, *grads)
+
+
+def ref_ether_merge_bwd(w: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                        *, need_dw: bool = True):
+    """(dw, du) of :func:`ref_ether_merge` under cotangent g (d, f): the
+    rank-1 left merge backward; dw None unless ``need_dw``."""
+    return ref_merge_left_bwd(w, u, g, need_dw=need_dw)
+
+
+def ref_etherplus_merge_bwd(w: torch.Tensor, u1: torch.Tensor,
+                            v1: torch.Tensor, u2: Optional[torch.Tensor],
+                            v2: Optional[torch.Tensor], g: torch.Tensor, *,
+                            need_dw: bool = True):
+    """(dw, du1, dv1, du2, dv2) of :func:`ref_etherplus_merge` under
+    cotangent g (d, f), composed as the JAX package's
+    ``ops.etherplus_merge_bwd``: one-sided, the rank-2 left backward;
+    two-sided, w1 = H⁺·w rounded to w's dtype, the right backward on
+    (w1, g) gives dw1 in w's dtype (rounded, as the Pallas kernel writes
+    it), then the left backward on (w, dw1).  du2/dv2 are None
+    one-sided; dw None unless ``need_dw`` (the right pass always gives
+    dw1)."""
+    if u2 is None:
+        dw, du1, dv1 = ref_merge_left_bwd(w, u1, g, v1, need_dw=need_dw)
+        return dw, du1, dv1, None, None
+    w1 = ref_etherplus_merge_left(w, u1, v1)
+    # W·H̃⁺ updates each row of W: the right backward (the plain version
+    # of ``merge_right_bwd``) is the rank-2 reflection backward of W's rows
+    dw1, du2, dv2 = ref_etherplus_reflect_bwd(w1, u2, v2, g)
+    dw, du1, dv1 = ref_merge_left_bwd(w, u1, dw1, v1, need_dw=need_dw)
+    return dw, du1, dv1, du2, dv2
+
+
+# ---------------------------------------------------------------------------
 # DeLoRA and HyperAdapt
 # ---------------------------------------------------------------------------
 
@@ -324,23 +383,26 @@ def ref_hyperadapt_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
 
 
 def ref_delora_merge_bwd(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                         s: torch.Tensor, g: torch.Tensor):
+                         s: torch.Tensor, g: torch.Tensor, *,
+                         need_dw: bool = True):
     """(dw, da, db, ds) of :func:`ref_delora_merge` under cotangent g
-    (the JAX package's ``ops.delora_merge_bwd``): dw = g, the rest rank-r
-    contractions in float32."""
+    (the JAX package's ``ops.delora_merge_bwd``): dw = g (None unless
+    ``need_dw``), the rest rank-r contractions in float32."""
     gf, af, sf = g.float(), a.float(), s.float()
     gb = gf @ b.float().T
-    return (g.to(w.dtype), (gb * sf).to(a.dtype),
+    return (g.to(w.dtype) if need_dw else None, (gb * sf).to(a.dtype),
             ((af * sf).T @ gf).to(b.dtype), (af * gb).sum(dim=0).to(s.dtype))
 
 
 def ref_hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor,
-                             c: torch.Tensor, g: torch.Tensor):
+                             c: torch.Tensor, g: torch.Tensor, *,
+                             need_dw: bool = True):
     """(dw, dr, dc) of :func:`ref_hyperadapt_merge` under cotangent g (the
     JAX package's ``ops.hyperadapt_merge_bwd``): dw is the merge applied
-    to g; dr, dc single reductions of w⊙g in float32."""
+    to g (None unless ``need_dw``); dr, dc single reductions of w⊙g in
+    float32."""
     wg = w.float() * g.float()
-    return (ref_hyperadapt_merge(g, r, c).to(w.dtype),
+    return (ref_hyperadapt_merge(g, r, c).to(w.dtype) if need_dw else None,
             (wg @ c.float()).to(r.dtype), (wg.T @ r.float()).to(c.dtype))
 
 

@@ -112,10 +112,10 @@ def build(*, arch: str = "smollm-360m", variant: str = "smoke",
     ``tokens``, ``tenant_ids`` and ``merge_s``.  With ``merged`` the
     adapters are absorbed into ``params`` (``adapters`` and ``peft`` are
     then None) and ``merge_s`` is the seconds that took, else None.  With
-    ``tenants`` the adapters are an AdapterBank of that many tenants and
+    ``tenants`` > 0 the adapters are an AdapterBank of that many tenants and
     ``tenant_ids`` (B,) int32 on the device, validated, pick each row's
     tenant; else ``tenant_ids`` is None."""
-    if tenants and merged:
+    if tenants > 0 and merged:
         raise ValueError("a bank serves unmerged; merge one tenant with "
                          "merge_params(params, bank.select(t), peft)")
     dev = resolve_device(device)
@@ -125,7 +125,7 @@ def build(*, arch: str = "smollm-360m", variant: str = "smoke",
                       backend=backend)
     params = init_model(cfg, seed=seed, device=dev)
     tenant_ids = None
-    if tenants:
+    if tenants > 0:
         adapters = init_adapter_bank(seed + 1, params, peft, tenants)
         ids = torch.randint(0, tenants, (batch,),
                             generator=torch.Generator(device=dev)
@@ -259,7 +259,7 @@ def main(argv=None):
     if args.trace:
         raise SystemExit("--trace (the continuous-batching serve engine) is "
                          "not yet ported, see ROADMAP.md")
-    if args.tenants:
+    if args.tenants > 0:                # as the JAX CLI: ≤ 0 serves one
         return _main_tenants(args)
 
     execute.reset_counters()

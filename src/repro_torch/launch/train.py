@@ -15,8 +15,12 @@ the JAX CLI.  Weights are random, made from ``--seed``.  Runs on the card
 (``--device cuda``, the default) and raises when there is none;
 ``--device cpu`` runs the plain versions of the kernels on the CPU.
 ``--backend`` picks the kernel ops' implementation (torch, cuda, auto).
-Not ported yet (NotPortedError): ``--mesh``, ``--peft-mode weight`` and
-``blockgemm``, and ``--method vera``.
+``--peft-mode`` takes the JAX CLI's three modes: ``activation`` (the
+fused GEMM kernels), ``weight`` (``x @ merge(W)``: the merge kernels and,
+for ETHER and ETHER+, their backwards ``merge_left_bwd`` and
+``merge_right_bwd``) and ``blockgemm`` (the paper's dense block GEMMs,
+plain PyTorch).  Not ported yet (NotPortedError): ``--mesh`` and
+``--method vera``.
 """
 
 from __future__ import annotations

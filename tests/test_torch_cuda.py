@@ -10,6 +10,8 @@ the JAX package):
     PYTHONPATH=src python3 -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute
 from repro_torch.core.peft import (AdapterBank, init_adapter_bank,
                                    init_adapters, merge_params)
-from repro_torch.core.transforms import PEFTConfig, resolve_blocks
+from repro_torch.core.transforms import (PEFTConfig, adapted_dense,
+                                         resolve_blocks)
 from repro_torch.data.pipeline import SyntheticLMStream
 from repro_torch.kernels import etherplus_reflect_bwd, ops, ref
 from repro_torch.launch import serve, steps
@@ -733,3 +736,169 @@ def test_bank_smoke_serving_on_the_card_matches_the_cpu(cuda_device, method):
     assert launched == _launched(**{op: n})
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# Weight mode: the merge backwards
+# ---------------------------------------------------------------------------
+
+# (d, f, n): smollm-360m's linears at n = 32 (left db 30 and 80; right
+# db_out 30, 10 and 80), its down_proj at n = 8 (left db 320: the strips
+# in shared memory in bf16, re-read in f32), Llama-2-7B's down_proj at
+# n = 8 (left db 1,376: re-read in both) and its transpose (right db_out
+# 1,376), and a ragged shape (right db_out 10)
+MERGE_SHAPES = [(960, 960, 32), (960, 320, 32), (960, 2560, 32),
+                (2560, 960, 32), (2560, 960, 8), (11008, 256, 8),
+                (256, 11008, 8), (120, 70, 8)]
+
+
+def _merge_operands(device, d, f, n, dtype):
+    rng = np.random.default_rng(d * 7 + f + n)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    n_out = resolve_blocks(n, f)
+    w = (draw(d, f) / d ** .5).to(device, dtype)
+    g = draw(d, f).to(device, dtype)
+    u, v = draw(n, d // n).to(device), draw(n, d // n).to(device)
+    u2, v2 = (draw(n_out, f // n_out).to(device) for _ in range(2))
+    return w, g, u, v, u2, v2
+
+
+def _frob(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("need_dw", [False, True])
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f,n", MERGE_SHAPES)
+def test_merge_left_bwd_matches_its_plain_version(cuda_device, d, f, n, dtype,
+                                                  rank, need_dw):
+    w, g, u, v, _, _ = _merge_operands(cuda_device, d, f, n, dtype)
+    v = v if rank == 2 else None
+    ops.reset_launches()
+    got = ops.merge_left_bwd(w, u, g, v, need_dw=need_dw)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(merge_left_bwd=1)
+    want = ref.ref_merge_left_bwd(w, u, g, v, need_dw=need_dw)
+    assert len(got) == len(want) == rank + 1
+    if need_dw:
+        assert got[0].dtype == dtype
+        assert _max_err(got[0], want[0]) < TOL[dtype]
+    else:
+        assert got[0] is None
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and _frob(a, b) < DU_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f,n", MERGE_SHAPES)
+def test_merge_right_bwd_matches_its_plain_version(cuda_device, d, f, n,
+                                                   dtype):
+    w, g, _, _, u2, v2 = _merge_operands(cuda_device, d, f, n, dtype)
+    ops.reset_launches()
+    dw, du, dv = ops.merge_right_bwd(w, u2, v2, g)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(merge_right_bwd=1)
+    # the plain version: the rank-2 reflection backward of w's rows
+    pdw, pdu, pdv = ref.ref_etherplus_reflect_bwd(w, u2, v2, g)
+    assert dw.dtype == dtype and _max_err(dw, pdw) < TOL[dtype]
+    assert _frob(du, pdu) < DU_TOL and _frob(dv, pdv) < DU_TOL
+
+
+def test_merge_bwd_wrappers_refuse_on_the_card_without_fallback(cuda_device):
+    w, g, u, v, u2, v2 = _merge_operands(cuda_device, 120, 70, 8,
+                                         torch.float32)
+    for call in (lambda: ops.merge_left_bwd(w, u, g.cpu(), need_dw=True),
+                 lambda: ops.merge_left_bwd(w, u, g.to(torch.bfloat16),
+                                            need_dw=False),
+                 lambda: ops.merge_right_bwd(w, u2, v2.cpu(), g),
+                 lambda: ops.etherplus_merge_bwd(w, u, v, u2, v2.cpu(), g,
+                                                 need_dw=False)):
+        with pytest.raises(ops.KernelInputError):
+            call()
+
+
+@pytest.mark.parametrize("method", ["ether", "etherplus", "etherplus_1s"])
+def test_merge_functions_take_an_autograd_step_on_the_card(cuda_device,
+                                                           method):
+    """y = x @ merge(W) in weight mode at smollm-360m's k_proj (f 320,
+    db_out 10), bf16: the kernels' path (EtherMerge / EtherPlusMerge
+    through the merge kernels and their backwards) against the plain
+    path on the card; W frozen, so no dW."""
+    d, f, n = 960, 320, 32
+    w, _, u, v, u2, v2 = _merge_operands(cuda_device, d, f, n, torch.bfloat16)
+    x = torch.randn(64, d, generator=torch.Generator().manual_seed(1)).to(
+        cuda_device, torch.bfloat16)
+    name = "ether" if method == "ether" else "etherplus"
+    adapter = ({"u": u} if method == "ether" else
+               {"u1": u, "v1": v, "u2": u2, "v2": v2}
+               if method == "etherplus" else {"u1": u, "v1": v})
+    grads = {}
+    for backend in ("auto", "torch"):
+        peft = PEFTConfig(method=name, n_blocks=n, mode="weight",
+                          two_sided=method == "etherplus", backend=backend)
+        leaves = {k: t.clone().requires_grad_() for k, t in adapter.items()}
+        execute.reset_counters()
+        ops.reset_launches()
+        y = adapted_dense(x, w, None, leaves, peft)
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        grads[backend] = {k: t.grad for k, t in leaves.items()}
+        if backend == "auto":
+            op = "ether_merge" if method == "ether" else "etherplus_merge"
+            assert execute.counters() == {f"{op}.cuda": 1,
+                                          f"{op}_bwd.cuda": 1}
+            assert ops.launches() == (
+                _launched(ether_merge=1, merge_left_bwd=1)
+                if method == "ether" else
+                _launched(etherplus_merge_left=2, etherplus_merge_right=1,
+                          merge_right_bwd=1, merge_left_bwd=1)
+                if method == "etherplus" else
+                _launched(etherplus_merge_left=1, merge_left_bwd=1))
+    for k, gr in grads["auto"].items():
+        # the merged W' and so the cotangent G = xᵀ(dL/dy) pass through
+        # bf16 roundings that may flip between the two paths
+        assert torch.isfinite(gr).all() and _frob(
+            gr, grads["torch"][k]) < TOL[torch.bfloat16], k
+
+
+@pytest.mark.parametrize("method", ["ether", "etherplus", "delora",
+                                    "hyperadapt"])
+def test_weight_mode_smoke_train_step_on_the_card_matches_the_cpu(
+        cuda_device, method):
+    cfg = get_config("smollm-360m", "smoke")
+    peft = dataclasses.replace(_method_peft(method), mode="weight")
+    opt = adamw(schedules.cosine(2e-3, 4, 0))
+    state = steps.init_state(cfg, peft, opt, seed=0, device="cpu")
+    moved = (_perturbed(state["adapters"]) if method == "etherplus"
+             else _off_identity(state["adapters"], method))
+    state = steps.make_state(state["params"], moved, peft, opt)
+    batch = {k: torch.from_numpy(v).long() for k, v in SyntheticLMStream(
+        vocab=cfg.vocab, batch=2, seq_len=16).batch_at(0).items()}
+    step = steps.make_train_step(cfg, peft, opt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        moved = map_with_paths(lambda _, t: t.detach().to(dev)
+                               .requires_grad_(t.requires_grad), state)
+        ops.reset_launches()
+        execute.reset_counters()
+        out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
+    pp = 7 * cfg.n_layers                    # remat "none" at smoke size
+    op = f"{method}_merge"
+    assert execute.counters() == {f"{op}.cuda": pp, f"{op}_bwd.cuda": pp}
+    assert ops.launches() == {
+        "ether": _launched(ether_merge=pp, merge_left_bwd=pp),
+        "etherplus": _launched(etherplus_merge_left=2 * pp,
+                               etherplus_merge_right=pp,
+                               merge_right_bwd=pp, merge_left_bwd=pp),
+        "delora": _launched(delora_merge=pp),
+        "hyperadapt": _launched(hyperadapt_merge=pp)}[method]
+    (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(cm[k].item() - pm[k].item()) <= 1e-4 * abs(pm[k].item())
+    want = dict(flatten_with_paths(cpu["adapters"]))
+    for path, leaf in flatten_with_paths(card["adapters"]):
+        assert _max_err(leaf.detach(), want[path].detach()) < 1e-4, path

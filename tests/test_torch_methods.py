@@ -130,9 +130,12 @@ def _hyperadapt_inputs(seed, t, d, f):
 def test_available_is_the_jax_registry_but_vera():
     assert methods.available() == tuple(
         m for m in jmethods.available() if m != "vera")
-    for name in ("vera", "no_such_method"):
-        with pytest.raises(NotPortedError, match="ROADMAP.md"):
-            methods.get(name)
+    with pytest.raises(NotPortedError, match="ROADMAP.md"):
+        methods.get("vera")
+    # a name neither registry has raises the JAX package's ValueError
+    with pytest.raises(methods.UnknownMethodError,
+                       match="unknown PEFT method 'no_such_method'"):
+        methods.get("no_such_method")
     # bank serving is ported for the bank-servable methods; the others
     # raise the JAX package's error
     with pytest.raises(ValueError, match="is not bank-servable"):

@@ -515,11 +515,14 @@ def test_train_cli_raises_without_a_card_unless_cpu_is_asked(monkeypatch):
         train.main(["--steps", "1"])
 
 
+# the PEFT modes are ported (tests/test_torch_modes.py); with them the
+# CLI still refuses a mesh, an unported architecture and VeRA
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"],
-                                  ["--peft-mode", "weight"],
-                                  ["--peft-mode", "blockgemm"],
+                                  ["--mesh", "2,1", "--peft-mode", "weight"],
+                                  ["--arch", "mamba2-1.3b",
+                                   "--peft-mode", "blockgemm"],
                                   ["--method", "vera"],
-                                  ["--method", "hyperadapt",
+                                  ["--method", "vera",
                                    "--peft-mode", "weight"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotPortedError):

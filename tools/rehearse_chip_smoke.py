@@ -16,7 +16,9 @@ PART picks phases instead of the whole script: ``rows`` (phase 2's
 DeLoRA and HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
 ``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
 training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
-serving of ether, etherplus, delora or hyperadapt).
+serving of ether, etherplus, delora or hyperadapt), ``mergerows``
+(phase 2's merge backward rows), ``weight:<method>`` (phase 13's
+weight-mode training, then for ether and etherplus its blockgemm run).
 """
 
 import os
@@ -76,6 +78,7 @@ def fake_card():
 
     import repro_torch.configs as configs
     from repro_torch.kernels import etherplus_merge, etherplus_reflect_bwd
+    from repro_torch.kernels import merge_bwd
     from repro_torch.kernels import ref, reflect_gemm_dw, reflect_gemm_dx
     from repro_torch.launch import serve, steps
     from repro_torch.models import api
@@ -95,6 +98,10 @@ def fake_card():
         0, ref.ref_reflect_gemm_dw(x, u, g, x.dtype, v))
     etherplus_reflect_bwd.launch = lambda y, u, v, g: (
         0, *ref.ref_etherplus_reflect_bwd(y, u, v, g))
+    merge_bwd.launch_left = lambda w, u, g, v, need_dw: (
+        0, *ref.ref_merge_left_bwd(w, u, g, v, need_dw=need_dw))
+    merge_bwd.launch_right = lambda w, u, v, g: (
+        0, *ref.ref_etherplus_reflect_bwd(w, u, v, g))
 
 
 def small(cs, failed):
@@ -140,6 +147,15 @@ def main(parts):
             print(len(cs.bank_kernel_rows(torch, ops, ref)), "rows")
         elif name == "bank":
             cs.phase_serve_bank(torch, execute, ops, serve, api, method)
+        elif name == "mergerows":
+            from repro_torch.kernels import merge_bwd
+            print(len(cs.merge_bwd_rows(torch, ops, ref, merge_bwd)), "rows")
+        elif name == "weight":
+            r = cs.phase_train(torch, execute, ops, 13, method, "weight",
+                               *cs.WEIGHT_STEPS[method],
+                               cs.moved_off_init(torch, method))
+            if method in ("ether", "etherplus"):
+                cs.phase_blockgemm(torch, execute, ops, method, r)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
