@@ -91,6 +91,20 @@
    trace; each step printed beside the method's activation-mode step.
    Then ETHER and ETHER+ in blockgemm mode (dense blocks, plain PyTorch)
    for BLOCKGEMM_STEPS steps, their losses held to weight mode's.
+14. Train through a bank: phase 4's model, batch and optimizer with a
+   bank of BANK_TENANTS tenants of ETHER, two-sided ETHER+, DeLoRA (from
+   b ≠ 0) and HyperAdapt (each tenant off its identity, as in phase 12),
+   ids BANK_TRAIN_IDS, TRAIN_STEPS steps of ``train_loss(params,
+   bank.request(ids), ...)`` with AdamW on the bank's tree
+   (``launch/steps.make_bank_train_step``): counted (every adapted
+   linear's forward and remat recompute on its bank kernel, its backward
+   on ``householder_gemm_batched_bwd`` / ``etherplus_reflect_batched_bwd``
+   or on the bank forward kernels for DeLoRA and HyperAdapt; no plain
+   call, 0 ``householder_gemm_batched_dw``), kernels vs plain path to
+   TRAIN_TOL, the tenants no id names unmoved with exactly zero gradient
+   rows, a restore from the step-TRAIN_CKPT checkpoint of the bank's
+   state bitwise equal, the step's trace; each step printed beside the
+   method's single-tenant activation step.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -110,6 +124,12 @@ The two merge backward kernels (``merge_left_bwd`` at rank 1 and 2, with
 and without dW, and ``merge_right_bwd``) are held to TOL (du, dv to
 DU_TOL) on phase 2's linears, n ∈ {8, 32}, bf16 and f32, including the
 left kernel's branch for strips past shared memory (see merge_bwd_rows).
+The bank backward kernels (``householder_gemm_batched_bwd`` with its
+per-sequence ĝ, ``householder_gemm_batched_dw``,
+``etherplus_reflect_batched_bwd``) and DeLoRA's and HyperAdapt's bank
+backward compositions are held at smollm-360m's linears with a 64-tenant
+bank at BANK_BWD_ROWS (decode, the train step's 8 × 128, a ragged S =
+100), n ∈ {8, 32}, bf16 and f32 (see bank_bwd_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -202,6 +222,18 @@ BANK_IDS = [5, 17, 5, BANK_TENANTS - 1]
 # phase 2's bank rows: (B, S) of decode, prefill, a long prefill and a
 # ragged S
 BANK_ROWS = ((4, 1), (4, 32), (16, 128), (4, 33))
+# phase 2's bank backward rows: (B, S) of decode, the train step and a
+# ragged S (32-row tiles never straddle two sequences), at n ∈ BLOCKS
+BANK_BWD_ROWS = ((4, 1), (TRAIN_B, TRAIN_S), (4, 100))
+# phase 14, training through a bank: the ids of the B = 8 sequences (two
+# tenants twice, A − 1; 58 of the 64 tenants serve no sequence).  Phase
+# 4's steps, schedule and checkpoint: over 3 steps at full lr from the
+# first (no warmup) Adam's update is a sign pattern, and the elements of
+# the bank's gradient at bf16-rounding level took either sign on either
+# path: on the H100 the update parted by 1.157e-01 where the losses
+# agreed to 4.8e-5 and the grad norms to 3.0e-4 (PERF.md, run AB); over
+# phase 4's 8 steps every single-tenant run agreed to 3.4-3.6e-2
+BANK_TRAIN_IDS = [5, 17, 5, BANK_TENANTS - 1, 40, 2, 17, 29]
 # phase 13, weight mode: (steps, checkpoint step) per method, None for
 # TRAIN_STEPS and TRAIN_CKPT; DeLoRA and
 # HyperAdapt take fewer steps (their merges have no backward kernel of
@@ -929,6 +961,220 @@ def bank_kernel_rows(torch, ops, ref):
                         io + 4 * (d + f) * tenants,
                         2 * m * d * f + m * (d + f), dtype))))
             del ws, w
+    torch.cuda.synchronize()
+    return rows
+
+
+def bank_bwd_rows(torch, ops, ref, kb):
+    """Phase 2, training through a bank: householder_gemm_batched_bwd (dx,
+    ĝ_seq, du_bank), householder_gemm_batched_dw and
+    etherplus_reflect_batched_bwd (a linear's two sides: x over d with
+    u/v, y0 = x·W over f with u2/v2) through their wrappers against their
+    plain versions, on smollm-360m's four linear shapes with a
+    BANK_TENANTS-tenant bank, ids BANK_IDS (a repeat and A − 1) repeated
+    to B, at BANK_BWD_ROWS and n ∈ BLOCKS, bf16 and f32: dx and dW to TOL,
+    du, dv and ĝ to DU_TOL (relative Frobenius), the tenants no id names
+    exactly zero.  Each timed through its launcher (``kb``) beside its
+    plain version and torch.matmul of the GEMM inside (G·Wᵀ for the dx
+    kernel, xᵀ·G for dW; for the reflection pair, the G·Wᵀ between its two
+    calls in the backward).  Then DeLoRA's and HyperAdapt's bank backward
+    compositions (rank METHOD_RANK, no dW) against theirs, to
+    METHOD_TOL.  Operands from a generator of their own."""
+    from repro_torch.core.transforms import resolve_blocks
+    print("== phase 2: bank backward kernels against their plain versions "
+          f"(A={BANK_TENANTS}, ids {BANK_IDS})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    a_n = BANK_TENANTS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def err(got, want):
+        e = (got.float() - want.float()).abs().max().item()
+        return e, e / want.float().abs().max().item()
+
+    def add(row):
+        rows.append(row)
+        print("  {kernel:29s} {dtype:8s} B={b:2d} S={s:3d} d={d:4d} f={f:4d} "
+              "n={n!s:4s} err {rel_err:.2e} (tol {tol:g})  du {du_rel_frob:.2e}"
+              "  {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul {matmul_ms:.4f} "
+              "ms  bound {bound_ms:.4f} ms ({bound_by})".format(**row),
+              flush=True)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for d, f in LINEARS[ARCH]:
+            w = (randn(d, f) / d ** .5).to(dt)
+            rb, cb = 1 + 0.3 * randn(a_n, d), 1 + 0.3 * randn(a_n, f)
+            ab, bb = randn(a_n, d, METHOD_RANK), randn(a_n, METHOD_RANK, f)
+            sb = (randn(a_n, METHOD_RANK).abs() + 0.1).to(dt)
+            for b, s in BANK_BWD_ROWS:
+                ids = torch.tensor(BANK_IDS * (b // len(BANK_IDS))
+                                   + BANK_IDS[:b % len(BANK_IDS)],
+                                   dtype=torch.int32, device="cuda")
+                named = sorted(set(ids.tolist()))
+                m = b * s
+                x, g = randn(b, s, d).to(dt), randn(b, s, f).to(dt)
+                gx = randn(b, s, d).to(dt)      # the input side's cotangent
+                y0 = torch.matmul(x, w)
+                touched = torch.zeros(a_n, dtype=torch.bool)
+                touched[named] = True
+                common = dict(arch=ARCH, dtype=dtype, b=b, s=s, t=m, d=d,
+                              f=f, tenants=a_n, library_ms=None)
+                mm_dx = timed_ms(torch, [lambda: torch.matmul(g, w.T)])
+                mm_dw = timed_ms(torch, [lambda: torch.matmul(
+                    x.view(m, d).T, g.view(m, f))])
+                for n in BLOCKS:
+                    n_out = resolve_blocks(n, f)
+                    u, v = randn(a_n, n, d // n), randn(a_n, n, d // n)
+                    u2, v2 = (randn(a_n, n_out, f // n_out)
+                              for _ in range(2))
+                    ops.reset_launches()
+                    dx, dw, du = ops.householder_gemm_batched_bwd(
+                        x, w, u, ids, g, need_dw=True)
+                    rx, ru, rv = ops.etherplus_reflect_batched_bwd(
+                        x, u, v, ids, gx)
+                    ox, ou, ov = ops.etherplus_reflect_batched_bwd(
+                        y0, u2, v2, ids, g)
+                    torch.cuda.synchronize()
+                    want_l = dict.fromkeys(ops.launches(), 0)
+                    want_l.update(householder_gemm_batched_bwd=1,
+                                  householder_gemm_batched_dw=1,
+                                  etherplus_reflect_batched_bwd=2)
+                    check(ops.launches() == want_l, "bank backward wrappers "
+                          f"launched {ops.launches()}")
+                    _, gh, _ = launched(kb.householder_gemm_batched_bwd(
+                        x, w, u, ids, g))
+                    pdx, pgh = ref.ref_householder_gemm_batched_bwd(
+                        x, w, u, ids, g)
+                    pdw = ref.ref_householder_gemm_batched_dw(x, u, ids, g,
+                                                              dt)
+                    prx, pru, prv = ref.ref_etherplus_reflect_batched_grads(
+                        x, u, v, ids, gx)
+                    pox, pou, pov = ref.ref_etherplus_reflect_batched_grads(
+                        y0, u2, v2, ids, g)
+                    e_dx, e_dw = err(dx, pdx), err(dw, pdw)
+                    e_rb = max(err(rx, prx), err(ox, pox), key=lambda e: e[1])
+                    fr_hh = max(frob(du, ref.bank_grad(u, ids, pgh)),
+                                frob(gh, pgh))
+                    fr_rb = max(frob(p, q) for p, q in (
+                        (ru, pru), (rv, prv), (ou, pou), (ov, pov)))
+                    zero = all(torch.equal(
+                        gr.flatten(1).abs().amax(1).cpu() > 0, touched)
+                        for gr in (du, ru, rv, ou, ov))
+                    what = f"{dtype} B={b} S={s} d={d} f={f} n={n}"
+                    check(e_dx[1] <= TOL[dtype] and e_dw[1] <= TOL[dtype]
+                          and e_rb[1] <= TOL[dtype]
+                          and max(fr_hh, fr_rb) <= DU_TOL,
+                          f"bank backward kernels disagree with their plain "
+                          f"versions at {what}: dx {e_dx[1]:.3e}, dw "
+                          f"{e_dw[1]:.3e}, reflect dx {e_rb[1]:.3e} (tol "
+                          f"{TOL[dtype]:g}); du/ĝ {fr_hh:.3e}, du/dv "
+                          f"{fr_rb:.3e} (tol {DU_TOL:g})")
+                    check(zero, f"bank gradient rows at {what}: a named "
+                          f"tenant's row is zero or an untouched one is not")
+                    bank_rows = 4 * d * len(named)          # û rows read
+                    dx_b = bound((2 * m * d + d * f + m * f) * es + 4 * b
+                                 + bank_rows + 4 * a_n * d,
+                                 2 * m * d * f + 8 * m * d, dtype)
+                    dw_b = bound((m * d + m * f + d * f) * es + 4 * b
+                                 + bank_rows, 2 * m * d * f + 4 * m * d,
+                                 dtype)
+                    rb_b = bound(3 * m * (d + f) * es + 8 * b
+                                 + 8 * (d + f) * len(named)
+                                 + 8 * a_n * (d + f), 20 * m * (d + f),
+                                 dtype)
+                    add(dict(common, kernel="householder_gemm_batched_bwd",
+                             n=n, max_abs_err=max(
+                                 e_dx[0], (du - ref.bank_grad(u, ids, pgh))
+                                 .abs().max().item()),
+                             rel_err=e_dx[1], tol=TOL[dtype],
+                             du_rel_frob=fr_hh,
+                             ms=timed_ms(torch, [
+                                 lambda: kb.householder_gemm_batched_bwd(
+                                     x, w, u, ids, g)]),
+                             plain_ms=timed_ms(torch, [
+                                 lambda: ref.ref_householder_gemm_batched_grads(
+                                     x, w, u, ids, g, need_dw=False)]),
+                             matmul_ms=mm_dx, bound_ms=dx_b[0],
+                             bound_by=dx_b[1]))
+                    add(dict(common, kernel="householder_gemm_batched_dw",
+                             n=n, max_abs_err=e_dw[0], rel_err=e_dw[1],
+                             tol=TOL[dtype], du_rel_frob=0.0,
+                             ms=timed_ms(torch, [
+                                 lambda: kb.householder_gemm_batched_dw(
+                                     x, u, ids, g)]),
+                             plain_ms=timed_ms(torch, [
+                                 lambda: ref.ref_householder_gemm_batched_dw(
+                                     x, u, ids, g, dt)]),
+                             matmul_ms=mm_dw, bound_ms=dw_b[0],
+                             bound_by=dw_b[1]))
+                    add(dict(common, kernel="etherplus_reflect_batched_bwd",
+                             n=n, max_abs_err=e_rb[0], rel_err=e_rb[1],
+                             tol=TOL[dtype], du_rel_frob=fr_rb,
+                             ms=timed_ms(torch, [lambda: (
+                                 kb.etherplus_reflect_batched_bwd(
+                                     x, u, v, ids, gx),
+                                 kb.etherplus_reflect_batched_bwd(
+                                     y0, u2, v2, ids, g))]),
+                             plain_ms=timed_ms(torch, [lambda: (
+                                 ref.ref_etherplus_reflect_batched_grads(
+                                     x, u, v, ids, gx),
+                                 ref.ref_etherplus_reflect_batched_grads(
+                                     y0, u2, v2, ids, g))]),
+                             matmul_ms=mm_dx, bound_ms=rb_b[0],
+                             bound_by=rb_b[1]))
+                    del dx, dw, du, rx, ru, rv, ox, ou, ov
+                # DeLoRA's and HyperAdapt's compositions, no dW (PEFT)
+                for kernel, run, plain, n_launch, mm, bnd in (
+                        ("delora_gemm_batched_bwd",
+                         lambda: ops.delora_gemm_batched_bwd(
+                             x, w, ab, bb, sb, ids, g, need_dw=False),
+                         lambda: ref.ref_delora_gemm_batched_bwd(
+                             x, w, ab, bb, sb, ids, g, need_dw=False),
+                         {"delora_gemm_batched": 1}, mm_dx,
+                         bound((2 * m * d + d * f + m * f) * es
+                               + 8 * METHOD_RANK * (d + f) * len(named)
+                               + (8 * METHOD_RANK * (d + f)
+                                  + 2 * METHOD_RANK * es) * a_n,
+                               2 * m * d * f
+                               + 6 * m * METHOD_RANK * (d + f), dtype)),
+                        ("hyperadapt_gemm_batched_bwd",
+                         lambda: ops.hyperadapt_gemm_batched_bwd(
+                             x, w, rb, cb, ids, g, need_dw=False),
+                         lambda: ref.ref_hyperadapt_gemm_batched_bwd(
+                             x, w, rb, cb, ids, g, need_dw=False),
+                         {"hyperadapt_gemm_batched": 2},
+                         mm_dx + timed_ms(torch, [
+                             lambda: torch.matmul(x, w)]),
+                         bound((2 * m * d + d * f + m * f) * es
+                               + 4 * (d + f) * len(named)
+                               + 8 * (d + f) * a_n,
+                               4 * m * d * f + 4 * m * d + 3 * m * f,
+                               dtype))):
+                    ops.reset_launches()
+                    got = run()
+                    torch.cuda.synchronize()
+                    want_l = {**dict.fromkeys(ops.launches(), 0), **n_launch}
+                    check(ops.launches() == want_l,
+                          f"{kernel} launched {ops.launches()}")
+                    e = [err(p, q) for p, q in zip(got, plain())
+                         if q is not None]
+                    rel = max(x for _, x in e)
+                    check(rel <= METHOD_TOL[dtype], f"{kernel} disagrees "
+                          f"with its plain version at {dtype} B={b} S={s} "
+                          f"d={d} f={f}: {rel:.3e} > {METHOD_TOL[dtype]:g}")
+                    add(dict(common, kernel=kernel, n=None, r=METHOD_RANK,
+                             max_abs_err=max(x for x, _ in e), rel_err=rel,
+                             tol=METHOD_TOL[dtype], du_rel_frob=0.0,
+                             ms=timed_ms(torch, [run]),
+                             plain_ms=timed_ms(torch, [plain]),
+                             matmul_ms=mm, bound_ms=bnd[0],
+                             bound_by=bnd[1]))
+                del x, g, gx, y0
+            del w
     torch.cuda.synchronize()
     return rows
 
@@ -1974,6 +2220,234 @@ def phase_blockgemm(torch, execute, ops, method, weight):
                 peak_gb=peak_gb, counters=counters, launches=launches)
 
 
+def expected_bank_counts(method, n, launch_keys):
+    """Per run of n = 7·L·steps adapted-linear steps through a bank: each
+    linear's bank forward and its remat recompute (ETHER+: two reflection
+    calls each), one backward (no dW: PEFT freezes W)."""
+    op = BANK_OP[method]
+    calls = 2 if method == "etherplus" else 1
+    counters = {f"{op}.cuda": 2 * calls * n, f"{op}_bwd.cuda": calls * n}
+    # DeLoRA's dx is its bank forward on Wᵀ; HyperAdapt's z and y0 are its
+    # bank forward without the column scale
+    launches = {"ether": {op: 2 * n, f"{op}_bwd": n},
+                "etherplus": {op: 4 * n, f"{op}_bwd": 2 * n},
+                "delora": {op: 3 * n},
+                "hyperadapt": {op: 4 * n}}[method]
+    return counters, {**dict.fromkeys(launch_keys, 0), **launches}
+
+
+def phase_bank_train(torch, execute, ops, api, method, single, card):
+    """Phase 14: training through a bank.  Phase 4's model, batch (B =
+    TRAIN_B, S = TRAIN_S), n_blocks, rank and AdamW, with a bank of
+    BANK_TENANTS tenants of ``method`` (each from its own seed, off its
+    identity as in phase 12; DeLoRA from b ≠ 0) and ids BANK_TRAIN_IDS,
+    TRAIN_STEPS steps through ``steps.make_bank_train_step``, i.e.
+    ``train_loss(params, bank.request(ids), ...)``, its gradient over the
+    bank's tree and AdamW on it.  Counted (every count set to 0 just
+    before the kernels' run, read just after); the plain path on the card
+    held to TRAIN_TOL; the tenants no id names keep their rows bitwise and
+    get exactly zero gradient rows; a restore from the step-TRAIN_CKPT
+    checkpoint of the bank's state ends bitwise equal; then two steps
+    traced.  ``single`` is the method's single-tenant activation-mode
+    result (phases 4, 6, 8, 10), printed beside this one on ``card``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.peft import AdapterBank, init_adapters
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw, cosine
+
+    cfg = get_config(ARCH, "full")
+    n_steps, tokens = TRAIN_STEPS, TRAIN_B * TRAIN_S
+    print(f"== phase 14: train {ARCH} full width ({cfg.n_layers} layers, "
+          f"{cfg.param_dtype}, remat {cfg.remat!r}) through a bank of "
+          f"{BANK_TENANTS} {method} tenants (n_blocks={TRAIN_BLOCKS}, rank "
+          f"{METHOD_RANK}), B={TRAIN_B} S={TRAIN_S}, ids {BANK_TRAIN_IDS}, "
+          f"AdamW lr {TRAIN_LR:g} cosine warmup {TRAIN_WARMUP}, {n_steps} "
+          f"steps", flush=True)
+    peft = PEFTConfig(method=method, n_blocks=TRAIN_BLOCKS, rank=METHOD_RANK,
+                      alpha=float(METHOD_RANK), targets=peft_targets(ARCH))
+    params = api.init_model(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    trees = [off_init(torch, init_adapters(
+        torch.Generator(device="cuda").manual_seed(100 + t), params, peft),
+        BANK_MOVES[method], 1000 + t) for t in range(BANK_TENANTS)]
+    bank = AdapterBank.stack(trees, params, peft)
+    del trees
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.tensor(BANK_TRAIN_IDS, dtype=torch.int32, device="cuda")
+    named = sorted(set(BANK_TRAIN_IDS))
+    untouched = [t for t in range(BANK_TENANTS) if t not in named]
+    stream = SyntheticLMStream(vocab=cfg.vocab, batch=TRAIN_B,
+                               seq_len=TRAIN_S, seed=0)
+    batches = [{k: torch.from_numpy(v).long().cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(n_steps + 2)]
+    opt = adamw(cosine(TRAIN_LR, n_steps, TRAIN_WARMUP))
+
+    def snapshot(tree):
+        return {p: t.detach().clone() for p, t in flatten_with_paths(tree)}
+
+    def run(backend, state, first, last, mgr=None):
+        """Steps first..last−1 from ``state``: (state, losses, grad norms,
+        step ms), each step timed on the host to its metrics' read-back;
+        with ``mgr``, the bank's state saved after step TRAIN_CKPT."""
+        step = st.make_bank_train_step(
+            cfg, dataclasses.replace(peft, backend=backend), opt, bank)
+        losses, norms, ms = [], [], []
+        for i in range(first, last):
+            t = time.perf_counter()
+            state, m = step(state, batches[i], ids)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            ms.append((time.perf_counter() - t) * 1e3)
+            if mgr is not None and i + 1 == TRAIN_CKPT:
+                mgr.save(i + 1, {k: state[k] for k in
+                                 ("bank", "opt_state", "step")}, block=True)
+        return state, losses, norms, ms
+
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bank_")
+    try:
+        init = snapshot(bank.tree)
+        mgr = CheckpointManager(tmp)
+        # the main path, counted: every count set to 0 just before it
+        execute.reset_counters()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, norms, step_ms = run(
+            "auto", st.make_bank_state(params, bank, opt), 0, n_steps, mgr)
+        counters, launches = execute.counters(), ops.launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
+        final_step = state["step"].clone()
+        n = 7 * cfg.n_layers * n_steps
+        want = expected_bank_counts(method, n, ops.launches())
+        print(f"[kernels] dispatch counters: {counters}  kernel launches: "
+              f"{launches}")
+        check((counters, launches) == want,
+              f"bank train path ran {counters} / launched {launches}, want "
+              f"{want[0]} / {want[1]} (forward + remat recompute + backward "
+              f"of {7 * cfg.n_layers} linears a step through the bank "
+              f"kernels, no plain version, no dW)")
+        check(all(map(math.isfinite, losses + norms)),
+              f"bank train losses {losses} / grad norms {norms} not finite")
+        steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+        print(f"[kernels] losses {[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(x, 4) for x in norms]}; step ms "
+              f"{[round(x, 1) for x in step_ms]} (first includes warm-up); "
+              f"steady {steady_ms:.1f} ms = {tokens / steady_ms * 1e3:.0f} "
+              f"tokens/s; peak memory {peak_gb:.3f} GB; bank "
+              f"{bank.size_bytes() / 1e6:.1f} MB built in {build_s:.1f} s")
+
+        # the plain path on the card, outside the counted run
+        ref_state, ref_losses, ref_norms, ref_ms = run(
+            "torch", st.make_bank_state(params, bank, opt), 0, n_steps)
+        ref_final = snapshot(ref_state["bank"])
+        del ref_state
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           ref_losses))
+        gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms, ref_norms))
+        num = sum(((final["bank"][p] - init[p]) - (ref_final[p] - init[p]))
+                  .float().square().sum().item() for p in init)
+        den = sum((ref_final[p] - init[p]).float().square().sum().item()
+                  for p in init)
+        upd_rel = math.sqrt(num / den)
+        print(f"[plain] losses {[round(x, 4) for x in ref_losses]}; steady "
+              f"{sum(ref_ms[1:]) / max(len(ref_ms) - 1, 1):.1f} ms/step")
+        print(f"kernels vs plain path: loss rel. diff max {loss_rel:.3e} (tol "
+              f"{TRAIN_TOL['loss']:g}), grad_norm rel. diff max "
+              f"{gnorm_rel:.3e} (tol {TRAIN_TOL['grad_norm']:g}), bank "
+              f"update rel. Frobenius {upd_rel:.3e} (tol "
+              f"{TRAIN_TOL['update']:g})")
+        check(loss_rel <= TRAIN_TOL["loss"]
+              and gnorm_rel <= TRAIN_TOL["grad_norm"]
+              and upd_rel <= TRAIN_TOL["update"],
+              "the kernels' bank training path disagrees with the plain path")
+
+        # the tenants no id names: rows unmoved, and exactly zero gradient
+        # rows at the final bank (one more backward, outside the counted
+        # run)
+        from repro_torch.core.peft import _flatten_adapter_modules
+        nds = {f"{mod}/{k}": bank.stack_ndims[mod]
+               for mod, a in _flatten_adapter_modules(bank.tree) for k in a}
+        sel = torch.tensor(untouched, device="cuda")
+        moved = [p for p, t in final["bank"].items()
+                 if not torch.equal(t.index_select(nds[p], sel),
+                                    init[p].index_select(nds[p], sel))]
+        cur = AdapterBank(state["bank"], bank.tenants, bank.stack_ndims)
+        loss, _ = api.train_loss(state["params"], cur.request(ids),
+                                 batches[n_steps], cfg, peft)
+        leaves = flatten_with_paths(state["bank"])
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        nonzero = [p for (p, _), gr in zip(leaves, grads)
+                   if gr.index_select(nds[p], sel).abs().max().item() != 0]
+        named_zero = [p for (p, _), gr in zip(leaves, grads)
+                      if gr.abs().max().item() == 0]
+        del grads, loss
+        print(f"untouched tenants ({len(untouched)} of {BANK_TENANTS}): "
+              f"{len(moved)} leaves moved, {len(nonzero)} leaves with a "
+              f"nonzero gradient row; named tenants' gradients zero in "
+              f"{len(named_zero)} leaves")
+        check(not moved and not nonzero and not named_zero,
+              f"untouched tenants moved {moved[:3]} / nonzero gradient rows "
+              f"{nonzero[:3]}; all-zero gradients {named_zero[:3]}")
+
+        # restore from the step-TRAIN_CKPT checkpoint of the bank's state
+        # and run to the end again
+        restored, _ = mgr.restore(TRAIN_CKPT, template={
+            k: state[k] for k in ("bank", "opt_state", "step")})
+        mgr.close()
+        res, res_losses, _, _ = run("auto", dict(restored, params=params),
+                                    TRAIN_CKPT, n_steps)
+        mism = [f"{k}/{p}" for k in ("bank", "opt_state")
+                for p, t in flatten_with_paths(res[k])
+                if not torch.equal(t, final[k][p])]
+        check(not mism and torch.equal(res["step"], final_step)
+              and res_losses == losses[TRAIN_CKPT:],
+              f"the restored bank run differs from the uninterrupted one: "
+              f"{mism[:5]}")
+        print(f"restore from step {TRAIN_CKPT} -> {n_steps}: bank, "
+              f"optimizer state and step bitwise equal, losses equal")
+        del res
+
+        # the step under torch.profiler, outside the counted runs
+        box = {"state": state}
+
+        def two_steps():
+            box["state"] = run("auto", box["state"], n_steps, n_steps + 2)[0]
+            torch.cuda.synchronize()
+        trace = trace_steps(torch, two_steps, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print_trace(f"{method} bank train", trace, steady_ms)
+    print(f"[{method}] bank vs single-tenant activation step on {card}: "
+          f"{steady_ms:.1f} vs {single['steady_ms']:.1f} ms, "
+          f"{tokens / steady_ms * 1e3:.0f} vs {single['tokens_per_s']:.0f} "
+          f"tokens/s, device busy {trace['device_busy_ms']:.1f} vs "
+          f"{single['trace']['device_busy_ms']:.1f} ms a step, host ops "
+          f"{sum(trace['top_level_ops'].values()):.0f} vs "
+          f"{sum(single['trace']['top_level_ops'].values()):.0f} a step, "
+          f"peak {peak_gb:.3f} vs {single['peak_gb']:.3f} GB", flush=True)
+    return dict(steps=n_steps, ids=BANK_TRAIN_IDS, losses=losses,
+                plain_losses=ref_losses, grad_norms=norms,
+                plain_grad_norms=ref_norms, step_ms=step_ms,
+                steady_ms=steady_ms, plain_step_ms=ref_ms,
+                tokens_per_s=tokens / steady_ms * 1e3, peak_gb=peak_gb,
+                bank_bytes=bank.size_bytes(), build_s=build_s,
+                loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                update_rel=upd_rel, counters=counters, launches=launches,
+                trace=trace)
+
+
 def print_modes(weight, activation, card):
     """Phase 13's step beside the same method's activation-mode step
     (phases 4, 6, 8, 10), on ``card`` (nvidia-smi's name and power
@@ -2003,6 +2477,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.core import execute
+    from repro_torch.kernels import batched as kb
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import etherplus_merge as kepm
     from repro_torch.kernels import etherplus_reflect_bwd as krb
@@ -2031,6 +2506,8 @@ def main() -> int:
     rows += timed("2 bank rows", lambda: bank_kernel_rows(torch, ops, ref))
     rows += timed("2 merge backward rows",
                   lambda: merge_bwd_rows(torch, ops, ref, kmb))
+    rows += timed("2 bank backward rows",
+                  lambda: bank_bwd_rows(torch, ops, ref, kb))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -2053,8 +2530,11 @@ def main() -> int:
     blockgemm = {method: timed(f"13 {method} blockgemm", lambda: (
         phase_blockgemm(torch, execute, ops, method, trained_w[method])))
         for method in ("ether", "etherplus")}
-    print_modes(trained_w, {"ether": trained, "etherplus": ep_trained,
-                            **trained_m}, smi)
+    activation = {"ether": trained, "etherplus": ep_trained, **trained_m}
+    print_modes(trained_w, activation, smi)
+    trained_bank = {method: timed(f"14 {method}", lambda: phase_bank_train(
+        torch, execute, ops, api, method, activation[method], smi))
+        for method in BANK_OP}
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -2074,12 +2554,17 @@ def main() -> int:
         paths[f"{method} weight train"] = r["launches"]
     for method, r in blockgemm.items():
         paths[f"{method} blockgemm train"] = r["launches"]
+    for method, r in trained_bank.items():
+        paths[f"{method} bank train"] = r["launches"]
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
              "one smollm-360m train layer, T=1024, n=32")
     train_weights = (TRAIN_BLOCKS, None,
                      "one smollm-360m train layer's weights, n=32")
+    bank_train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
+                  f"one smollm-360m train layer through a bank, B=8 S=128, "
+                  f"n=32, A={BANK_TENANTS}")
     # name: (source, the TPU kernel's pallas_call, the layer summed in the
     # kernel table (n, T, what), the rows' other keys)
     table = {
@@ -2145,13 +2630,26 @@ def main() -> int:
                            train_weights, {"rank": 1, "need_dw": False}),
         "merge_right_bwd": ("merge_bwd",
                             "src/repro/kernels/merge_bwd.py:185",
-                            train_weights, {})}
+                            train_weights, {}),
+        "householder_gemm_batched_bwd": (
+            "householder_gemm_batched_bwd",
+            "src/repro/kernels/gemm_bwd.py:347", bank_train, {}),
+        "householder_gemm_batched_dw": (
+            "householder_gemm_batched_dw",
+            "src/repro/kernels/gemm_bwd.py:420", bank_train, {}),
+        "etherplus_reflect_batched_bwd": (
+            "etherplus_reflect_batched_bwd",
+            "src/repro/kernels/reflect_bwd_batched.py:147",
+            (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
+             f"one smollm-360m train layer through a bank (both sides of "
+             f"each linear), B=8 S=128, n=32, A={BANK_TENANTS}"), {})}
     kernels = []
     for name, (source, replaces, (n, t, what), match) in table.items():
         s = layer_summary(rows, name, n, t, **match)
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
         launches = sum(by_path.values())
-        check(launches > 0 or name == "reflect_gemm_dw",
+        check(launches > 0 or name in ("reflect_gemm_dw",
+                                       "householder_gemm_batched_dw"),
               f"no main path launched {name}")
         entry = {
             "name": name, "route": "cuda",
@@ -2171,20 +2669,22 @@ def main() -> int:
             entry["rank2"] = {k: r2[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             entry["rank2"]["matmul_ms"] = r2["matmul_ms"] or None
-        if name in ("delora_gemm", "hyperadapt_gemm"):
+        if name in ("delora_gemm", "hyperadapt_gemm", "delora_gemm_batched",
+                    "hyperadapt_gemm_batched"):
             # its backward composition, which runs this kernel on Wᵀ
             bw = layer_summary(rows, f"{name}_bwd", None, TRAIN_B * TRAIN_S,
                                **match)
             entry["bwd"] = {"shapes": "sum over the 7 linears of one "
-                                      "smollm-360m train layer, T=1024, "
-                                      "bf16, no dW",
+                                      "smollm-360m train layer, T=1024"
+                                      + (", B=8 S=128" if "batched" in name
+                                         else "") + ", bf16, no dW",
                             **{k: bw[k] for k in (
                                 "ms", "plain_ms", "bound_ms", "bound_by",
                                 "matmul_ms", "max_abs_err")}}
         kernels.append(entry)
-    check(len(kernels) == 18, f"the kernels line lists {len(kernels)}")
+    check(len(kernels) == 21, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-13 took {total_s:.1f} s (" + ", ".join(
+    print(f"chip_smoke: phases 1-14 took {total_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2199,6 +2699,7 @@ def main() -> int:
                    **{f"{m}_weight_train": r for m, r in trained_w.items()},
                    **{f"{m}_blockgemm_train": r
                       for m, r in blockgemm.items()},
+                   **{f"{m}_bank_train": r for m, r in trained_bank.items()},
                    "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -23,9 +23,12 @@ can show which implementation it went through.
 Training differentiates ``householder_gemm`` through
 :class:`HouseholderGemm`, ``etherplus_gemm`` through
 :class:`EtherPlusGemm`, ``delora_gemm`` through :class:`DeloraGemm` and
-``hyperadapt_gemm`` through :class:`HyperAdaptGemm`, and, in weight mode,
-the merges through :class:`EtherMerge`, :class:`EtherPlusMerge`,
-:class:`DeloraMerge` and :class:`HyperAdaptMerge`:
+``hyperadapt_gemm`` through :class:`HyperAdaptGemm`, in weight mode the
+merges through :class:`EtherMerge`, :class:`EtherPlusMerge`,
+:class:`DeloraMerge` and :class:`HyperAdaptMerge`, and through an adapter
+bank the bank forwards through :class:`HouseholderGemmBatched`,
+:class:`EtherPlusReflectBatched`, :class:`DeloraGemmBatched` and
+:class:`HyperAdaptGemmBatched`:
 ``torch.autograd.Function``s whose backward dispatches ``<op>_bwd`` on
 the backend its forward resolved (counted as ``<op>_bwd.<backend>``), as
 the JAX package's ``_registry_vjp`` dispatches ``<op>_bwd``.
@@ -76,8 +79,7 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("hyperadapt_merge", "cuda"): ops.hyperadapt_merge,
     ("hyperadapt_merge_bwd", "torch"): ref.ref_hyperadapt_merge_bwd,
     ("hyperadapt_merge_bwd", "cuda"): ops.hyperadapt_merge_bwd,
-    # multi-tenant bank serving (forward only, as in the JAX package's
-    # serving path)
+    # multi-tenant banks: serving, and training through a bank
     ("householder_gemm_batched", "torch"): ref.ref_householder_gemm_batched,
     ("householder_gemm_batched", "cuda"): ops.householder_gemm_batched,
     ("etherplus_reflect_batched", "torch"):
@@ -87,6 +89,18 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("delora_gemm_batched", "cuda"): ops.delora_gemm_batched,
     ("hyperadapt_gemm_batched", "torch"): ref.ref_hyperadapt_gemm_batched,
     ("hyperadapt_gemm_batched", "cuda"): ops.hyperadapt_gemm_batched,
+    ("householder_gemm_batched_bwd", "torch"):
+        ref.ref_householder_gemm_batched_grads,
+    ("householder_gemm_batched_bwd", "cuda"): ops.householder_gemm_batched_bwd,
+    ("etherplus_reflect_batched_bwd", "torch"):
+        ref.ref_etherplus_reflect_batched_grads,
+    ("etherplus_reflect_batched_bwd", "cuda"):
+        ops.etherplus_reflect_batched_bwd,
+    ("delora_gemm_batched_bwd", "torch"): ref.ref_delora_gemm_batched_bwd,
+    ("delora_gemm_batched_bwd", "cuda"): ops.delora_gemm_batched_bwd,
+    ("hyperadapt_gemm_batched_bwd", "torch"):
+        ref.ref_hyperadapt_gemm_batched_bwd,
+    ("hyperadapt_gemm_batched_bwd", "cuda"): ops.hyperadapt_gemm_batched_bwd,
 }
 _COUNTERS: dict[str, int] = {}
 
@@ -290,6 +304,93 @@ class HyperAdaptMerge(torch.autograd.Function):
                          *ctx.saved_tensors, g.contiguous(),
                          need_dw=ctx.needs_input_grad[0])
         return (*grads, None)
+
+
+class HouseholderGemmBatched(torch.autograd.Function):
+    """y[b] = R_{ids[b]}(x[b]) @ w through an adapter bank with the
+    registry's backward, as ``HouseholderGemmBatched.apply(x, w, u_bank,
+    ids, backend)``.  ids take no gradient; du_bank sums each sequence's
+    gradient into its tenant's row; dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, u_bank, ids, backend):
+        be = selected_backend("householder_gemm_batched", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, u_bank, ids)
+        return dispatch("householder_gemm_batched", be, x, w, u_bank, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, u_bank, ids = ctx.saved_tensors
+        dx, dw, du = dispatch("householder_gemm_batched_bwd", ctx.backend, x,
+                              w, u_bank, ids, g.contiguous(),
+                              need_dw=ctx.needs_input_grad[1])
+        return dx, dw, du, None, None
+
+
+class EtherPlusReflectBatched(torch.autograd.Function):
+    """H⁺_{ids[b]} x[b] through an ETHER+ bank with the registry's
+    backward, as ``EtherPlusReflectBatched.apply(x, u_bank, v_bank, ids,
+    backend)``; ETHER+'s bank forward runs it on each side of the shared
+    product, which stays under plain autograd."""
+
+    @staticmethod
+    def forward(ctx, x, u_bank, v_bank, ids, backend):
+        be = selected_backend("etherplus_reflect_batched", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, u_bank, v_bank, ids)
+        return dispatch("etherplus_reflect_batched", be, x, u_bank, v_bank,
+                        ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("etherplus_reflect_batched_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous())
+        return (*grads, None, None)
+
+
+class DeloraGemmBatched(torch.autograd.Function):
+    """The bank DeLoRA GEMM with the registry's backward, as
+    ``DeloraGemmBatched.apply(x, w, a_bank, b_bank, s_bank, ids,
+    backend)``.  s_bank is a primal (every tenant's scale, its ε-norm
+    chain left to plain autograd outside); dW only when w needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, a_bank, b_bank, s_bank, ids, backend):
+        be = selected_backend("delora_gemm_batched", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, a_bank, b_bank, s_bank, ids)
+        return dispatch("delora_gemm_batched", be, x, w, a_bank, b_bank,
+                        s_bank, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("delora_gemm_batched_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous(),
+                         need_dw=ctx.needs_input_grad[1])
+        return (*grads, None, None)
+
+
+class HyperAdaptGemmBatched(torch.autograd.Function):
+    """The bank HyperAdapt GEMM with the registry's backward, as
+    ``HyperAdaptGemmBatched.apply(x, w, r_bank, c_bank, ids, backend)``;
+    dW only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, r_bank, c_bank, ids, backend):
+        be = selected_backend("hyperadapt_gemm_batched", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, w, r_bank, c_bank, ids)
+        return dispatch("hyperadapt_gemm_batched", be, x, w, r_bank, c_bank,
+                        ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dispatch("hyperadapt_gemm_batched_bwd", ctx.backend,
+                         *ctx.saved_tensors, g.contiguous(),
+                         need_dw=ctx.needs_input_grad[1])
+        return (*grads, None, None)
 
 
 def counters() -> dict[str, int]:

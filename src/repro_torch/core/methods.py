@@ -14,10 +14,11 @@ differentiated through their autograd Functions), ``blockgemm`` the
 paper-literal block GEMMs in plain PyTorch; ``merge(..., literal=True)``
 and ``materialize`` build the dense blocks.  The methods flagged
 ``bank_servable`` (ETHER, ETHER+, DeLoRA, HyperAdapt, as in the JAX
-registry) serve an
-:class:`~repro_torch.core.peft.AdapterBank` through their batched
-kernels; ``bank_dense`` of any other method raises the JAX package's
-ValueError.  The kernel ops (ETHER, ETHER+, DeLoRA, HyperAdapt) dispatch
+registry) serve and train through an
+:class:`~repro_torch.core.peft.AdapterBank` on their batched kernels
+(differentiated through the bank autograd Functions of
+:mod:`~repro_torch.core.execute`); ``bank_dense`` of any other method
+raises the JAX package's ValueError.  The kernel ops (ETHER, ETHER+, DeLoRA, HyperAdapt) dispatch
 through :mod:`repro_torch.core.execute`; OFT, Naive, LoRA and ``full``
 are plain PyTorch, as the JAX package runs them in jnp.
 """
@@ -103,13 +104,6 @@ def _needs_grad(*leaves) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
 
 
-def _serving_only(*leaves) -> None:
-    """Bank forwards have no backward in the port yet (the batched
-    backward kernels, ROADMAP Queue 2 items 14-15)."""
-    if _needs_grad(*leaves):
-        raise NotPortedError("training through an adapter bank")
-
-
 class PEFTMethod:
     """One PEFT method; ``cfg`` is a ``transforms.PEFTConfig``.
     ``dense`` takes x with any leading dims and does not add the bias."""
@@ -177,9 +171,12 @@ class EtherMethod(PEFTMethod):
     def bank_dense(self, x, W, adapter, cfg):
         # u is the (A, n, db) bank; each sequence reflects with its own
         # tenant's hyperplanes inside the GEMM (DESIGN.md §2)
-        _serving_only(x, W, adapter["u"])
+        u, ids = adapter["u"], adapter["ids"]
+        if _needs_grad(x, W, u):
+            return execute.HouseholderGemmBatched.apply(x, W, u, ids,
+                                                        cfg.backend)
         return execute.dispatch("householder_gemm_batched", cfg.backend, x,
-                                W, adapter["u"], adapter["ids"])
+                                W, u, ids)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         from repro_torch.core import transforms as T
@@ -256,15 +253,17 @@ class EtherPlusMethod(PEFTMethod):
         # two-sided, the output side's (u2/v2 banks over f)
         u2, v2 = self._pair(adapter, cfg)
         ids = adapter["ids"]
-        _serving_only(x, W, adapter["u1"], adapter["v1"],
-                      *(t for t in (u2, v2) if t is not None))
-        xr = execute.dispatch("etherplus_reflect_batched", cfg.backend, x,
-                              adapter["u1"], adapter["v1"], ids)
-        y = xr @ W.to(x.dtype)
-        if u2 is not None:
-            y = execute.dispatch("etherplus_reflect_batched", cfg.backend, y,
-                                 u2, v2, ids)
-        return y
+        grad = _needs_grad(x, W, adapter["u1"], adapter["v1"],
+                           *(t for t in (u2, v2) if t is not None))
+
+        def reflect(t, u, v):
+            if grad:
+                return execute.EtherPlusReflectBatched.apply(t, u, v, ids,
+                                                             cfg.backend)
+            return execute.dispatch("etherplus_reflect_batched", cfg.backend,
+                                    t, u, v, ids)
+        y = reflect(x, adapter["u1"], adapter["v1"]) @ W.to(x.dtype)
+        return y if u2 is None else reflect(y, u2, v2)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         from repro_torch.core import transforms as T
@@ -496,11 +495,13 @@ class DeLoRAMethod(PEFTMethod):
     def bank_dense(self, x, W, adapter, cfg):
         # s for every tenant of the bank, (A, r), each forward, as the JAX
         # package computes it (src/repro/core/methods.py:527-531)
-        a, b = adapter["a"], adapter["b"]
-        _serving_only(x, W, a, b, adapter["lam"])
+        a, b, ids = adapter["a"], adapter["b"], adapter["ids"]
         s = self.scale(a, b, adapter["lam"]).to(x.dtype)
+        if _needs_grad(x, W, a, b, s):
+            return execute.DeloraGemmBatched.apply(x, W, a, b, s, ids,
+                                                   cfg.backend)
         return execute.dispatch("delora_gemm_batched", cfg.backend, x, W, a,
-                                b, s, adapter["ids"])
+                                b, s, ids)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         a, b = adapter["a"], adapter["b"]
@@ -539,10 +540,12 @@ class HyperAdaptMethod(PEFTMethod):
         return execute.dispatch("hyperadapt_gemm", cfg.backend, x, W, r, c)
 
     def bank_dense(self, x, W, adapter, cfg):
-        r, c = adapter["r"], adapter["c"]
-        _serving_only(x, W, r, c)
+        r, c, ids = adapter["r"], adapter["c"], adapter["ids"]
+        if _needs_grad(x, W, r, c):
+            return execute.HyperAdaptGemmBatched.apply(x, W, r, c, ids,
+                                                       cfg.backend)
         return execute.dispatch("hyperadapt_gemm_batched", cfg.backend, x, W,
-                                r, c, adapter["ids"])
+                                r, c, ids)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         r, c = adapter["r"], adapter["c"]

@@ -37,6 +37,10 @@
 //    does.
 //  * The (M, r) h reaches device memory (KBs at decode), the one byte
 //    stream the Pallas kernel keeps on chip; a x·a pass reads x once more.
+//  * Training through a bank (src/repro/kernels/ops.py:515) runs it once
+//    more per linear for dx = G·Wᵀ + ((G·b_tᵀ)·s_t)·a_tᵀ: W read
+//    transposed in place (w_t), the banks' transposes (small copies) in
+//    place of a and b.
 //  * No tensor cores, as every GEMM of the port so far.
 //
 // C interface, bound with ctypes: delora_gemm_batched(...) launches both
@@ -74,7 +78,7 @@ __global__ void h_kernel(const T* __restrict__ x, const float* __restrict__ a,
 template <typename T>
 int run(const void* x, const void* w, const void* a, const void* b,
         const void* sv, const Tenants& tn, void* h, void* y, int M, int K,
-        int N, int r, cudaStream_t s) {
+        int N, int r, int w_t, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   constexpr int kThreads = 256;
   const long long pairs = static_cast<long long>(M) * r;
@@ -90,31 +94,39 @@ int run(const void* x, const void* w, const void* a, const void* b,
   sd.h = static_cast<const float*>(h);
   sd.r = r;
   const Proj none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1};
-  // y (M×N) = x (M×K) · W (K×N) + ((h·s_t)·b_t) per row
+  // y (M×N) = x (M×K) · W (K×N) + ((h·s_t)·b_t) per row; B(k, n) =
+  // w[k*N + n], or transposed from the (N, K) weight, w[n*K + k]
+  const T* wt = static_cast<const T*>(w);
+  if (w_t)
+    return static_cast<int>(
+        launch_gemm<T, T, T, true, false, kReflectNone, kFuseRowLowRank,
+                    true>(xt, K, wt, K, static_cast<T*>(y), M, N, K, none, s,
+                          sd, tn));
   return static_cast<int>(
       launch_gemm<T, T, T, true, true, kReflectNone, kFuseRowLowRank, true>(
-          xt, K, static_cast<const T*>(w), N, static_cast<T*>(y), M, N, K,
-          none, s, sd, tn));
+          xt, K, wt, N, static_cast<T*>(y), M, N, K, none, s, sd, tn));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, W, s and y alike).  ids: B = M /
 // seq ids, int64 when ids64, else int32; tenants = A.  h is (M, r) f32
-// scratch, written before it is read.
+// scratch, written before it is read.  w_t = 1 reads W as the transpose of
+// a row-major (N, K) matrix.
 extern "C" int delora_gemm_batched(const void* x, const void* w,
                                    const void* a, const void* b,
                                    const void* sv, const void* ids, int ids64,
                                    int seq, int tenants, void* h, void* y,
-                                   int M, int K, int N, int r, int dtype,
-                                   void* stream) {
+                                   int M, int K, int N, int r, int w_t,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq < 1 || tenants < 1 || M % seq || r < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tenants tn{ids, ids64, seq, tenants};
   if (dtype == 0)
-    return run<float>(x, w, a, b, sv, tn, h, y, M, K, N, r, s);
+    return run<float>(x, w, a, b, sv, tn, h, y, M, K, N, r, w_t, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(x, w, a, b, sv, tn, h, y, M, K, N, r, s);
+    return run<__nv_bfloat16>(x, w, a, b, sv, tn, h, y, M, K, N, r, w_t,
+                              s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

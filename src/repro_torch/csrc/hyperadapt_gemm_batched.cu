@@ -26,6 +26,10 @@
 //    So a tile spans rows of several tenants and W is read once for the
 //    whole batch, where the Pallas grid (B, S/Ts, F/Tf, K/Tk) reads it
 //    once per sequence.
+//  * Training through a bank (src/repro/kernels/ops.py:609) runs it twice
+//    more per linear for z = (G·c_t)·Wᵀ (row scale c, W read transposed
+//    in place: w_t) and y0 = (x·r_t)·W, each without its column scale
+//    (c null), as the single-tenant hyperadapt_gemm serves its backward.
 //  * No tensor cores, as every GEMM of the port so far.
 //
 // C interface, bound with ctypes: hyperadapt_gemm_batched(...) launches
@@ -40,31 +44,42 @@ using namespace reflect;
 
 template <typename T>
 int run(const void* x, const void* w, const void* r, const void* c,
-        const Tenants& tn, void* y, int M, int K, int N, cudaStream_t s) {
+        const Tenants& tn, void* y, int M, int K, int N, int w_t,
+        cudaStream_t s) {
   Side sd;
   sd.rs = static_cast<const float*>(r);
   sd.cs = static_cast<const float*>(c);
   const Proj none{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1};
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  // B(k, n) = w[k*N + n], or transposed from the (N, K) weight, w[n*K + k]
+  if (w_t)
+    return static_cast<int>(
+        launch_gemm<T, T, T, true, false, kReflectNone, kFuseScale, true>(
+            xt, K, wt, K, static_cast<T*>(y), M, N, K, none, s, sd, tn));
   return static_cast<int>(
       launch_gemm<T, T, T, true, true, kReflectNone, kFuseScale, true>(
-          static_cast<const T*>(x), K, static_cast<const T*>(w), N,
-          static_cast<T*>(y), M, N, K, none, s, sd, tn));
+          xt, K, wt, N, static_cast<T*>(y), M, N, K, none, s, sd, tn));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, W and y alike).  ids: B = M / seq
-// ids, int64 when ids64, else int32; tenants = A.
+// ids, int64 when ids64, else int32; tenants = A.  w_t = 1 reads W as the
+// transpose of a row-major (N, K) matrix.  c may be null (no column
+// scale).
 extern "C" int hyperadapt_gemm_batched(const void* x, const void* w,
                                        const void* r, const void* c,
                                        const void* ids, int ids64, int seq,
                                        int tenants, void* y, int M, int K,
-                                       int N, int dtype, void* stream) {
+                                       int N, int w_t, int dtype,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq < 1 || tenants < 1 || M % seq || !r || !c)
+  if (seq < 1 || tenants < 1 || M % seq || !r)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tenants tn{ids, ids64, seq, tenants};
-  if (dtype == 0) return run<float>(x, w, r, c, tn, y, M, K, N, s);
-  if (dtype == 1) return run<__nv_bfloat16>(x, w, r, c, tn, y, M, K, N, s);
+  if (dtype == 0) return run<float>(x, w, r, c, tn, y, M, K, N, w_t, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(x, w, r, c, tn, y, M, K, N, w_t, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -276,21 +276,10 @@ cudaError_t right(const void* w, const void* g, const void* u, const void* v,
   const float* vf = static_cast<const float*>(v);
   // reflect_bwd_kernel's own launch (launch_reflect_bwd's, without its
   // one-warp-per-block du_kernel: chain_kernel sums the partials)
-  const int warps = db <= 3072 ? 4 : 1;
-  const size_t shared = static_cast<size_t>(warps) * db * sizeof(float) * 2;
-  if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        reflect_bwd_kernel<T, T, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
-    if (err != cudaSuccess) return err;
-  }
-  const long long units = static_cast<long long>(tiles) * n;
-  reflect_bwd_kernel<T, T, true>
-      <<<static_cast<unsigned>((units + warps - 1) / warps), warps * 32,
-         shared, s>>>(static_cast<const T*>(w), static_cast<const T*>(g), uf,
-                      vf, static_cast<T*>(dw), part_u, part_v, d, f, n, db,
-                      tiles);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_reflect_bwd_tiles<T, T, true>(
+      static_cast<const T*>(w), static_cast<const T*>(g), uf, vf,
+      static_cast<T*>(dw), part_u, part_v, d, f, n, db, tiles, tiles,
+      Tenants{}, s);
   if (err != cudaSuccess) return err;
   chain_kernel<<<dim3(n, 2), kChainThreads, 0, s>>>(
       part_u, part_v, uf, vf, static_cast<float*>(du),

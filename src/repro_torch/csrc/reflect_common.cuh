@@ -230,7 +230,9 @@ constexpr int kMaxRank = 512;
 // (every dimension is an int); only addresses are 64-bit.  BANK (bank
 // serving, rows of several tenants in one tile) reads û and its per-row
 // norm (kReflectK), rs and cs (kFuseScale) or ls and lb (kFuseRowLowRank)
-// at each row's tenant (`tn`), so W is read once for all tenants.  The
+// at each row's tenant (`tn`), so W is read once for all tenants; under
+// kReflectM (the bank's dW, where the token rows of x are the columns k
+// of Aᵀ) it reads û at token k's tenant, the bank's rows M = d wide.  The
 // launch bounds ask for one resident block
 // a SM: with the thread count alone, ptxas squeezed the dXr instantiation
 // to 32 registers with spills, 1.2-1.3x slower at the train step's
@@ -246,8 +248,10 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
                 "a fused update replaces the reflection");
   static_assert(!BANK || (A_K_CONTIG && (REFLECT == kReflectK ||
                                          (REFLECT == kReflectNone &&
-                                          FUSE != kFuseLowRank))),
-                "a bank reads rows of x: the forward along k only");
+                                          FUSE != kFuseLowRank))) ||
+                    (!A_K_CONTIG && REFLECT == kReflectM),
+                "a bank reads rows of x: the forward along k, or dW's "
+                "columns of Aᵀ = x along m");
   static_assert(BANK || FUSE != kFuseRowLowRank,
                 "kFuseRowLowRank reads its operands at the rows' tenants");
   constexpr bool kAlongK = REFLECT == kReflectK || REFLECT == kRank2K;
@@ -290,7 +294,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
           // no __restrict__
           float uh;
           if constexpr (BANK)  // the row's tenant's û, the row's own norm
-            uh = __ldg(pr.u + static_cast<long long>(row_tenant(tn, t)) * K +
+            uh = __ldg(pr.u +
+                       static_cast<long long>(row_tenant(tn, t)) *
+                           (kAlongK ? K : M) +
                        j) /
                  __ldg(pr.unorm + tb);
           else
@@ -563,6 +569,17 @@ cudaError_t launch_rank2_rows(const TI* y, const float* u, const float* v,
 // kRowsPerTile rows writes its own partial (⌈M/kRowsPerTile⌉, n, db) and
 // du_kernel sums the partials in a fixed order.  No float atomics: the
 // same inputs give the same bits every run.
+//
+// A multi-tenant bank (BANK; src/repro/kernels/reflect_bwd_batched.py)
+// reflects sequence b of B = M / S with tenant ids[b]'s hyperplanes.  Its
+// row tiles never straddle two sequences: each sequence has
+// ⌈S/kRowsPerTile⌉ tiles of its own (the last one ragged), so a partial
+// belongs to one sequence and one tenant.  seq_ghat_kernel sums each
+// sequence's partials into its ĝ_seq (B, n, db), the Pallas kernels'
+// second output, and bank_chain_kernel sums, per tenant a, the ĝ_seq of
+// the sequences whose id maps to a, in order b = 0, 1, ..., then applies
+// norm_chain with u_bank[a]: the JAX package's scatter-add over the ids
+// and _bank_grad (src/repro/kernels/ops.py:279), without atomics.
 // ---------------------------------------------------------------------------
 
 constexpr int kRowsPerTile = 32;
@@ -572,8 +589,10 @@ inline int row_tiles(int M) { return (M + kRowsPerTile - 1) / kRowsPerTile; }
 // One warp per unit = (row tile r, block i), `warps` units per CUDA block.
 // Shared memory holds each warp's ĝ partials for its block (db floats per
 // direction); every lane touches only its own elements j ≡ lane (mod 32),
-// so the warp needs no barrier beyond its shuffles.
-template <typename TX, typename TG, bool RANK2>
+// so the warp needs no barrier beyond its shuffles.  Under BANK, tile r is
+// tile r % seq_tiles of sequence r / seq_tiles (rows of that sequence
+// only), and u, v are (A, n, db) banks read at the sequence's tenant.
+template <typename TX, typename TG, bool RANK2, bool BANK = false>
 __global__ void reflect_bwd_kernel(const TX* __restrict__ x,
                                    const TG* __restrict__ g,
                                    const float* __restrict__ u,
@@ -581,7 +600,8 @@ __global__ void reflect_bwd_kernel(const TX* __restrict__ x,
                                    TX* __restrict__ dx,
                                    float* __restrict__ part_u,
                                    float* __restrict__ part_v, int M, int K,
-                                   int n, int db, int n_tiles) {
+                                   int n, int db, int n_tiles, int seq_tiles,
+                                   Tenants tn) {
   extern __shared__ float ghat_sh[];
   const int warps = blockDim.x / 32;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -590,8 +610,20 @@ __global__ void reflect_bwd_kernel(const TX* __restrict__ x,
   const int r = static_cast<int>(unit / n), i = static_cast<int>(unit % n);
   float* acc = ghat_sh + static_cast<long long>(w) * db * (RANK2 ? 2 : 1);
   float* acc_v = acc + db;  // RANK2 only
-  const float* ui = u + static_cast<long long>(i) * db;
-  const float* vi = RANK2 ? v + static_cast<long long>(i) * db : nullptr;
+  long long t_beg, t_end, bank = 0;
+  if constexpr (BANK) {
+    const long long seq_beg = static_cast<long long>(r / seq_tiles) * tn.seq;
+    t_beg = seq_beg + static_cast<long long>(r % seq_tiles) * kRowsPerTile;
+    t_end = t_beg + kRowsPerTile < seq_beg + tn.seq ? t_beg + kRowsPerTile
+                                                    : seq_beg + tn.seq;
+    bank = static_cast<long long>(row_tenant(tn, static_cast<int>(t_beg))) *
+           K;
+  } else {
+    t_beg = static_cast<long long>(r) * kRowsPerTile;
+    t_end = t_beg + kRowsPerTile < M ? t_beg + kRowsPerTile : M;
+  }
+  const float* ui = u + bank + static_cast<long long>(i) * db;
+  const float* vi = RANK2 ? v + bank + static_cast<long long>(i) * db : nullptr;
 
   float ss = 0.f, sv = 0.f;
   for (int j = lane; j < db; j += 32) {
@@ -606,8 +638,6 @@ __global__ void reflect_bwd_kernel(const TX* __restrict__ x,
   float nrm_v = 1.f;
   if constexpr (RANK2) nrm_v = sqrtf(warp_sum(sv)) + kEps;
 
-  const long long t_beg = static_cast<long long>(r) * kRowsPerTile;
-  const long long t_end = t_beg + kRowsPerTile < M ? t_beg + kRowsPerTile : M;
   for (long long t = t_beg; t < t_end; ++t) {
     const long long off = t * K + static_cast<long long>(i) * db;
     float px = 0.f, pg = 0.f, qx = 0.f, qg = 0.f;
@@ -653,6 +683,31 @@ __global__ void reflect_bwd_kernel(const TX* __restrict__ x,
   }
 }
 
+// reflect_bwd_kernel's launch: `warps` units a CUDA block, the ĝ partials
+// of each in dynamic shared memory (asked for past 48 KB).
+template <typename TX, typename TG, bool RANK2, bool BANK = false>
+cudaError_t launch_reflect_bwd_tiles(const TX* x, const TG* g, const float* u,
+                                     const float* v, TX* dx, float* part_u,
+                                     float* part_v, int M, int K, int n,
+                                     int db, int n_tiles, int seq_tiles,
+                                     const Tenants& tn, cudaStream_t s) {
+  const int warps = db <= 3072 ? 4 : 1;
+  const size_t shared =
+      static_cast<size_t>(warps) * db * sizeof(float) * (RANK2 ? 2 : 1);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reflect_bwd_kernel<TX, TG, RANK2, BANK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  const long long units = static_cast<long long>(n_tiles) * n;
+  reflect_bwd_kernel<TX, TG, RANK2, BANK>
+      <<<static_cast<unsigned>((units + warps - 1) / warps), warps * 32,
+         shared, s>>>(x, g, u, v, dx, part_u, part_v, M, K, n, db, n_tiles,
+                      seq_tiles, tn);
+  return cudaGetLastError();
+}
+
 // One warp per block i: ĝ = Σ_r part[r, i] in order r = 0, 1, ..., then
 // du = norm_chain(u_i, ĝ).
 __global__ void du_kernel(const float* __restrict__ part,
@@ -688,26 +743,117 @@ cudaError_t launch_reflect_bwd(const TX* x, const TG* g, const float* u,
                                float* part_v, float* du, float* dv, int M,
                                int K, int n, int db, cudaStream_t s) {
   const int n_tiles = row_tiles(M);
-  const int warps = db <= 3072 ? 4 : 1;
-  const size_t shared =
-      static_cast<size_t>(warps) * db * sizeof(float) * (RANK2 ? 2 : 1);
-  cudaError_t err;
-  if (shared > 48 * 1024) {
-    err = cudaFuncSetAttribute(reflect_bwd_kernel<TX, TG, RANK2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(shared));
-    if (err != cudaSuccess) return err;
-  }
-  const long long units = static_cast<long long>(n_tiles) * n;
-  reflect_bwd_kernel<TX, TG, RANK2>
-      <<<static_cast<unsigned>((units + warps - 1) / warps), warps * 32,
-         shared, s>>>(x, g, u, v, dx, part_u, part_v, M, K, n, db, n_tiles);
-  err = cudaGetLastError();
+  cudaError_t err = launch_reflect_bwd_tiles<TX, TG, RANK2>(
+      x, g, u, v, dx, part_u, part_v, M, K, n, db, n_tiles, n_tiles,
+      Tenants{}, s);
   if (err != cudaSuccess) return err;
   du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_u, u, du, n, db, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || !RANK2) return err;
   du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_v, v, dv, n, db, n_tiles);
+  return cudaGetLastError();
+}
+
+// The bank's ĝ per sequence: one warp per (direction, sequence b, block
+// i), ĝ_seq[b, i] = Σ_j part[b·seq_tiles + j, i] in order j = 0, 1, ....
+// part holds `dirs` directions of (B·seq_tiles, n, db) one after the
+// other, ghat `dirs` of (B, n, db).
+__global__ void seq_ghat_kernel(const float* __restrict__ part,
+                                float* __restrict__ ghat, int B, int n,
+                                int db, int seq_tiles, int dirs) {
+  const int warps = blockDim.x / 32;
+  const long long unit =
+      static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long per_dir = static_cast<long long>(B) * n;
+  if (unit >= per_dir * dirs) return;
+  const long long dir = unit / per_dir, bi = unit % per_dir;
+  const long long b = bi / n, i = bi % n;
+  const long long stride = static_cast<long long>(n) * db;
+  const float* p = part + dir * per_dir * seq_tiles * db +
+                   (b * seq_tiles * n + i) * db;
+  float* out = ghat + (dir * per_dir + bi) * db;
+  for (int j = lane; j < db; j += 32) {
+    float acc = 0.f;
+    for (int r = 0; r < seq_tiles; ++r) acc += p[r * stride + j];
+    out[j] = acc;
+  }
+}
+
+// The bank's du (dv): one warp per (direction, tenant a, block i).  ĝ =
+// Σ ĝ_seq[b, i] over the sequences b whose id maps to a (row_tenant), in
+// order b = 0, 1, ..., then norm_chain with u_bank[a, i]; a tenant that no
+// id names gets an exact zero.  The ids are read on the device.
+__global__ void bank_chain_kernel(const float* __restrict__ ghat,
+                                  const float* __restrict__ u,
+                                  const float* __restrict__ v,
+                                  float* __restrict__ du,
+                                  float* __restrict__ dv, int B, int n,
+                                  int db, int dirs, Tenants tn) {
+  const int warps = blockDim.x / 32;
+  const long long unit =
+      static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long per_dir = static_cast<long long>(tn.count) * n;
+  if (unit >= per_dir * dirs) return;
+  const long long dir = unit / per_dir, ai = unit % per_dir;
+  const int a = static_cast<int>(ai / n);
+  const long long i = ai % n;
+  const float* ui = (dir ? v : u) + ai * db;
+  float* di = (dir ? dv : du) + ai * db;
+  const float* gh = ghat + dir * B * static_cast<long long>(n) * db + i * db;
+  const long long stride = static_cast<long long>(n) * db;
+  int hits = 0;
+  for (int b = 0; b < B; ++b) hits += row_tenant(tn, b * tn.seq) == a;
+  if (hits == 0) {
+    for (int j = lane; j < db; j += 32) di[j] = 0.f;
+    return;
+  }
+  float ss = 0.f, dot = 0.f;
+  for (int j = lane; j < db; j += 32) {
+    float g = 0.f;
+    for (int b = 0; b < B; ++b)
+      if (row_tenant(tn, b * tn.seq) == a) g += gh[b * stride + j];
+    di[j] = g;
+    ss = fmaf(ui[j], ui[j], ss);
+    dot = fmaf(ui[j], g, dot);
+  }
+  const float rn = sqrtf(warp_sum(ss));
+  dot = warp_sum(dot);
+  const float s = rn + kEps;
+  for (int j = lane; j < db; j += 32) di[j] = di[j] / s - dot * ui[j] / (rn * s * s);
+}
+
+// The bank backward from x and G (M = B·S rows): reflect_bwd_kernel under
+// BANK (dx and the tiles' partials), seq_ghat_kernel (ĝ_seq, each
+// direction) and bank_chain_kernel (du_bank [, dv_bank]).  part holds
+// (RANK2 ? 2 : 1)·B·row_tiles(S)·n·db floats, ghat (RANK2 ? 2 : 1)·B·n·db;
+// du, dv are (A, n, db) like the banks.
+template <typename TX, typename TG, bool RANK2>
+cudaError_t launch_reflect_bwd_bank(const TX* x, const TG* g, const float* u,
+                                    const float* v, TX* dx, float* part,
+                                    float* ghat, float* du, float* dv, int M,
+                                    int K, int n, int db, const Tenants& tn,
+                                    cudaStream_t s) {
+  constexpr int dirs = RANK2 ? 2 : 1;
+  const int B = M / tn.seq, seq_tiles = row_tiles(tn.seq);
+  const int n_tiles = B * seq_tiles;
+  cudaError_t err = launch_reflect_bwd_tiles<TX, TG, RANK2, true>(
+      x, g, u, v, dx, part,
+      RANK2 ? part + static_cast<long long>(n_tiles) * K : nullptr, M, K, n,
+      db, n_tiles, seq_tiles, tn, s);
+  if (err != cudaSuccess) return err;
+  constexpr int kThreads = 256, kWarps = kThreads / 32;
+  const long long seq_units = static_cast<long long>(dirs) * B * n;
+  seq_ghat_kernel<<<static_cast<unsigned>((seq_units + kWarps - 1) / kWarps),
+                    kThreads, 0, s>>>(part, ghat, B, n, db, seq_tiles, dirs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long bank_units = static_cast<long long>(dirs) * tn.count * n;
+  bank_chain_kernel<<<static_cast<unsigned>((bank_units + kWarps - 1) /
+                                            kWarps),
+                      kThreads, 0, s>>>(ghat, u, v, du, dv, B, n, db, dirs,
+                                        tn);
   return cudaGetLastError();
 }
 

@@ -1,21 +1,27 @@
-"""The bank kernels on the card: multi-tenant adapter-bank serving, each
-sequence b of a (B, S, d) batch served by tenant ids[b] of a bank.
+"""The bank kernels on the card: multi-tenant adapter banks, each
+sequence b of a (B, S, d) batch served (and trained) by tenant ids[b] of
+a bank.
 
 The CUDA counterparts of ``householder_gemm_batched_pallas``
 (src/repro/kernels/householder_gemm_batched.py:58),
 ``etherplus_reflect_batched_pallas``
 (src/repro/kernels/etherplus_reflect_batched.py:44),
-``delora_gemm_batched_pallas`` (src/repro/kernels/delora_gemm.py:129) and
-``hyperadapt_gemm_batched_pallas`` (src/repro/kernels/hyperadapt_gemm.py:105).
-The sources and their design notes are ``csrc/<name>.cu``; the plain
-versions are ``repro_torch.kernels.ref.ref_<name>``.  Callers go through
-the checked wrappers of :mod:`repro_torch.kernels.ops`, which count
-launches.  Each launcher takes CUDA tensors already checked there: x
-(B, S, d) contiguous, ids (B,) int32 or int64 on x's device, which the
-kernels read on the device (mapping an id outside [0, A) into it as the
-JAX package's gather maps an index), so no launcher looks at the ids'
-values on the host.  Each returns (cudaError_t, out) with out (B, S, ·)
-in x's dtype.
+``delora_gemm_batched_pallas`` (src/repro/kernels/delora_gemm.py:129),
+``hyperadapt_gemm_batched_pallas`` (src/repro/kernels/hyperadapt_gemm.py:105)
+and of the backwards ``householder_gemm_batched_bwd_pallas`` and
+``householder_gemm_batched_dw_pallas`` (src/repro/kernels/gemm_bwd.py:303,
+:383) and ``etherplus_reflect_batched_bwd_pallas``
+(src/repro/kernels/reflect_bwd_batched.py:118).  The sources and their
+design notes are ``csrc/<name>.cu``; the plain versions are
+``repro_torch.kernels.ref.ref_<name>``.  Callers go through the checked
+wrappers of :mod:`repro_torch.kernels.ops`, which count launches.  Each
+launcher takes CUDA tensors already checked there: x (B, S, d)
+contiguous, ids (B,) int32 or int64 on x's device, which the kernels read
+on the device (mapping an id outside [0, A) into it as the JAX package's
+gather maps an index), so no launcher looks at the ids' values on the
+host.  Each returns (cudaError_t, out...) with out (B, S, ·) in x's
+dtype; the backwards also return their per-sequence ĝ (B, n, db) f32 and
+the bank's (A, n, db) f32 gradients.
 """
 
 from __future__ import annotations
@@ -32,10 +38,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _HH = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, stream
 _EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
-# x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, dtype, stream
-_DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 5 + (_P,)
-# x, w, r, c, ids, ids64, seq, tenants, y, M, K, N, dtype, stream
-_HG = (_P,) * 5 + (_I,) * 3 + (_P,) + (_I,) * 4 + (_P,)
+# x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, w_t, dtype,
+# stream
+_DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
+# x, w, r, c, ids, ids64, seq, tenants, y, M, K, N, w_t, dtype, stream
+_HG = (_P,) * 5 + (_I,) * 3 + (_P,) + (_I,) * 5 + (_P,)
+# x, w, u, g, ids, ids64, seq, tenants, dxr, part, ghat, dx, du, M, K, N, n,
+# db, dtype, stream
+_HB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 6 + (_P,)
+# x, u, g, ids, ids64, seq, tenants, p, unorm, dw, M, K, N, n, db, dtype,
+# stream
+_HW = (_P,) * 4 + (_I,) * 3 + (_P,) * 3 + (_I,) * 6 + (_P,)
+# x, u, v, g, ids, ids64, seq, tenants, part, ghat, dx, du, dv, M, n, db,
+# dtype, stream
+_EB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 4 + (_P,)
 
 
 def _tenants(x: torch.Tensor, ids: torch.Tensor, bank: torch.Tensor):
@@ -50,11 +66,11 @@ def _stream() -> int:
 
 def _on_device(fn):
     """Run the launcher with x's card current, as the other launchers do."""
-    def launch(x, *args):
+    def launch(x, *args, **kw):
         if x.device.index != torch.cuda.current_device():
             with torch.cuda.device(x.device):
-                return fn(x, *args)
-        return fn(x, *args)
+                return fn(x, *args, **kw)
+        return fn(x, *args, **kw)
     launch.__doc__ = fn.__doc__
     return launch
 
@@ -96,12 +112,13 @@ def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
 @_on_device
 def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                         a_bank: torch.Tensor, b_bank: torch.Tensor,
-                        s_bank: torch.Tensor, ids: torch.Tensor):
-    """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]: x (B, S, d), w (d, f),
-    a_bank (A, d, r) f32, b_bank (A, r, f) f32, s_bank (A, r) in x's
-    dtype."""
+                        s_bank: torch.Tensor, ids: torch.Tensor,
+                        w_t: bool = False):
+    """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]: x (B, S, d), w (d, f)
+    (with ``w_t`` the (f, d) matrix read transposed in place), a_bank
+    (A, d, r) f32, b_bank (A, r, f) f32, s_bank (A, r) in x's dtype."""
     b, s, d = x.shape
-    f = w.shape[1]
+    f = w.shape[0] if w_t else w.shape[1]
     r = a_bank.shape[2]
     m = b * s
     fn = build.function("delora_gemm_batched", "delora_gemm_batched", _DG)
@@ -109,23 +126,100 @@ def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     h = torch.empty((m, r), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), w.data_ptr(), a_bank.data_ptr(),
              b_bank.data_ptr(), s_bank.data_ptr(), *_tenants(x, ids, a_bank),
-             h.data_ptr(), y.data_ptr(), m, d, f, r, DTYPE_CODE[x.dtype],
-             _stream())
+             h.data_ptr(), y.data_ptr(), m, d, f, r, int(w_t),
+             DTYPE_CODE[x.dtype], _stream())
     return err, y
 
 
 @_on_device
 def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
-                            r_bank: torch.Tensor, c_bank: torch.Tensor,
-                            ids: torch.Tensor):
-    """((x[b]·r_t)·w)·c_t, t = ids[b]: x (B, S, d), w (d, f), r_bank (A, d)
-    f32, c_bank (A, f) f32."""
+                            r_bank: torch.Tensor, c_bank, ids: torch.Tensor,
+                            w_t: bool = False):
+    """((x[b]·r_t)·w)·c_t, t = ids[b]: x (B, S, d), w (d, f) (with ``w_t``
+    the (f, d) matrix read transposed in place), r_bank (A, d) f32, c_bank
+    (A, f) f32 or None (no column scale)."""
     b, s, d = x.shape
-    f = w.shape[1]
+    f = w.shape[0] if w_t else w.shape[1]
     fn = build.function("hyperadapt_gemm_batched", "hyperadapt_gemm_batched",
                         _HG)
     y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
     err = fn(x.data_ptr(), w.data_ptr(), r_bank.data_ptr(),
-             c_bank.data_ptr(), *_tenants(x, ids, r_bank), y.data_ptr(),
-             b * s, d, f, DTYPE_CODE[x.dtype], _stream())
+             None if c_bank is None else c_bank.data_ptr(),
+             *_tenants(x, ids, r_bank), y.data_ptr(), b * s, d, f, int(w_t),
+             DTYPE_CODE[x.dtype], _stream())
     return err, y
+
+
+@_on_device
+def householder_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                 u_bank: torch.Tensor, ids: torch.Tensor,
+                                 g: torch.Tensor):
+    """(dx, ĝ_seq, du_bank) of R_{ids[b]}(x[b])·w under g (B, S, f): x
+    (B, S, d), w (d, f), u_bank (A, n, db) f32; ĝ_seq (B, n, db) f32."""
+    b, s, d = x.shape
+    f = w.shape[1]
+    _, n, db = u_bank.shape
+    m = b * s
+    tiles = b * build.function("householder_gemm_batched_bwd",
+                               "hh_gemm_batched_bwd_row_tiles", (_I,))(s)
+    fn = build.function("householder_gemm_batched_bwd", "hh_gemm_batched_bwd",
+                        _HB)
+    dx = torch.empty_like(x)
+    ghat = torch.empty((b, n, db), dtype=torch.float32, device=x.device)
+    du = torch.empty_like(u_bank)
+    # f32 scratch: dXr (m, d), then the row tiles' ĝ partials (tiles, d)
+    scratch = torch.empty(((m + tiles) * d,), dtype=torch.float32,
+                          device=x.device)
+    dxr = scratch.data_ptr()
+    err = fn(x.data_ptr(), w.data_ptr(), u_bank.data_ptr(), g.data_ptr(),
+             *_tenants(x, ids, u_bank), dxr, dxr + 4 * m * d,
+             ghat.data_ptr(), dx.data_ptr(), du.data_ptr(), m, d, f, n, db,
+             DTYPE_CODE[x.dtype], _stream())
+    return err, dx, ghat, du
+
+
+@_on_device
+def householder_gemm_batched_dw(x: torch.Tensor, u_bank: torch.Tensor,
+                                ids: torch.Tensor, g: torch.Tensor):
+    """dW = Σ_b R_{ids[b]}(x[b])ᵀ·g[b]: x (B, S, d), u_bank (A, n, db) f32,
+    g (B, S, f); dW (d, f) in x's dtype."""
+    b, s, d = x.shape
+    f = g.shape[2]
+    _, n, db = u_bank.shape
+    m = b * s
+    fn = build.function("householder_gemm_batched_dw", "hh_gemm_batched_dw",
+                        _HW)
+    dw = torch.empty((d, f), dtype=x.dtype, device=x.device)
+    # f32 scratch: p (m, n) block projections, then unorm (m, n) row norms
+    scratch = torch.empty((2 * m * n,), dtype=torch.float32, device=x.device)
+    p = scratch.data_ptr()
+    err = fn(x.data_ptr(), u_bank.data_ptr(), g.data_ptr(),
+             *_tenants(x, ids, u_bank), p, p + 4 * m * n, dw.data_ptr(), m,
+             d, f, n, db, DTYPE_CODE[x.dtype], _stream())
+    return err, dw
+
+
+@_on_device
+def etherplus_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
+                                  v_bank: torch.Tensor, ids: torch.Tensor,
+                                  g: torch.Tensor):
+    """(dx, ĝu_seq, ĝv_seq, du_bank, dv_bank) of H⁺_{ids[b]} x[b] under g
+    (B, S, d): x (B, S, d), u_bank/v_bank (A, n, db) f32; ĝu_seq, ĝv_seq
+    (B, n, db) f32."""
+    b, s, d = x.shape
+    _, n, db = u_bank.shape
+    tiles = b * build.function("etherplus_reflect_batched_bwd",
+                               "etherplus_reflect_batched_bwd_row_tiles",
+                               (_I,))(s)
+    fn = build.function("etherplus_reflect_batched_bwd",
+                        "etherplus_reflect_batched_bwd", _EB)
+    dx = torch.empty_like(x)
+    ghat = torch.empty((2, b, n, db), dtype=torch.float32, device=x.device)
+    du, dv = torch.empty_like(u_bank), torch.empty_like(v_bank)
+    # f32 scratch: the row tiles' ĝu partials (tiles, d), then ĝv's
+    part = torch.empty((2 * tiles * d,), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), u_bank.data_ptr(), v_bank.data_ptr(),
+             g.data_ptr(), *_tenants(x, ids, u_bank), part.data_ptr(),
+             ghat.data_ptr(), dx.data_ptr(), du.data_ptr(), dv.data_ptr(),
+             b * s, n, db, DTYPE_CODE[x.dtype], _stream())
+    return err, dx, ghat[0], ghat[1], du, dv

@@ -21,10 +21,17 @@ y0, and ``reflect_gemm_dw`` likewise; ``hyperadapt_merge_bwd`` launches
 launches ``merge_left_bwd`` (rank 2) after, two-sided,
 ``etherplus_merge_left`` (w1) and ``merge_right_bwd``; each bank wrapper
 launches its one kernel, which for ``householder_gemm_batched`` and
-``delora_gemm_batched`` is a short pass and a GEMM), so a run can show
-that its path went through the kernels.  The rank-r and per-feature
-cotangents of DeLoRA and HyperAdapt are a few thin PyTorch ops beside the
-kernels, as the JAX package leaves them to XLA.
+``delora_gemm_batched`` is a short pass and a GEMM;
+``householder_gemm_batched_bwd`` launches its kernel, and
+``householder_gemm_batched_dw`` only when asked for dW;
+``etherplus_reflect_batched_bwd`` its kernel; ``delora_gemm_batched_bwd``
+launches ``delora_gemm_batched`` for dx and ``hyperadapt_gemm_batched_bwd``
+``hyperadapt_gemm_batched`` twice, for z and y0, each ``reflect_gemm_dw``
+with a zero hyperplane only when asked for dW), so a run can show that its
+path went through the kernels.  The rank-r and per-feature cotangents of
+DeLoRA and HyperAdapt (and their scatter-add over a bank's ids) are a few
+thin PyTorch ops beside the kernels, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -54,7 +61,10 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "hyperadapt_gemm": 0, "delora_merge": 0, "hyperadapt_merge": 0,
              "householder_gemm_batched": 0, "etherplus_reflect_batched": 0,
              "delora_gemm_batched": 0, "hyperadapt_gemm_batched": 0,
-             "merge_left_bwd": 0, "merge_right_bwd": 0}
+             "merge_left_bwd": 0, "merge_right_bwd": 0,
+             "householder_gemm_batched_bwd": 0,
+             "householder_gemm_batched_dw": 0,
+             "etherplus_reflect_batched_bwd": 0}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -735,3 +745,130 @@ def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     err, y = _bk.hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
     _launched("hyperadapt_gemm_batched", err)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Training through a bank: the bank forwards' backwards
+# ---------------------------------------------------------------------------
+
+def _cotangent(x: torch.Tensor, f: int) -> tuple:
+    """The shape a bank op's cotangent must have: x's leading dims and f."""
+    return (*x.shape[:-1], f) if x.dim() else (-1,)
+
+
+def householder_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                 u_bank: torch.Tensor, ids: torch.Tensor,
+                                 g: torch.Tensor, *, need_dw: bool):
+    """(dx, dw, du_bank) of :func:`householder_gemm_batched` under cotangent
+    g (B, S, f); dw is None unless ``need_dw``, and its kernel
+    (``householder_gemm_batched_dw``) then does not run.  du_bank (A, n,
+    db) f32: each sequence's dL/dû summed over the ids that name a tenant
+    (duplicates add, an id mapped into [0, A) as the forward maps it), an
+    exact zero for a tenant no id names."""
+    d = x.shape[-1] if x.dim() else -1
+    f = w.shape[1] if w.dim() == 2 else -1
+    _check_bank("householder_gemm_batched_bwd", x, w, ids,
+                {"u_bank": (u_bank, _planes(u_bank, d), _F32),
+                 "g": (g, _cotangent(x, f), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_householder_gemm_batched_grads(x, w, u_bank, ids, g,
+                                                      need_dw=need_dw)
+    err, dx, _, du = _bk.householder_gemm_batched_bwd(x, w, u_bank, ids, g)
+    _launched("householder_gemm_batched_bwd", err)
+    dw = None
+    if need_dw:
+        err, dw = _bk.householder_gemm_batched_dw(x, u_bank, ids, g)
+        _launched("householder_gemm_batched_dw", err)
+    return dx, dw, du
+
+
+def etherplus_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
+                                  v_bank: torch.Tensor, ids: torch.Tensor,
+                                  g: torch.Tensor):
+    """(dx, du_bank, dv_bank) of :func:`etherplus_reflect_batched` under
+    cotangent g (B, S, d), the bank gradients as
+    :func:`householder_gemm_batched_bwd` forms them."""
+    d = x.shape[-1] if x.dim() else -1
+    shape = _planes(u_bank, d)
+    _check_bank("etherplus_reflect_batched_bwd", x, None, ids,
+                {"u_bank": (u_bank, shape, _F32),
+                 "v_bank": (v_bank, shape, _F32),
+                 "g": (g, _cotangent(x, d), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_etherplus_reflect_batched_grads(x, u_bank, v_bank,
+                                                       ids, g)
+    err, dx, _, _, du, dv = _bk.etherplus_reflect_batched_bwd(
+        x, u_bank, v_bank, ids, g)
+    _launched("etherplus_reflect_batched_bwd", err)
+    return dx, du, dv
+
+
+def delora_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                            a_bank: torch.Tensor, b_bank: torch.Tensor,
+                            s_bank: torch.Tensor, ids: torch.Tensor,
+                            g: torch.Tensor, *, need_dw: bool):
+    """(dx, dw, da_bank, db_bank, ds_bank) of :func:`delora_gemm_batched`
+    under cotangent g (B, S, f), composed as the JAX package's
+    ``ops.delora_gemm_batched_bwd``: dx = g·wᵀ + ((g·b_tᵀ)·s_t)·a_tᵀ on the
+    bank forward kernel with w read transposed in place (the banks'
+    transposes are small copies); dW = xᵀg on ``reflect_gemm_dw`` with a
+    zero hyperplane, only when ``need_dw`` (else None); the adapters'
+    cotangents rank-r contractions per sequence, scatter-added over the
+    ids."""
+    d, f = _dims(x, w)
+    a = _bank_size(a_bank, 3)
+    r = a_bank.shape[2] if a_bank.dim() == 3 and a_bank.shape[2] else -1
+    _check_bank("delora_gemm_batched_bwd", x, w, ids,
+                {"a_bank": (a_bank, (a, d, r), _F32),
+                 "b_bank": (b_bank, (a, r, f), _F32),
+                 "s_bank": (s_bank, (a, r), x.dtype),
+                 "g": (g, _cotangent(x, f), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_delora_gemm_batched_bwd(x, w, a_bank, b_bank, s_bank,
+                                               ids, g, need_dw=need_dw)
+    err, dx = _bk.delora_gemm_batched(
+        g, w, b_bank.transpose(1, 2).contiguous(),
+        a_bank.transpose(1, 2).contiguous(), s_bank, ids, w_t=True)
+    _launched("delora_gemm_batched", err)
+    dw = None
+    if need_dw:
+        err, dw = _dw.launch(x.view(-1, d), _zero_u(d, x.device),
+                             g.view(-1, f))
+        _launched("reflect_gemm_dw", err)
+    return (dx, dw, *ref.delora_bank_cotangents(x, g, a_bank, b_bank,
+                                                s_bank, ids))
+
+
+def hyperadapt_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                r_bank: torch.Tensor, c_bank: torch.Tensor,
+                                ids: torch.Tensor, g: torch.Tensor, *,
+                                need_dw: bool):
+    """(dx, dw, dr_bank, dc_bank) of :func:`hyperadapt_gemm_batched` under
+    cotangent g (B, S, f), composed as the JAX package's
+    ``ops.hyperadapt_gemm_batched_bwd``: z = (g·c_t)·wᵀ (w read transposed
+    in place) and y0 = (x·r_t)·w on the bank forward kernel without its
+    column scale, each in the activation dtype; dx = z·r_t and the
+    per-sequence sums Σ x⊙z, Σ y0⊙g scatter-added over the ids; dW =
+    (x·r_t)ᵀ(g·c_t) on ``reflect_gemm_dw`` with a zero hyperplane, only
+    when ``need_dw`` (else None)."""
+    d, f = _dims(x, w)
+    a = _bank_size(r_bank, 2)
+    _check_bank("hyperadapt_gemm_batched_bwd", x, w, ids,
+                {"r_bank": (r_bank, (a, d), _F32),
+                 "c_bank": (c_bank, (a, f), _F32),
+                 "g": (g, _cotangent(x, f), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_hyperadapt_gemm_batched_bwd(x, w, r_bank, c_bank, ids,
+                                                   g, need_dw=need_dw)
+    err, z = _bk.hyperadapt_gemm_batched(g, w, c_bank, None, ids, w_t=True)
+    _launched("hyperadapt_gemm_batched", err)
+    err, y0 = _bk.hyperadapt_gemm_batched(x, w, r_bank, None, ids)
+    _launched("hyperadapt_gemm_batched", err)
+    dw = None
+    if need_dw:
+        xr, gc = ref.hyperadapt_bank_scaled(x, g, r_bank, c_bank, ids)
+        err, dw = _dw.launch(xr, _zero_u(d, x.device), gc)
+        _launched("reflect_gemm_dw", err)
+    dx, dr, dc = ref.hyperadapt_bank_cotangents(x, g, z, y0, r_bank, c_bank,
+                                                ids)
+    return dx, dw, dr, dc

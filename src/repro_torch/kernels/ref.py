@@ -14,7 +14,10 @@ The bank versions (``ref_*_batched``, multi-tenant serving) serve
 sequence b of x (B, S, d) with tenant ids[b] of a bank whose tenant axis
 is first; an id outside [0, A) is mapped into it as the JAX package's
 gather maps an index (and the kernels do): from the end if negative, then
-clamped.
+clamped.  Their backwards (training through a bank) return what the
+Pallas kernels return — dx and the per-sequence dL/dû — and
+:func:`bank_grad` finishes them as the JAX package's ``ops._bank_grad``
+does, scatter-adding over the ids mapped as the forward maps them.
 
 DeLoRA (``y = xW + ((x a)·s) b``) and HyperAdapt (``y = ((x·r) W)·c``)
 take their scales as given: DeLoRA's s is the method layer's primal, in
@@ -410,13 +413,46 @@ def ref_hyperadapt_merge_bwd(w: torch.Tensor, r: torch.Tensor,
 # Multi-tenant banks
 # ---------------------------------------------------------------------------
 
-def gather(bank: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """bank[ids] along the tenant axis (first), an id outside [0, A)
-    mapped into it as the JAX package's gather maps an index: a negative
-    id counts from the end, then the id is clamped."""
-    a = bank.shape[0]
+def bank_index(ids: torch.Tensor, tenants: int) -> torch.Tensor:
+    """The ids mapped into [0, tenants) as the JAX package's gather maps
+    an index (and the kernels' row_tenant does): a negative id counts from
+    the end, then the id is clamped.  int64, on the ids' device; no
+    value is read on the host."""
     ids = ids.long()
-    return bank[torch.where(ids < 0, ids + a, ids).clamp(0, a - 1)]
+    return torch.where(ids < 0, ids + tenants, ids).clamp(0, tenants - 1)
+
+
+def gather(bank: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """bank[ids] along the tenant axis (first), ids mapped by
+    :func:`bank_index`."""
+    return bank[bank_index(ids, bank.shape[0])]
+
+
+def scatter_add(shape, ids: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """Σ over the sequences b of seq[b] into row bank_index(ids)[b] of a
+    float32 zeros of ``shape`` (tenant axis first): duplicate ids add.
+    The transpose of :func:`gather`, so a sequence's cotangent lands on the
+    tenant its forward read.  The JAX package's ``.at[ids].add`` instead
+    drops an id ≥ A that its gather clamps (ROADMAP.md, Queue 3); the two
+    agree on ids in [−A, A).  ``index_add_`` is deterministic on the card
+    under ``torch.use_deterministic_algorithms(True)``."""
+    out = torch.zeros(shape, dtype=torch.float32, device=seq.device)
+    return out.index_add_(0, bank_index(ids, shape[0]), seq.float())
+
+
+def bank_grad(bank: torch.Tensor, ids: torch.Tensor,
+              ghat_seq: torch.Tensor) -> torch.Tensor:
+    """A hyperplane bank's cotangent from per-sequence dL/dû (B, n, db):
+    scatter-add over the ids, then the ε-norm chain per bank row (linear
+    in dL/dû, so add-then-chain is chain-then-add), in the bank's dtype:
+    the JAX package's ``ops._bank_grad``.  A tenant no id names gets an
+    exact zero, as the kernels' bank_chain_kernel writes it."""
+    gsum = scatter_add(bank.shape, ids, ghat_seq)
+    hits = scatter_add(bank.shape[:1], ids, torch.ones(
+        ghat_seq.shape[:1], device=ghat_seq.device))
+    du = norm_chain(bank.float(), gsum)
+    return torch.where((hits > 0).reshape(-1, *[1] * (bank.dim() - 1)), du,
+                       torch.zeros_like(du)).to(bank.dtype)
 
 
 def _rank2_bank_f32(x: torch.Tensor, u_bank: torch.Tensor,
@@ -469,10 +505,184 @@ def ref_delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
 
 
 def ref_hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
-                                r_bank: torch.Tensor, c_bank: torch.Tensor,
+                                r_bank: torch.Tensor,
+                                c_bank: Optional[torch.Tensor],
                                 ids: torch.Tensor) -> torch.Tensor:
-    """y[b] = ((x[b]·r_t) W)·c_t, t = ids[b], in float32, rounded once.
-    x: (B, S, d); r_bank: (A, d); c_bank: (A, f); ids: (B,)."""
+    """y[b] = ((x[b]·r_t) W)·c_t, t = ids[b], in float32, rounded once;
+    without c_bank the column scale is left out (the backward's z and
+    y0).  x: (B, S, d); r_bank: (A, d); c_bank: (A, f); ids: (B,)."""
     r = gather(r_bank, ids).float()[:, None, :]
-    c = gather(c_bank, ids).float()[:, None, :]
-    return (((x.float() * r) @ w.float()) * c).to(x.dtype)
+    y = (x.float() * r) @ w.float()
+    if c_bank is not None:
+        y = y * gather(c_bank, ids).float()[:, None, :]
+    return y.to(x.dtype)
+
+
+def _bank_reflect_bwd_f32(x: torch.Tensor, gd: torch.Tensor,
+                          u_bank: torch.Tensor, v_bank: Optional[torch.Tensor],
+                          ids: torch.Tensor):
+    """Each sequence's reflection backward (ETHER+'s rank 2 with v_bank)
+    under its own tenant's hyperplanes, float32: dx (B, S, d) and the
+    per-sequence un-normalised dL/dû (and dL/dv̂), (B, n, db) each — the
+    Pallas bank kernels' outputs.  x: (B, S, d); gd: (B, S, d) the
+    cotangent of the update's output."""
+    b, s, d = x.shape
+    _, n, db = u_bank.shape
+    xb = x.float().reshape(b, s, n, db)
+    gb = gd.float().reshape(b, s, n, db)
+    dirs = ([(unit(gather(u_bank, ids).float()), -2.0)] if v_bank is None
+            else [(unit(gather(u_bank, ids).float()), -1.0),
+                  (unit(gather(v_bank, ids).float()), 1.0)])
+    dx, ghats = gb, []
+    for uh, c in dirs:
+        pg = torch.einsum("bsnd,bnd->bsn", gb, uh)
+        px = torch.einsum("bsnd,bnd->bsn", xb, uh)
+        dx = dx + c * pg[..., None] * uh[:, None]
+        ghats.append(c * (torch.einsum("bsn,bsnd->bnd", px, gb)
+                          + torch.einsum("bsn,bsnd->bnd", pg, xb)))
+    return dx.reshape(b, s, d), ghats
+
+
+def ref_householder_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                     u_bank: torch.Tensor, ids: torch.Tensor,
+                                     g: torch.Tensor):
+    """(dx, ĝ_seq) of :func:`ref_householder_gemm_batched` under cotangent
+    g (B, S, f), the split outputs of ``householder_gemm_batched_bwd_pallas``:
+    dXr = g·Wᵀ in float32, dx = R_t(dXr) in x's dtype, ĝ_seq (B, n, db)
+    float32 the per-sequence dL/dû that :func:`bank_grad` finishes."""
+    dxr = g.float() @ w.float().T
+    dx, (gh,) = _bank_reflect_bwd_f32(x, dxr, u_bank, None, ids)
+    return dx.to(x.dtype), gh
+
+
+def ref_householder_gemm_batched_dw(x: torch.Tensor, u_bank: torch.Tensor,
+                                    ids: torch.Tensor, g: torch.Tensor,
+                                    w_dtype: torch.dtype) -> torch.Tensor:
+    """dW = Σ_b R_{ids[b]}(x[b])ᵀ g[b] in float32, rounded once to
+    ``w_dtype``.  x: (B, S, d); g: (B, S, f)."""
+    xr = _rank2_bank_f32(x, u_bank, None, ids)
+    return (xr.reshape(-1, x.shape[-1]).T
+            @ g.float().reshape(-1, g.shape[-1])).to(w_dtype)
+
+
+def ref_etherplus_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
+                                      v_bank: torch.Tensor, ids: torch.Tensor,
+                                      g: torch.Tensor):
+    """(dx, ĝu_seq, ĝv_seq) of :func:`ref_etherplus_reflect_batched` under
+    cotangent g (B, S, d), the outputs of
+    ``etherplus_reflect_batched_bwd_pallas``: dx = H⁺_t g in x's dtype,
+    the per-sequence dL/dû and dL/dv̂ (B, n, db) float32."""
+    dx, (gu, gv) = _bank_reflect_bwd_f32(x, g, u_bank, v_bank, ids)
+    return dx.to(x.dtype), gu, gv
+
+
+def ref_householder_gemm_batched_grads(x: torch.Tensor, w: torch.Tensor,
+                                       u_bank: torch.Tensor,
+                                       ids: torch.Tensor, g: torch.Tensor, *,
+                                       need_dw: bool = True):
+    """(dx, dw, du_bank) of :func:`ref_householder_gemm_batched` under
+    cotangent g, as the JAX package's ``ops.householder_gemm_batched_bwd``
+    finishes its kernels' outputs: ĝ_seq through :func:`bank_grad`; dw
+    None unless ``need_dw``."""
+    dx, gh = ref_householder_gemm_batched_bwd(x, w, u_bank, ids, g)
+    dw = (ref_householder_gemm_batched_dw(x, u_bank, ids, g, w.dtype)
+          if need_dw else None)
+    return dx, dw, bank_grad(u_bank, ids, gh)
+
+
+def ref_etherplus_reflect_batched_grads(x: torch.Tensor, u_bank: torch.Tensor,
+                                        v_bank: torch.Tensor,
+                                        ids: torch.Tensor, g: torch.Tensor):
+    """(dx, du_bank, dv_bank) of :func:`ref_etherplus_reflect_batched`
+    under cotangent g: the per-sequence ĝ through :func:`bank_grad`, as
+    the JAX package's ``ops.etherplus_reflect_batched_bwd``."""
+    dx, gu, gv = ref_etherplus_reflect_batched_bwd(x, u_bank, v_bank, ids, g)
+    return dx, bank_grad(u_bank, ids, gu), bank_grad(v_bank, ids, gv)
+
+
+def delora_bank_cotangents(x: torch.Tensor, g: torch.Tensor,
+                           a_bank: torch.Tensor, b_bank: torch.Tensor,
+                           s_bank: torch.Tensor, ids: torch.Tensor):
+    """(da_bank, db_bank, ds_bank) of the bank DeLoRA GEMM under g (B, S,
+    f): per-sequence rank-r contractions over h = x a_t and p = g b_tᵀ in
+    float32, scatter-added over the ids (:func:`scatter_add`) and cast to
+    each bank's dtype — the JAX package's jnp glue beside its kernels."""
+    xf, gf = x.float(), g.float()
+    sf = gather(s_bank, ids).float()[:, None, :]              # (B, 1, r)
+    h = torch.einsum("bsd,bdr->bsr", xf, gather(a_bank, ids).float())
+    p = torch.einsum("bsf,brf->bsr", gf, gather(b_bank, ids).float())
+    return (scatter_add(a_bank.shape, ids,
+                        torch.einsum("bsd,bsr->bdr", xf, p * sf))
+            .to(a_bank.dtype),
+            scatter_add(b_bank.shape, ids,
+                        torch.einsum("bsr,bsf->brf", h * sf, gf))
+            .to(b_bank.dtype),
+            scatter_add(s_bank.shape, ids, (h * p).sum(dim=1))
+            .to(s_bank.dtype))
+
+
+def hyperadapt_bank_cotangents(x: torch.Tensor, g: torch.Tensor,
+                               z: torch.Tensor, y0: torch.Tensor,
+                               r_bank: torch.Tensor, c_bank: torch.Tensor,
+                               ids: torch.Tensor):
+    """(dx, dr_bank, dc_bank) of the bank HyperAdapt GEMM from its
+    recomputed z = (g·c_t) Wᵀ and y0 = (x·r_t) W: dx = z·r_t in x's dtype,
+    the per-sequence sums Σ x⊙z and Σ y0⊙g scatter-added over the ids, in
+    float32 cast to each bank's dtype — the JAX package's jnp glue."""
+    rs = gather(r_bank, ids).float()[:, None, :]              # (B, 1, d)
+    zf = z.float()
+    return ((zf * rs).to(x.dtype),
+            scatter_add(r_bank.shape, ids, (x.float() * zf).sum(dim=1))
+            .to(r_bank.dtype),
+            scatter_add(c_bank.shape, ids, (y0.float() * g.float())
+                        .sum(dim=1)).to(c_bank.dtype))
+
+
+def ref_delora_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                a_bank: torch.Tensor, b_bank: torch.Tensor,
+                                s_bank: torch.Tensor, ids: torch.Tensor,
+                                g: torch.Tensor, *, need_dw: bool = True):
+    """(dx, dw, da_bank, db_bank, ds_bank) of
+    :func:`ref_delora_gemm_batched` under cotangent g (B, S, f), composed
+    as the JAX package's ``ops.delora_gemm_batched_bwd``: dx is the bank
+    forward on transposed operands, g Wᵀ + ((g b_tᵀ)·s_t) a_tᵀ, rounded
+    once; dW = xᵀg (None unless ``need_dw``); the adapters' cotangents are
+    per-sequence rank-r contractions in float32, scatter-added over the
+    ids (:func:`scatter_add`) and cast to each bank's dtype."""
+    d = x.shape[-1]
+    dx = ref_delora_gemm_batched(g, w.T, b_bank.transpose(1, 2),
+                                 a_bank.transpose(1, 2), s_bank, ids)
+    dw = (_plain_dw(x.reshape(-1, d), g.reshape(-1, g.shape[-1]), w.dtype)
+          if need_dw else None)
+    return (dx, dw, *delora_bank_cotangents(x, g, a_bank, b_bank, s_bank,
+                                            ids))
+
+
+def ref_hyperadapt_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
+                                    r_bank: torch.Tensor, c_bank: torch.Tensor,
+                                    ids: torch.Tensor, g: torch.Tensor, *,
+                                    need_dw: bool = True):
+    """(dx, dw, dr_bank, dc_bank) of :func:`ref_hyperadapt_gemm_batched`
+    under cotangent g (B, S, f), composed as the JAX package's
+    ``ops.hyperadapt_gemm_batched_bwd``: z = (g·c_t) Wᵀ and y0 = (x·r_t) W
+    are the bank forward without its column scale (W transposed for z),
+    each in float32 rounded once to the activation dtype (the JAX package
+    rounds g·c_t and x·r_t first); dx = z·r_t; dr, dc are per-sequence
+    sums Σ x⊙z and Σ y0⊙g scatter-added over the ids; dW = (x·r)ᵀ(g·c)
+    on operands rounded to the activation dtype, None unless ``need_dw``."""
+    z = ref_hyperadapt_gemm_batched(g, w.T, c_bank, None, ids)
+    y0 = ref_hyperadapt_gemm_batched(x, w, r_bank, None, ids)
+    dw = (_plain_dw(*hyperadapt_bank_scaled(x, g, r_bank, c_bank, ids),
+                    w.dtype) if need_dw else None)
+    dx, dr, dc = hyperadapt_bank_cotangents(x, g, z, y0, r_bank, c_bank, ids)
+    return dx, dw, dr, dc
+
+
+def hyperadapt_bank_scaled(x, g, r_bank, c_bank, ids):
+    """(x·r_t, g·c_t) flattened to (B·S, ·) rows, each in float32 rounded
+    to its own dtype: the dW operands of the bank HyperAdapt GEMM, as the
+    JAX package's ``ops.hyperadapt_gemm_batched_bwd`` forms them."""
+    rs = gather(r_bank, ids).float()[:, None, :]
+    cs = gather(c_bank, ids).float()[:, None, :]
+    return ((x.float() * rs).to(x.dtype).reshape(-1, x.shape[-1]),
+            (g.float() * cs).to(g.dtype).reshape(-1, g.shape[-1]))

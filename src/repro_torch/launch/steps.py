@@ -6,7 +6,10 @@ paper's) gradients and the optimizer touch only the adapter tree; the
 base params carry ``requires_grad=False`` and flow through untouched.
 Under full finetuning (method ``full``, the JAX package's
 ``full_finetune``) they touch the base params and there are no adapters.
-Sharding (the JAX package's ``*_shardings``) is not ported yet.
+Training through a multi-tenant adapter bank (:func:`make_bank_state`,
+:func:`make_bank_train_step`) keeps ``{"params", "bank", "opt_state",
+"step"}``, the bank's stacked tree in place of the adapters.  Sharding
+(the JAX package's ``*_shardings``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
-from repro_torch.core.peft import init_adapters, trainable_mask
+from repro_torch.core.peft import AdapterBank, init_adapters, trainable_mask
 from repro_torch.core.transforms import PEFTConfig
 from repro_torch.models.api import init_model, resolve_device, train_loss
 from repro_torch.optim import (GradientTransformation, apply_updates,
@@ -71,18 +74,58 @@ def make_train_step(cfg, peft: Optional[PEFTConfig],
     def step(state: Params, batch: dict):
         loss, metrics = train_loss(state["params"], state["adapters"], batch,
                                    cfg, peft)
-        tree = state[key]
-        flat = flatten_with_paths(tree)     # every leaf of it trains
-        by_path = dict(zip((p for p, _ in flat), torch.autograd.grad(
-            loss, [a for _, a in flat])))
-        grads = map_with_paths(lambda p, _: by_path[p], tree)
-        with torch.no_grad():
-            updates, opt_state = opt.update(grads, state["opt_state"], tree)
-            new_tree = apply_updates(tree, updates)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["grad_norm"] = global_norm(grads)
-        new_tree = map_with_paths(lambda _, x: x.requires_grad_(), new_tree)
-        return dict(state, **{key: new_tree}, opt_state=opt_state,
-                    step=state["step"] + 1), metrics
+        return _update(state, key, loss, metrics, opt)
+
+    return step
+
+
+def _update(state: Params, key: str, loss: torch.Tensor, metrics: dict,
+            opt: GradientTransformation):
+    """The step after the loss: the gradient of ``loss`` over every leaf
+    of ``state[key]``, the optimizer on them, and the next state with its
+    metrics (``grad_norm`` added)."""
+    tree = state[key]
+    flat = flatten_with_paths(tree)     # every leaf of it trains
+    by_path = dict(zip((p for p, _ in flat), torch.autograd.grad(
+        loss, [a for _, a in flat])))
+    grads = map_with_paths(lambda p, _: by_path[p], tree)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, state["opt_state"], tree)
+        new_tree = apply_updates(tree, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+    new_tree = map_with_paths(lambda _, x: x.requires_grad_(), new_tree)
+    return dict(state, **{key: new_tree}, opt_state=opt_state,
+                step=state["step"] + 1), metrics
+
+
+def make_bank_state(params: Params, bank: AdapterBank,
+                    opt: GradientTransformation) -> Params:
+    """The train state of an adapter bank at step 0: ``{"params"`` (frozen),
+    ``"bank"`` (``bank.tree``, every leaf trainable), ``"opt_state"``,
+    ``"step"}``, on the params' device."""
+    params = map_with_paths(lambda _, x: x.requires_grad_(False), params)
+    tree = map_with_paths(lambda _, x: x.requires_grad_(), bank.tree)
+    dev = next(x for _, x in flatten_with_paths(params)).device
+    return {"params": params, "bank": tree, "opt_state": opt.init(tree),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def make_bank_train_step(cfg, peft: PEFTConfig, opt: GradientTransformation,
+                         bank: AdapterBank):
+    """(state, batch, ids) → (state, metrics) over a :func:`make_bank_state`
+    state: the loss of ``train_loss(params, bank.request(ids), batch)``
+    (each sequence b through tenant ids[b]'s adapters, activation mode),
+    its gradient over every leaf of the bank and the optimizer on them —
+    what the JAX package does with ``jax.value_and_grad`` over
+    ``bank.tree``.  A tenant no id names gets a zero gradient (AdamW's
+    weight decay still moves it).  ``bank`` gives the tenant count and the
+    stack dims."""
+
+    def step(state: Params, batch: dict, ids):
+        current = AdapterBank(state["bank"], bank.tenants, bank.stack_ndims)
+        loss, metrics = train_loss(state["params"], current.request(ids),
+                                   batch, cfg, peft)
+        return _update(state, "bank", loss, metrics, opt)
 
     return step

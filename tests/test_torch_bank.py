@@ -38,7 +38,7 @@ from repro.kernels.householder_gemm_batched import \
     householder_gemm_batched_pallas
 from repro.kernels.hyperadapt_gemm import hyperadapt_gemm_batched_pallas
 from repro.models import api as japi
-from repro_torch import NotPortedError, bridge
+from repro_torch import bridge
 from repro_torch.common.pytree import flatten_with_paths
 from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute, methods, peft
@@ -485,15 +485,6 @@ def test_bank_dense_of_other_methods_raises_the_jax_error():
     for name in ("lora", "oft", "naive", "full"):
         with pytest.raises(ValueError, match="is not bank-servable"):
             methods.get(name).bank_dense(None, None, {}, None)
-
-
-def test_training_through_a_bank_is_refused():
-    bank, k = _module_bank("hyperadapt", 96, 64, 4, 10)
-    tad = {kk: _t(v).requires_grad_() for kk, v in bank.items()}
-    tad["ids"] = torch.from_numpy(k["ids"])
-    _, tp = _peft_pair("smollm-360m", "hyperadapt")
-    with pytest.raises(NotPortedError, match="training through an adapter"):
-        T.adapted_dense(_t(k["x"]), _t(k["w"]), None, tad, tp)
 
 
 @functools.lru_cache(maxsize=None)

@@ -902,3 +902,192 @@ def test_weight_mode_smoke_train_step_on_the_card_matches_the_cpu(
     want = dict(flatten_with_paths(cpu["adapters"]))
     for path, leaf in flatten_with_paths(card["adapters"]):
         assert _max_err(leaf.detach(), want[path].detach()) < 1e-4, path
+
+
+# ---------------------------------------------------------------------------
+# Training through a bank: the bank backwards
+# ---------------------------------------------------------------------------
+
+# (B, S, d, f, n, A): decode (S = 1), a train-like S = 16 and a ragged
+# S = 100 (tiles of 32 rows never straddle two sequences) at smollm-360m
+# widths with a 64-tenant bank, n ∈ {8, 32}, and small ragged widths
+BANK_BWD_SHAPES = [(4, 1, 960, 2560, 8, 64), (4, 16, 960, 320, 32, 64),
+                   (3, 100, 2560, 960, 32, 64), (3, 5, 120, 70, 8, 5)]
+
+
+def _bank_bwd_ids(ids, a):
+    """Phase-2 style ids with a negative one: [5, 17, 5, ..., A − 1] with
+    the second replaced by −1 (tenant A − 1 twice, from both ends)."""
+    out = ids.clone()
+    if out.numel() > 2:
+        out[1] = -1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,f,n,a", BANK_BWD_SHAPES)
+def test_bank_backward_kernels_match_plain_versions(cuda_device, b, s, d, f,
+                                                    n, a, dtype):
+    """householder_gemm_batched_bwd (dx, ĝ_seq, du_bank),
+    householder_gemm_batched_dw and etherplus_reflect_batched_bwd against
+    their plain versions; untouched tenants exactly zero; bitwise the same
+    on a second run."""
+    from repro_torch.kernels import batched
+    x, w, k, ids = _bank_inputs(cuda_device, b, s, d, f, n, a, dtype)
+    ids = _bank_bwd_ids(ids, a)
+    rng = np.random.default_rng(b + s + d)
+    g = torch.from_numpy(rng.standard_normal((b, s, f), np.float32)).to(
+        cuda_device, dtype)
+    gd = torch.from_numpy(rng.standard_normal((b, s, d), np.float32)).to(
+        cuda_device, dtype)
+    named = set(ref.bank_index(ids, a).tolist())
+    ops.reset_launches()
+    dx, dw, du = ops.householder_gemm_batched_bwd(x, w, k["u"], ids, g,
+                                                  need_dw=True)
+    ex, eu, ev = ops.etherplus_reflect_batched_bwd(x, k["u"], k["v"], ids,
+                                                   gd)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(householder_gemm_batched_bwd=1,
+                                       householder_gemm_batched_dw=1,
+                                       etherplus_reflect_batched_bwd=1)
+    pdx, pgh = ref.ref_householder_gemm_batched_bwd(x, w, k["u"], ids, g)
+    pdw = ref.ref_householder_gemm_batched_dw(x, k["u"], ids, g, dtype)
+    pex, pgu, pgv = ref.ref_etherplus_reflect_batched_bwd(x, k["u"], k["v"],
+                                                          ids, gd)
+    assert _max_err(dx, pdx) < TOL[dtype]
+    assert _max_err(dw, pdw) < TOL[dtype]
+    assert _max_err(ex, pex) < TOL[dtype]
+    for got, want in ((du, ref.bank_grad(k["u"], ids, pgh)),
+                      (eu, ref.bank_grad(k["u"], ids, pgu)),
+                      (ev, ref.bank_grad(k["v"], ids, pgv))):
+        assert _frob(got, want) < DU_TOL
+        for t in range(a):
+            assert (got[t].abs().max().item() > 0) == (t in named), t
+    # the per-sequence ĝ, the Pallas kernels' second (and third) outputs
+    err, _, gh, _ = batched.householder_gemm_batched_bwd(x, w, k["u"], ids, g)
+    assert err == 0 and _frob(gh, pgh) < DU_TOL
+    err, _, gu, gv, _, _ = batched.etherplus_reflect_batched_bwd(
+        x, k["u"], k["v"], ids, gd)
+    assert err == 0 and _frob(gu, pgu) < DU_TOL and _frob(gv, pgv) < DU_TOL
+    # no float atomics: the same bits again
+    again = ops.householder_gemm_batched_bwd(x, w, k["u"], ids, g,
+                                             need_dw=True)
+    for p, q in zip((dx, dw, du), again):
+        assert torch.equal(p, q)
+    for p, q in zip((ex, eu, ev), ops.etherplus_reflect_batched_bwd(
+            x, k["u"], k["v"], ids, gd)):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("need_dw", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,f,n,a", BANK_BWD_SHAPES)
+def test_bank_backward_compositions_match_plain_versions(
+        cuda_device, b, s, d, f, n, a, dtype, need_dw):
+    """DeLoRA's and HyperAdapt's bank backwards (their kernels: the bank
+    forwards on Wᵀ, reflect_gemm_dw with a zero hyperplane for dW) against
+    their plain versions."""
+    x, w, k, ids = _bank_inputs(cuda_device, b, s, d, f, n, a, dtype)
+    ids = _bank_bwd_ids(ids, a)
+    g = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (b, s, f), np.float32)).to(cuda_device, dtype)
+    cases = {
+        "delora": (lambda m: m.delora_gemm_batched_bwd(
+            x, w, k["a"], k["b"], k["s"], ids, g, need_dw=need_dw)
+            if m is ops else m.ref_delora_gemm_batched_bwd(
+                x, w, k["a"], k["b"], k["s"], ids, g, need_dw=need_dw),
+            _launched(delora_gemm_batched=1, reflect_gemm_dw=int(need_dw))),
+        "hyperadapt": (lambda m: m.hyperadapt_gemm_batched_bwd(
+            x, w, k["r"], k["c"], ids, g, need_dw=need_dw)
+            if m is ops else m.ref_hyperadapt_gemm_batched_bwd(
+                x, w, k["r"], k["c"], ids, g, need_dw=need_dw),
+            _launched(hyperadapt_gemm_batched=2,
+                      reflect_gemm_dw=int(need_dw)))}
+    for name, (run, want_launches) in cases.items():
+        ops.reset_launches()
+        got = run(ops)
+        torch.cuda.synchronize()
+        assert ops.launches() == want_launches, name
+        for i, (p, q) in enumerate(zip(got, run(ref))):
+            assert (p is None) == (q is None), (name, i)
+            if q is not None:
+                assert _max_err(p, q) < TOL[dtype], (name, i)
+
+
+def test_bank_backward_wrappers_refuse_on_the_card_without_fallback(
+        cuda_device):
+    x, w, k, ids = _bank_inputs(cuda_device, 2, 3, 96, 64, 4, 3,
+                                torch.float32)
+    g = torch.zeros(2, 3, 64, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="g must be"):
+        ops.householder_gemm_batched_bwd(x, w, k["u"], ids, g[:, :2],
+                                         need_dw=False)
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.etherplus_reflect_batched_bwd(x, k["u"], k["v"], ids,
+                                          torch.zeros_like(x).cpu())
+    with pytest.raises(ops.KernelInputError, match="int32 or int64"):
+        ops.delora_gemm_batched_bwd(x, w, k["a"], k["b"], k["s"],
+                                    ids.float(), g, need_dw=False)
+    with pytest.raises(ops.KernelInputError, match="c_bank must be"):
+        ops.hyperadapt_gemm_batched_bwd(x, w, k["r"], k["c"][:, :5], ids, g,
+                                        need_dw=False)
+    assert ops.launches() == _launched()
+
+
+@pytest.mark.parametrize("method", ["ether", "etherplus", "delora",
+                                    "hyperadapt"])
+def test_bank_smoke_train_steps_on_the_card_match_the_cpu(cuda_device,
+                                                          method):
+    """Two steps through a bank of 8 tenants at smoke width (every tenant
+    off its identity), on both devices: every adapted linear's forward and
+    backward on its bank kernels on the card, the losses, grad norms and
+    bank updates as on the CPU, untouched tenants unmoved."""
+    cfg = get_config("smollm-360m", "smoke")
+    pc = PEFTConfig(method=method, n_blocks=8, rank=8, alpha=8.0,
+                    targets=peft_targets("smollm-360m"))
+    params = init_model(cfg, seed=0, device="cpu")
+    bank = init_adapter_bank(1, params, pc, 8)
+    gen = torch.Generator().manual_seed(3)
+
+    def move(path, t):
+        fn = BANK_MOVES.get(path.rsplit("/", 1)[-1])
+        return t if fn is None else fn(t, torch.randn(t.shape, generator=gen))
+    tree = map_with_paths(move, bank.tree)
+    stream = SyntheticLMStream(vocab=cfg.vocab, batch=3, seq_len=16, seed=0)
+    ids = torch.tensor([5, 1, 5], dtype=torch.int32)
+    opt = adamw(schedules.constant(1e-2))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        bk = AdapterBank(_to(tree, dev), 8, bank.stack_ndims)
+        state = steps.make_bank_state(_to(params, dev), bk, opt)
+        step = steps.make_bank_train_step(cfg, pc, opt, bk)
+        execute.reset_counters()
+        ops.reset_launches()
+        metrics = []
+        for i in range(2):
+            batch = {kk: torch.from_numpy(v).long().to(dev)
+                     for kk, v in stream.batch_at(i).items()}
+            state, m = step(state, batch, ids.to(dev))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(dev)] = (state, metrics, execute.counters(), ops.launches())
+    (card, cm, calls, launched), (cpu, pm, _, _) = runs["cuda"], runs["cpu"]
+    op = {"ether": "householder_gemm_batched",
+          "etherplus": "etherplus_reflect_batched"}.get(
+              method, f"{method}_gemm_batched")
+    n = 7 * cfg.n_layers * 2 * (2 if method == "etherplus" else 1)
+    assert calls == {f"{op}.cuda": n, f"{op}_bwd.cuda": n}
+    fwd = {"delora": 2 * n, "hyperadapt": 3 * n}.get(method, n)
+    bwd = ({f"{op}_bwd": n} if method in ("ether", "etherplus") else {})
+    assert launched == _launched(**{op: fwd}, **bwd)
+    for (cl, cg), (pl, pg) in zip(cm, pm):
+        assert abs(cl - pl) / pl < 1e-5 and abs(cg - pg) / pg < 1e-4
+    init = dict(flatten_with_paths(tree))
+    for path, leaf in flatten_with_paths(card["bank"]):
+        upd, want = leaf.cpu() - init[path], (
+            dict(flatten_with_paths(cpu["bank"]))[path] - init[path])
+        assert _frob(upd, want) < 1e-3, path
+        nd = bank.stack_ndims[path.rsplit("/", 1)[0]]
+        for t in (0, 2, 3, 4, 6, 7):                 # no id names them
+            assert torch.equal(leaf.select(nd, t).cpu(),
+                               init[path].select(nd, t)), (path, t)

@@ -18,7 +18,9 @@ DeLoRA and HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
 training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
 serving of ether, etherplus, delora or hyperadapt), ``mergerows``
 (phase 2's merge backward rows), ``weight:<method>`` (phase 13's
-weight-mode training, then for ether and etherplus its blockgemm run).
+weight-mode training, then for ether and etherplus its blockgemm run),
+``bankbwdrows`` (phase 2's bank backward rows), ``banktrain:<method>``
+(phase 14's training through a bank).
 """
 
 import os
@@ -102,6 +104,20 @@ def fake_card():
         0, *ref.ref_merge_left_bwd(w, u, g, v, need_dw=need_dw))
     merge_bwd.launch_right = lambda w, u, v, g: (
         0, *ref.ref_etherplus_reflect_bwd(w, u, v, g))
+    from repro_torch.kernels import batched
+
+    def hh_bwd(x, w, u, ids, g):
+        dx, gh = ref.ref_householder_gemm_batched_bwd(x, w, u, ids, g)
+        return 0, dx, gh, ref.bank_grad(u, ids, gh)
+
+    def ep_bwd(x, u, v, ids, g):
+        dx, gu, gv = ref.ref_etherplus_reflect_batched_bwd(x, u, v, ids, g)
+        return 0, dx, gu, gv, ref.bank_grad(u, ids, gu), ref.bank_grad(
+            v, ids, gv)
+    batched.householder_gemm_batched_bwd = hh_bwd
+    batched.householder_gemm_batched_dw = lambda x, u, ids, g: (
+        0, ref.ref_householder_gemm_batched_dw(x, u, ids, g, x.dtype))
+    batched.etherplus_reflect_batched_bwd = ep_bwd
 
 
 def small(cs, failed):
@@ -114,6 +130,8 @@ def small(cs, failed):
     cs.ROWS, cs.BWD_ROWS, cs.BWD_RAGGED = (4, 20), (40,), 37
     cs.BANK_ROWS = ((4, 1), (8, 5), (4, 3))
     cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_STEPS, cs.TRAIN_CKPT = 2, 20, 4, 2
+    cs.BANK_BWD_ROWS = ((4, 1), (2, 20), (4, 7))
+    cs.BANK_TRAIN_IDS = [5, cs.BANK_TENANTS - 1]
     cs.GEN = 4
     cs.timed_ms = lambda torch, fns: (fns[0](), 0.0)[1]
     cs.phase_device_and_build = lambda torch, build: "cpu rehearsal"
@@ -156,6 +174,15 @@ def main(parts):
                                cs.moved_off_init(torch, method))
             if method in ("ether", "etherplus"):
                 cs.phase_blockgemm(torch, execute, ops, method, r)
+        elif name == "bankbwdrows":
+            from repro_torch.kernels import batched
+            print(len(cs.bank_bwd_rows(torch, ops, ref, batched)), "rows")
+        elif name == "banktrain":
+            single = {"steady_ms": 1.0, "tokens_per_s": 1.0, "peak_gb": 0.0,
+                      "trace": {"device_busy_ms": 0.0,
+                                "top_level_ops": {"aten": 0}}}
+            cs.phase_bank_train(torch, execute, ops, api, method, single,
+                                "cpu rehearsal")
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
