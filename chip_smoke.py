@@ -105,6 +105,20 @@
    rows, a restore from the step-TRAIN_CKPT checkpoint of the bank's
    state bitwise equal, the step's trace; each step printed beside the
    method's single-tenant activation step.
+15. Serve Mamba-2: mamba2-1.3b ``full()`` (48 layers, d_model 2048, 64
+   heads of 64, state 128, chunk 256, bf16, random weights from a seed)
+   with ETHER n_blocks 8 on in_proj and out_proj, B = 4 at P = 600 (three
+   chunks, the last padded) and at P = 32 (one short chunk), 16 new
+   tokens, through ``serve.generate`` unmerged and merged: counted (every
+   prefill layer's scan on the SSD kernel ``ssd_chunk`` as
+   ``ssd_chunked.cuda``, the adapted linears on ``householder_gemm`` or
+   merged by ``ether_merge``, no plain call), merged vs unmerged and the
+   kernels' path vs the plain path to MAMBA_TOL in bf16 with the adapters
+   moving the logits by more, and the same model in float32 to
+   MAMBA_TOL's f32 limit, a right-padded batch with true lengths against
+   each row's unpadded prompt (logits, next token, state); prints prefill
+   ms, decode ms per token, peak memory and, from traces of a prefill and
+   of the decode step, the device's idle share.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -129,7 +143,12 @@ per-sequence ĝ, ``householder_gemm_batched_dw``,
 ``etherplus_reflect_batched_bwd``) and DeLoRA's and HyperAdapt's bank
 backward compositions are held at smollm-360m's linears with a 64-tenant
 bank at BANK_BWD_ROWS (decode, the train step's 8 × 128, a ragged S =
-100), n ∈ {8, 32}, bf16 and f32 (see bank_bwd_rows).
+100), n ∈ {8, 32}, bf16 and f32 (see bank_bwd_rows).  The SSD kernel
+``ssd_chunk`` is held to TOL against its plain version at mamba2-1.3b's
+scan (B·H = 4·64, P = 64, N = 128, chunk 256, b and c in bf16) at S ∈ {32,
+600 padded to 768, 2048} and timed beside it (see ssd_kernel_rows);
+``householder_gemm`` and ``ether_merge`` are also timed at mamba2-1.3b's
+in_proj (2048×8512) and out_proj (4096×2048).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -248,6 +267,37 @@ WEIGHT_STEPS = {"ether": (None, None), "etherplus": (None, None),
 # element, which moved the losses by 6.5e-5 (ETHER) and 1.3e-4 (ETHER+)
 # on the H100 (PERF.md); 2e-3 catches a wrong block or side
 BLOCKGEMM_STEPS, BLOCKGEMM_TOL = 3, 2e-3
+# phase 15: mamba2-1.3b full() (48 layers, d_model 2048, 64 heads of 64,
+# state 128, chunk 256), ETHER n_blocks 8 on in_proj/out_proj, B = 4 at
+# P = 600 (three chunks, the last padded) and P = 32 (one short chunk),
+# GEN new tokens; a padded batch's true lengths (each row's next token
+# against its unpadded prompt's)
+MAMBA_ARCH, MAMBA_PROMPTS, MAMBA_TRUE_LENS = ("mamba2-1.3b", (600, 32),
+                                               [600, 437, 32, 1])
+# phase 15's logits, relative Frobenius.  float32: the same model in f32,
+# kernels vs plain path and merged vs unmerged, sums in another order
+# (the smoke model's CPU tests hold 3e-5).  bf16: two paths whose bf16
+# roundings fall at different places part further through 48 recurrent
+# layers than through smollm-360m's 32: merged vs unmerged 6.58e-2, the
+# kernels vs the plain path 4.75e-2 (PERF.md, run AF), and 6.53e-2 and
+# 4.66e-2 on the second of MAMBA_SEEDS (run AJ); 1e-1 stays 10x
+# below the adapters' own effect on the logits (1.02), which is checked
+MAMBA_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
+# phase 15 builds its model from the first seed and holds the bf16 paths
+# again on a model from the second
+MAMBA_SEEDS = (0, 10)
+# a right-padded row against its unpadded prompt: the SSM state bitwise
+# equal, the logits to this relative Frobenius norm (measured 9.8e-8 to
+# 1.0e-7, PERF.md), the next token equal
+MAMBA_PAD_TOL = 1e-6
+# phase 2's SSD rows: mamba2-1.3b's scan at B·H = 4·64, P = 64, N = 128,
+# one group, chunk 256, b and c in bf16 (the model's), at S = 32, 600
+# (padded to 768, as ssd_chunked pads) and 2048
+SSD_SHAPE, SSD_SEQS = dict(b=4, h=64, p=64, g=1, n=128, chunk=256), (32, 600,
+                                                                    2048)
+# phase 2 also times householder_gemm and ether_merge at mamba2-1.3b's
+# adapted linears, in_proj 2048×8512 and out_proj 4096×2048
+SSM_LINEARS = {"mamba2-1.3b": [(2048, 8512), (4096, 2048)]}
 
 
 class SmokeFailure(RuntimeError):
@@ -296,8 +346,13 @@ def launched(result):
     return result[1:] if len(result) > 2 else result[1]
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
+def bound(nbytes: float, flops, dtype: str = "") -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of memory traffic and ``flops``
+    at ``dtype``'s peak, or for ``flops`` given as {dtype: count}, whose
+    times add; and which of the two bounds it."""
+    by_type = flops if isinstance(flops, dict) else {dtype: flops}
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(f / PEAK_FLOP_S[d] for d, f in by_type.items())
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -340,7 +395,7 @@ def phase_kernels(torch, ops, ref):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
-        for arch, shapes in LINEARS.items():
+        for arch, shapes in {**LINEARS, **SSM_LINEARS}.items():
             for d, f in shapes:
                 w0 = torch.randn(d, f, generator=gen, device="cuda") / d ** .5
                 ws = [w0.to(dt).clone() for _ in range(copies(d * f * es))]
@@ -1294,6 +1349,72 @@ def merge_bwd_rows(torch, ops, ref, kmb):
     return rows
 
 
+def ssd_kernel_rows(torch, ops, ref):
+    """Phase 2's SSD rows: ``ssd_chunk`` against ``ref_ssd_chunk`` on the
+    same card tensors at mamba2-1.3b's scan (SSD_SHAPE) for each S of
+    SSD_SEQS, padded to a chunk multiple as ``ssd_chunked`` pads; a in the
+    model's range (−softplus of N(0, 1)).  Each output to TOL (f32:
+    both compute in float32; the kernel takes the chunk's cumsum as a warp
+    scan); the kernel and its plain version timed (CUDA events, warmed
+    up); the bound from the bytes (each input read once, each output
+    written once) and the operations the causal triangle needs: the
+    scores c_i·b_j once per group and chunk, from bf16 operands (the
+    bf16 rate), the weighted sum over xv and the state once per head and
+    chunk, in float32."""
+    print("== phase 2: the SSD kernel against its plain version", flush=True)
+    k = SSD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+
+    def held(got, want, name):
+        if want.abs().max().item() == 0:    # exp(cum_L) underflows at L = 256
+            check(torch.equal(got, want), f"ssd_chunk {name} is not 0 where "
+                  f"its plain version underflows to 0")
+            return 0.0, 0.0
+        return compare(got, want, "float32", f"ssd_chunk {name}")
+    for seq in SSD_SEQS:
+        L = min(k["chunk"], seq)
+        s = -(-seq // L) * L
+        nc = s // L
+
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        xv = draw(k["b"], s, k["h"], k["p"])
+        a = -torch.nn.functional.softplus(draw(k["b"], s, k["h"]))
+        bb = (0.5 * draw(k["b"], s, k["g"], k["n"])).bfloat16()
+        cc = (0.5 * draw(k["b"], s, k["g"], k["n"])).bfloat16()
+        got = ops.ssd_chunk(xv, a, bb, cc, L)
+        want = ref.ref_ssd_chunk(xv, a, bb, cc, L)
+        errs = [held(g, w, name) for g, w, name in zip(
+            got, want, ("y_intra", "states", "decays"))]
+        del got, want
+        bh = k["b"] * k["h"]
+        nbytes = (4 * (xv.numel() + a.numel()) + 2 * (bb.numel()
+                                                      + cc.numel())
+                  + 4 * (xv.numel() + bh * nc * k["n"] * k["p"] + bh * nc))
+        flops = {"float32": bh * nc * (L * (L + 1) * k["p"]
+                                       + 2 * L * k["n"] * k["p"]),
+                 "bfloat16": k["b"] * k["g"] * nc * L * (L + 1) * k["n"]}
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            kernel="ssd_chunk", arch=MAMBA_ARCH, dtype="float32", t=seq,
+            s_padded=s, **dict(k, chunk=L), max_abs_err=max(e for e, _ in errs),
+            rel_err=max(r for _, r in errs), tol=TOL["float32"],
+            ms=timed_ms(torch, [lambda: ops.ssd_chunk(xv, a, bb, cc, L)]),
+            plain_ms=timed_ms(torch, [
+                lambda: ref.ref_ssd_chunk(xv, a, bb, cc, L)]),
+            matmul_ms=None, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            gflop=sum(flops.values()) / 1e9, mbytes=nbytes / 1e6))
+        print("  ssd_chunk        {arch} B·H={bh} S={t} (padded {s_padded}, "
+              "L={chunk}) P={p} N={n}  err {rel_err:.2e} (tol {tol:g})  "
+              "{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+              "({bound_by}: {gflop:.2f} GFLOP, {mbytes:.1f} MB)".format(
+                  bh=bh, **rows[-1]), flush=True)
+        del xv, a, bb, cc
+    torch.cuda.synchronize()
+    return rows
+
+
 def layer_summary(rows, kernel, n, t, **match):
     """Sum over one smollm-360m layer's seven linears (bf16, ``n``
     blocks, ``t`` rows; None for the merges; the rows whose other keys
@@ -1617,6 +1738,223 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches")},
                 traces=traces)
+
+
+def mamba_f32(torch, serve, api, cfg, peft, tokens):
+    """Phase 15's float32 hold: mamba2-1.3b at full width and depth in
+    float32 (weights and adapters from phase 15's seeds), one prefill of
+    ``tokens`` on the kernels (``ssd_chunk``, ``householder_gemm``)
+    against the plain path and against the merged model, each to
+    MAMBA_TOL["float32"]: what is left of the bf16 runs' disagreement
+    after the rounding is gone."""
+    import dataclasses
+
+    from repro_torch.core.peft import init_adapters, merge_params
+    c32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params = api.init_model(c32, seed=0, device="cuda")
+    adapters = init_adapters(torch.Generator(device="cuda").manual_seed(1),
+                             params, peft)
+    batch = {"tokens": tokens}
+    _, kern = api.prefill(params, adapters, batch, c32, peft)
+    _, plain = api.prefill(params, adapters, batch, c32,
+                           dataclasses.replace(peft, backend="torch"))
+    _, merged = api.prefill(merge_params(params, adapters, peft), None,
+                            batch, c32, None)
+    out = {"kernels_vs_plain": frob(kern, plain),
+           "merged_vs_unmerged": frob(merged, kern)}
+    tol = MAMBA_TOL["float32"]
+    print(f"float32, P={tokens.shape[1]}: kernels vs plain path logits rel. "
+          f"Frobenius {out['kernels_vs_plain']:.3e}, merged vs unmerged "
+          f"{out['merged_vs_unmerged']:.3e} (tol {tol:g})", flush=True)
+    check(max(out.values()) <= tol, "mamba2 in float32: the kernels' path "
+          "disagrees with the plain path or the merged model")
+    return out
+
+
+def mamba_bf16_seed(torch, serve, api, seed):
+    """Phase 15's bf16 hold on a second model: mamba2-1.3b ``full()``
+    with weights, adapters and prompts from ``seed``, one prefill of
+    B = 4 at the longest prompt of MAMBA_PROMPTS on the kernels against
+    the plain path and against the merged model, each to
+    MAMBA_TOL["bfloat16"], the adapters moving the logits by more."""
+    import dataclasses
+
+    from repro_torch.core.peft import merge_params
+    m = serve.build(arch=MAMBA_ARCH, variant="full", n_blocks=N_BLOCKS,
+                    batch=B, prompt_len=max(MAMBA_PROMPTS), seed=seed,
+                    device="cuda")
+    cfg, peft, params, adapters = (m[k] for k in ("cfg", "peft", "params",
+                                                  "adapters"))
+    batch = {"tokens": m["tokens"]}
+    _, kern = api.prefill(params, adapters, batch, cfg, peft)
+    _, plain = api.prefill(params, adapters, batch, cfg,
+                           dataclasses.replace(peft, backend="torch"))
+    _, merged = api.prefill(merge_params(params, adapters, peft), None,
+                            batch, cfg, None)
+    _, frozen = api.prefill(params, None, batch, cfg, None)
+    out = {"adapter_effect": frob(kern, frozen),
+           "kernels_vs_plain": frob(kern, plain),
+           "merged_vs_unmerged": frob(merged, kern)}
+    tol = MAMBA_TOL["bfloat16"]
+    print(f"seed {seed}, bfloat16, P={batch['tokens'].shape[1]}: adapters "
+          f"vs frozen model {out['adapter_effect']:.3e} (must exceed "
+          f"{tol:g}), kernels vs plain path {out['kernels_vs_plain']:.3e}, "
+          f"merged vs unmerged {out['merged_vs_unmerged']:.3e} (tol "
+          f"{tol:g})", flush=True)
+    check(out["adapter_effect"] > tol
+          and max(out["kernels_vs_plain"], out["merged_vs_unmerged"]) <= tol,
+          f"mamba2 serving paths disagree in bf16 on seed {seed}")
+    return out
+
+
+def phase_serve_mamba(torch, execute, ops, serve, api):
+    """Phase 15: mamba2-1.3b ``full()`` (48 layers at full width, random
+    weights from seed 0) with ETHER n_blocks 8 on in_proj and out_proj,
+    served for B = 4 at each prompt length of MAMBA_PROMPTS through
+    ``serve.generate``, unmerged and after ``merge_params``, each run
+    counted from 0: every prefill layer's chunked scan on ``ssd_chunk``
+    (``ssd_chunked.cuda``), every adapted linear on ``householder_gemm``
+    (or merged once by ``ether_merge``), no plain version.  Held: merged
+    vs unmerged and the kernels' path vs the plain path (backend torch:
+    the plain SSD dual form and reflections) to MAMBA_TOL, in bf16 and
+    (:func:`mamba_f32`) in float32, the adapters moving the logits by
+    more, and again on a model from the second of MAMBA_SEEDS
+    (:func:`mamba_bf16_seed`); a right-padded batch with true lengths
+    MAMBA_TRUE_LENS against each row's unpadded prompt (its state bitwise,
+    its logits to MAMBA_PAD_TOL, its next token).  Prints prefill ms, decode
+    ms per token, peak memory and, from traces of a prefill and of the
+    decode step, the device's idle share."""
+    import dataclasses
+
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.core.peft import merge_params
+    m = serve.build(arch=MAMBA_ARCH, variant="full", n_blocks=N_BLOCKS,
+                    batch=B, prompt_len=max(MAMBA_PROMPTS),
+                    seed=MAMBA_SEEDS[0], device="cuda")
+    cfg, peft, params, adapters, prompts = (m[k] for k in (
+        "cfg", "peft", "params", "adapters", "tokens"))
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for _, t in flatten_with_paths(params))
+    heads = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+    print(f"== phase 15: serve {MAMBA_ARCH} full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {heads} heads of "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, {cfg.param_dtype}), ETHER n_blocks={N_BLOCKS} "
+          f"on in_proj/out_proj, B={B}, P in {MAMBA_PROMPTS}, gen={GEN}",
+          flush=True)
+    n = cfg.n_layers
+    none = dict.fromkeys(ops.launches(), 0)
+    out = {}
+    for plen in MAMBA_PROMPTS:
+        tokens = prompts[:, :plen].contiguous()
+
+        def merged():
+            t0 = time.perf_counter()
+            mp = merge_params(params, adapters, peft)
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - t0
+            return dict(serve.generate(mp, None, tokens, cfg, None, GEN),
+                        merge_s=merge_s)
+
+        print(f"-- prompt length {plen} (chunk "
+              f"{min(cfg.ssm_chunk, plen)}, padded to "
+              f"{-(-plen // cfg.ssm_chunk) * min(cfg.ssm_chunk, plen)})",
+              flush=True)
+        un = counted(torch, execute, ops, lambda: dict(serve.generate(
+            params, adapters, tokens, cfg, peft, GEN), merge_s=None))
+        mg = counted(torch, execute, ops, merged)
+        # two prefills a run (warm-up, timed), one scan a layer each; the
+        # two adapted linears of every layer in every forward
+        scans, hh = 2 * n, 2 * n * un["forwards"]
+        want = {"unmerged": ({"householder_gemm.cuda": hh,
+                              "ssd_chunked.cuda": scans},
+                             {**none, "householder_gemm": hh,
+                              "ssd_chunk": scans}),
+                "merged": ({"ether_merge.cuda": 2 * n,
+                            "ssd_chunked.cuda": scans},
+                           {**none, "ether_merge": 2 * n,
+                            "ssd_chunk": scans})}
+        check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
+        check(all(r["counters"].get("ssd_chunked.cuda", 0) > 0
+                  and r["launches"]["ssd_chunk"] > 0 for r in (un, mg)),
+              "a Mamba-2 serving path launched no SSD kernel")
+
+        # outside the counted runs: the frozen model, and the plain path
+        base = serve.generate(params, None, tokens, cfg, None, 4)
+        plain = serve.generate(params, adapters, tokens, cfg,
+                               dataclasses.replace(peft, backend="torch"), 4)
+        effect = frob(un["logits"], base["logits"])
+        merged_err = frob(mg["logits"], un["logits"])
+        plain_err = frob(un["logits"], plain["logits"])
+        tol = MAMBA_TOL["bfloat16"]
+        print(f"adapters vs frozen model: logits rel. Frobenius "
+              f"{effect:.3e} (must exceed {tol:g})")
+        print(f"merged vs unmerged: logits rel. Frobenius {merged_err:.3e} "
+              f"(tol {tol:g}), greedy tokens agree "
+              f"{agree(mg['tokens'], un['tokens']) * 100:.1f}%")
+        print(f"kernels vs plain path: logits rel. Frobenius "
+              f"{plain_err:.3e} (tol {tol:g}), greedy tokens agree "
+              f"{agree(un['tokens'][:, :5], plain['tokens']) * 100:.1f}%")
+        check(effect > tol, f"the adapters moved the logits by only "
+              f"{effect:.3e}")
+        check(merged_err <= tol and plain_err <= tol,
+              f"mamba2 serving paths disagree at P={plen}")
+
+        def one_prefill():
+            api.prefill(params, adapters, {"tokens": tokens}, cfg, peft)
+            torch.cuda.synchronize()
+        traces = {"prefill": trace_steps(torch, one_prefill, 1),
+                  "decode": trace_decode(torch, api, TRACE_STEPS, params,
+                                         adapters, tokens, cfg, peft)}
+        print_trace(f"mamba2 P={plen} prefill", traces["prefill"],
+                    un["prefill_s"] * 1e3)
+        print_trace(f"mamba2 P={plen} decode", traces["decode"],
+                    un["per_token_s"] * 1e3)
+        out[plen] = dict(
+            adapter_effect=effect, merged_vs_unmerged=merged_err,
+            kernels_vs_plain=plain_err,
+            token_agreement=agree(mg["tokens"], un["tokens"]),
+            **{f"{name}_{k}": r[k] for name, r in
+               (("unmerged", un), ("merged", mg))
+               for k in ("prefill_s", "per_token_s", "peak_gb", "forwards",
+                         "merge_s", "counters", "launches")},
+            traces=traces)
+
+    # the same model in float32, outside the counted runs: the kernels'
+    # prefill against the plain path and the merged model
+    f32 = mamba_f32(torch, serve, api, cfg, peft, prompts[:, :max(
+        MAMBA_PROMPTS)].contiguous())
+
+    # right padding: each row's true length against its unpadded prompt
+    lens = torch.tensor(MAMBA_TRUE_LENS)
+    cache, logits = api.prefill(params, adapters, {"tokens": prompts}, cfg,
+                                peft, true_lens=lens)
+    padded = []
+    for r, ln in enumerate(MAMBA_TRUE_LENS):
+        one, want = api.prefill(params, adapters,
+                                {"tokens": prompts[r:r + 1, :ln].contiguous()},
+                                cfg, peft)
+        err = frob(logits[r:r + 1], want)
+        state_err = frob(cache["pos0"]["ssm"][:, r:r + 1], one["pos0"]["ssm"])
+        state_equal = torch.equal(cache["pos0"]["ssm"][:, r:r + 1],
+                                  one["pos0"]["ssm"])
+        got_tok, want_tok = (logits[r, -1].argmax().item(),
+                             want[0, -1].argmax().item())
+        padded.append(dict(true_len=ln, logits_rel=err, state_rel=state_err,
+                           state_equal=state_equal, token=got_tok,
+                           unpadded_token=want_tok))
+        print(f"true length {ln:3d} of {prompts.shape[1]}: logits rel. "
+              f"Frobenius {err:.3e} (tol {MAMBA_PAD_TOL:g}), state "
+              f"{state_err:.3e} (bitwise equal: {state_equal}); next token "
+              f"{got_tok} vs {want_tok} unpadded", flush=True)
+        check(err <= MAMBA_PAD_TOL and state_equal and got_tok == want_tok,
+              f"the padded prompt of true length {ln} differs from its "
+              f"unpadded prompt")
+    del cache, logits, one, want, params, adapters, m
+    second = mamba_bf16_seed(torch, serve, api, MAMBA_SEEDS[1])
+    return dict(prompts=out, padded=padded, float32=f32, second_seed=second,
+                weights_bytes=weights_bytes)
 
 
 BANK_OP = {"ether": "householder_gemm_batched",
@@ -2508,6 +2846,7 @@ def main() -> int:
                   lambda: merge_bwd_rows(torch, ops, ref, kmb))
     rows += timed("2 bank backward rows",
                   lambda: bank_bwd_rows(torch, ops, ref, kb))
+    rows += timed("2 ssd rows", lambda: ssd_kernel_rows(torch, ops, ref))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -2535,6 +2874,8 @@ def main() -> int:
     trained_bank = {method: timed(f"14 {method}", lambda: phase_bank_train(
         torch, execute, ops, api, method, activation[method], smi))
         for method in BANK_OP}
+    mamba = timed("15", lambda: phase_serve_mamba(torch, execute, ops, serve,
+                                                 api))
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -2556,6 +2897,9 @@ def main() -> int:
         paths[f"{method} blockgemm train"] = r["launches"]
     for method, r in trained_bank.items():
         paths[f"{method} bank train"] = r["launches"]
+    for plen, r in mamba["prompts"].items():
+        paths.update({f"mamba2 serve P={plen}": r["unmerged_launches"],
+                      f"mamba2 merge P={plen}": r["merged_launches"]})
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
@@ -2682,9 +3026,31 @@ def main() -> int:
                                 "ms", "plain_ms", "bound_ms", "bound_by",
                                 "matmul_ms", "max_abs_err")}}
         kernels.append(entry)
-    check(len(kernels) == 21, f"the kernels line lists {len(kernels)}")
+    # the SSD kernel: one mamba2-1.3b layer's scan of phase 15's main
+    # prefill (P = 600: S = 768 padded, B·H = 4·64), the other S beside it
+    ssd = {r["t"]: r for r in rows if r["kernel"] == "ssd_chunk"}
+    main_row = ssd[MAMBA_PROMPTS[0]]
+    by_path = {p: c["ssd_chunk"] for p, c in paths.items() if c["ssd_chunk"]}
+    check(sum(by_path.values()) > 0, "no main path launched ssd_chunk")
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:71",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in ssd.values()),
+        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+        "library_ms": None, "matmul_ms": None,
+        "shapes": f"one mamba2-1.3b layer's scan of the P={MAMBA_PROMPTS[0]} "
+                  f"prefill: B·H=4·64, S={main_row['s_padded']} (padded), "
+                  f"L={main_row['chunk']}, P=64, N=128, b and c bf16",
+        "by_seq": {seq: {k: r[k] for k in ("s_padded", "chunk", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by")}
+                   for seq, r in ssd.items()}})
+    check(len(kernels) == 22, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-14 took {total_s:.1f} s (" + ", ".join(
+    print(f"chip_smoke: phases 1-15 took {total_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2700,7 +3066,7 @@ def main() -> int:
                    **{f"{m}_blockgemm_train": r
                       for m, r in blockgemm.items()},
                    **{f"{m}_bank_train": r for m, r in trained_bank.items()},
-                   "kernels": kernels, "phase_seconds": seconds,
+                   "mamba2_serve": mamba, "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense decoders the serving
-slice runs.  Each module exports ``ARCH``, ``full()`` (the published
+"""Architecture registry of the port: the dense decoders and Mamba-2
+(serving only).  Each module exports ``ARCH``, ``full()`` (the published
 config), ``smoke()`` (the reduced CPU-test config) and ``PEFT_TARGETS``,
 as the JAX package's config modules do.  The other architectures are
 queued in ROADMAP.md."""
@@ -10,12 +10,13 @@ import importlib
 
 from repro_torch import NotPortedError
 
-ARCH_IDS = ["smollm_360m", "paper_llama2_7b"]
+ARCH_IDS = ["smollm_360m", "paper_llama2_7b", "mamba2_1p3b"]
 
 # CLI-friendly aliases → module names
 ALIASES = {
     "smollm-360m": "smollm_360m",
     "llama-2-7b": "paper_llama2_7b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 

@@ -20,6 +20,10 @@ which maps ``(op, backend)`` to an implementation:
 ``counters()`` counts the calls each ``op.backend`` pair ran, so a run
 can show which implementation it went through.
 
+Mamba-2's chunked scan ``ssd_chunked`` (``models/ssm.py``) dispatches
+here too: ``cuda`` runs its chunks on the SSD kernel (``ops.ssd_chunk``),
+``torch`` on their plain version (``ref.ref_ssd_chunk``).
+
 Training differentiates ``householder_gemm`` through
 :class:`HouseholderGemm`, ``etherplus_gemm`` through
 :class:`EtherPlusGemm`, ``delora_gemm`` through :class:`DeloraGemm` and
@@ -43,6 +47,16 @@ import torch
 from repro_torch.kernels import ops, ref
 
 BACKENDS = ("torch", "cuda", "auto")
+
+
+def _ssd_chunked(intra):
+    """``models.ssm.ssd_chunked`` with its chunks on ``intra``."""
+    def run(*args, **kwargs):
+        # imported at the call: models.ssm imports this module
+        from repro_torch.models.ssm import ssd_chunked
+        return ssd_chunked(*args, intra=intra, **kwargs)
+    return run
+
 
 _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("householder_gemm", "torch"): ref.ref_householder_gemm,
@@ -101,6 +115,9 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("hyperadapt_gemm_batched_bwd", "torch"):
         ref.ref_hyperadapt_gemm_batched_bwd,
     ("hyperadapt_gemm_batched_bwd", "cuda"): ops.hyperadapt_gemm_batched_bwd,
+    # Mamba-2's chunked scan (serving; no backward yet)
+    ("ssd_chunked", "torch"): _ssd_chunked(ref.ref_ssd_chunk),
+    ("ssd_chunked", "cuda"): _ssd_chunked(ops.ssd_chunk),
 }
 _COUNTERS: dict[str, int] = {}
 

@@ -27,8 +27,9 @@ launches its one kernel, which for ``householder_gemm_batched`` and
 ``etherplus_reflect_batched_bwd`` its kernel; ``delora_gemm_batched_bwd``
 launches ``delora_gemm_batched`` for dx and ``hyperadapt_gemm_batched_bwd``
 ``hyperadapt_gemm_batched`` twice, for z and y0, each ``reflect_gemm_dw``
-with a zero hyperplane only when asked for dW), so a run can show that its
-path went through the kernels.  The rank-r and per-feature cotangents of
+with a zero hyperplane only when asked for dW; ``ssd_chunk`` launches
+the SSD kernel once a call), so a run can show that its path went
+through the kernels.  The rank-r and per-feature cotangents of
 DeLoRA and HyperAdapt (and their scatter-add over a bank's ids) are a few
 thin PyTorch ops beside the kernels, as the JAX package leaves them to
 XLA.
@@ -53,6 +54,7 @@ from repro_torch.kernels import method_merge as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import reflect_gemm_dw as _dw
 from repro_torch.kernels import reflect_gemm_dx as _dx
+from repro_torch.kernels import ssd_scan as _ssd
 
 _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "reflect_gemm_dw": 0, "etherplus_gemm": 0,
@@ -64,7 +66,7 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "merge_left_bwd": 0, "merge_right_bwd": 0,
              "householder_gemm_batched_bwd": 0,
              "householder_gemm_batched_dw": 0,
-             "etherplus_reflect_batched_bwd": 0}
+             "etherplus_reflect_batched_bwd": 0, "ssd_chunk": 0}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -872,3 +874,66 @@ def hyperadapt_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
     dx, dr, dc = ref.hyperadapt_bank_cotangents(x, g, z, y0, r_bank, c_bank,
                                                 ids)
     return dx, dw, dr, dc
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunk scan
+# ---------------------------------------------------------------------------
+
+SSD_MAX_CHUNK, SSD_MAX_STATE = 256, 256
+
+
+def _check_ssd(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, chunk: int) -> None:
+    """``ssd_chunk``'s check: xv (B, S, H, P) f32, a (B, S, H) f32, b and
+    c (B, S, G, N) of one dtype, f32 or bf16, with H % G == 0,
+    N ≤ SSD_MAX_STATE, 1 ≤ chunk ≤ SSD_MAX_CHUNK and S % chunk == 0, all
+    contiguous on one device.  Raises KernelInputError naming the first
+    check the operands fail."""
+    named = {"xv": xv, "a": a, "b": b, "c": c}
+    shaped = xv.dim() == 4 and b.dim() == 4
+    B, S, H, P = xv.shape if xv.dim() == 4 else (-1,) * 4
+    G, N = b.shape[2:] if b.dim() == 4 else (-1, -1)
+    if not (xv.dtype == _F32 and shaped):
+        why = "xv must be a float32 (B, S, H, P) tensor"
+    elif a.dtype != _F32 or a.shape != (B, S, H):
+        why = "a must be float32 of shape (B, S, H)"
+    elif (b.shape[:2] != (B, S) or c.shape != b.shape
+          or b.dtype not in _ssd.DTYPE_CODE or c.dtype != b.dtype):
+        why = ("b and c must be (B, S, G, N) tensors of one dtype, float32 "
+               "or bfloat16")
+    elif G < 1 or H % G or not 1 <= N <= SSD_MAX_STATE:
+        why = (f"need H % G == 0 and 1 ≤ N ≤ {SSD_MAX_STATE} (the kernel "
+               f"stages 128 rows of N floats in shared memory)")
+    elif not 1 <= chunk <= SSD_MAX_CHUNK:
+        why = f"chunk must lie in [1, {SSD_MAX_CHUNK}]"
+    elif S % chunk:
+        why = "S must be a multiple of chunk (ssd_chunked pads)"
+    elif len({t.device for t in named.values()}) != 1:
+        why = "all operands must be on one device"
+    elif xv.device.type not in ("cpu", "cuda"):
+        why = "operands must be on the CPU or a CUDA device"
+    elif not all(t.is_contiguous() for t in named.values()):
+        why = "operands must be contiguous"
+    elif xv.numel() == 0 or b.numel() == 0:
+        why = "operands must not be empty"
+    else:
+        return
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in named.items())
+    raise KernelInputError(f"ssd_chunk refuses {desc}, chunk {chunk}: {why}")
+
+
+def ssd_chunk(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, chunk: int):
+    """The SSD intra-chunk dual form over chunks of ``chunk`` steps: xv
+    (B, S, H, P) f32, a (B, S, H) f32, b and c (B, S, G, N) f32 or bf16
+    (head h reads group h // (H/G)), S % chunk == 0.  Returns (y_intra
+    (B, S, H, P), states (B, H, nc, N, P), decays (B, H, nc)), float32;
+    see :func:`repro_torch.kernels.ref.ref_ssd_chunk`."""
+    _check_ssd(xv, a, b, c, chunk)
+    if xv.device.type == "cpu":
+        return ref.ref_ssd_chunk(xv, a, b, c, chunk)
+    err, y, states, decays = _ssd.launch(xv, a, b, c, chunk)
+    _launched("ssd_chunk", err)
+    return y, states, decays

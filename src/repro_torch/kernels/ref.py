@@ -686,3 +686,63 @@ def hyperadapt_bank_scaled(x, g, r_bank, c_bank, ids):
     cs = gather(c_bank, ids).float()[:, None, :]
     return ((x.float() * rs).to(x.dtype).reshape(-1, x.shape[-1]),
             (g.float() * cs).to(g.dtype).reshape(-1, g.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality): the chunk scan's plain versions
+# ---------------------------------------------------------------------------
+
+def ref_ssd_chunk_scan(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, chunk: Optional[int] = None):
+    """The SSD recurrence step by step, O(S·N): the oracle of the chunked
+    forms (the JAX package's ``ref.ref_ssd_chunk_scan``; ``chunk`` is
+    unused there too).  xv: (B, S, H, P) inputs; a: (B, S, H) log-decay;
+    b, c: (B, S, G, N) with H % G == 0, head h reading group h // (H/G).
+    state_t = exp(a_t)·state_{t−1} + b_t ⊗ x_t, y_t = c_t · state_t, from
+    a zero state, in float32; returns y (B, S, H, P) in xv's dtype."""
+    B, S, H, P = xv.shape
+    rep = H // b.shape[2]
+    bh = b.float().repeat_interleave(rep, dim=2)             # (B, S, H, N)
+    ch = c.float().repeat_interleave(rep, dim=2)
+    state = xv.new_zeros((B, H, b.shape[3], P), dtype=torch.float32)
+    ys = []
+    for t in range(S):
+        state = (torch.exp(a[:, t].float())[..., None, None] * state
+                 + bh[:, t, :, :, None] * xv[:, t].float()[:, :, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", ch[:, t], state))
+    return torch.stack(ys, dim=1).to(xv.dtype)
+
+
+def ref_ssd_chunk(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, chunk: int):
+    """The intra-chunk SSD dual form of ``ssd_chunk_pallas``
+    (src/repro/kernels/ssd_scan.py:52), for every (batch, head, chunk) of
+    L = ``chunk`` steps: cum = cumsum(a) within the chunk,
+    y_intra[i] = Σ_{j≤i} exp(cum_i − cum_j)·(c_i·b_j)·x_j,
+    state = Σ_j exp(cum_L − cum_j)·b_j ⊗ x_j and decay = exp(cum_L), all
+    in float32.  xv: (B, S, H, P); a: (B, S, H); b, c: (B, S, G, N),
+    head h reading group h // (H/G); S % chunk == 0.  The Pallas
+    kernel's (BH, S, P) operands with head-expanded b, c are the case
+    H = G = 1.  Returns (y_intra (B, S, H, P), states (B, H, nc, N, P),
+    decays (B, H, nc)), float32."""
+    B, S, H, P = xv.shape
+    G, N = b.shape[2], b.shape[3]
+    L, nc = chunk, S // chunk
+    x = xv.float().reshape(B, nc, L, H, P)
+    cum = a.float().reshape(B, nc, L, H).cumsum(dim=2)
+    ct = cum.transpose(2, 3)                                  # (B, nc, H, L)
+    causal = torch.ones(L, L, dtype=torch.bool, device=xv.device).tril()
+    # exp of a difference, ≤ 1 on and below the diagonal; 0 above it
+    decay = torch.exp((ct[..., :, None] - ct[..., None, :])
+                      .masked_fill(~causal, float("-inf")))
+    bg = b.float().reshape(B, nc, L, G, N)
+    cg = c.float().reshape(B, nc, L, G, N)
+    cb = torch.einsum("bclgn,bcsgn->bcgls", cg, bg)         # (B, nc, G, L, L)
+    scores = decay.reshape(B, nc, G, H // G, L, L) * cb[:, :, :, None]
+    y = torch.einsum("bchls,bcshp->bclhp",
+                     scores.reshape(B, nc, H, L, L), x)
+    w_in = torch.exp(cum[:, :, -1:] - cum)                    # (B, nc, L, H)
+    bh = bg.repeat_interleave(H // G, dim=3)                  # (B, nc, L, H, N)
+    states = torch.einsum("bclhn,bclh,bclhp->bhcnp", bh, w_in, x)
+    decays = torch.exp(cum[:, :, -1]).transpose(1, 2)         # (B, H, nc)
+    return y.reshape(B, S, H, P), states, decays.contiguous()

@@ -22,6 +22,7 @@ from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.core.peft import AdapterBank, init_adapters, trainable_mask
 from repro_torch.core.transforms import PEFTConfig
 from repro_torch.models.api import init_model, resolve_device, train_loss
+from repro_torch.models.backbone import check_trainable
 from repro_torch.optim import (GradientTransformation, apply_updates,
                                global_norm)
 
@@ -68,7 +69,9 @@ def make_train_step(cfg, peft: Optional[PEFTConfig],
     optimizer on the adapter tree (the base params under full
     finetuning).  ``batch`` holds (B, S) ``tokens`` and ``labels`` tensors
     on the state's device; ``metrics`` are 0-d device tensors (``loss``,
-    ``grad_norm``), left for the caller to read back."""
+    ``grad_norm``), left for the caller to read back.  Raises
+    NotPortedError for a config the port does not train (Mamba-2)."""
+    check_trainable(cfg)
     key = "params" if _full(peft) else "adapters"
 
     def step(state: Params, batch: dict):
@@ -120,7 +123,9 @@ def make_bank_train_step(cfg, peft: PEFTConfig, opt: GradientTransformation,
     what the JAX package does with ``jax.value_and_grad`` over
     ``bank.tree``.  A tenant no id names gets a zero gradient (AdamW's
     weight decay still moves it).  ``bank`` gives the tenant count and the
-    stack dims."""
+    stack dims.  Raises NotPortedError for a config the port does not
+    train (Mamba-2)."""
+    check_trainable(cfg)
 
     def step(state: Params, batch: dict, ids):
         current = AdapterBank(state["bank"], bank.tenants, bank.stack_ndims)

@@ -19,8 +19,8 @@ the JAX CLI.  Weights are random, made from ``--seed``.  Runs on the card
 fused GEMM kernels), ``weight`` (``x @ merge(W)``: the merge kernels and,
 for ETHER and ETHER+, their backwards ``merge_left_bwd`` and
 ``merge_right_bwd``) and ``blockgemm`` (the paper's dense block GEMMs,
-plain PyTorch).  Not ported yet (NotPortedError): ``--mesh`` and
-``--method vera``.
+plain PyTorch).  Not ported yet (NotPortedError): ``--mesh``,
+``--method vera`` and training ``--arch mamba2-1.3b`` (served only).
 """
 
 from __future__ import annotations

@@ -57,7 +57,8 @@ def train_loss(params: Params, adapters: Optional[Params], batch: dict,
     """Next-token cross-entropy of ``batch['tokens']`` (B, S) against
     ``batch['labels']`` (B, S), masked by ``batch['mask']`` if given.
     Returns (loss, {"loss": loss}); differentiable, so it runs with
-    autograd on."""
+    autograd on.  Raises NotPortedError for a Mamba-2 (``ssd``) config,
+    which the port serves but does not train yet."""
     hidden, _ = backbone.forward(params, cfg, tokens=batch["tokens"],
                                  adapters=adapters, peft=peft, mode="train")
     loss = backbone.lm_loss(params, cfg, hidden, batch["labels"],
@@ -107,16 +108,22 @@ def prefill(params: Params, adapters: Optional[Params], batch: dict,
     (B, P); returns (cache, logits (B, 1, V) f32 at each row's last real
     token: position ``true_lens[b] - 1``, or P - 1 without true_lens).
     With a bank as ``adapters``, row b is served by tenant
-    ``tenant_ids[b]``."""
+    ``tenant_ids[b]``.  ``true_lens`` (B,) serves right-padded prompts:
+    causal masking keeps the pads out of attention, and the Mamba-2
+    mixer turns them into identity state updates, so the returned cache
+    is the unpadded prompt's (DESIGN.md §10)."""
     adapters = _resolve_adapters(adapters, tenant_ids)
     tokens = batch["tokens"]
+    lens = None
+    if true_lens is not None:
+        lens = torch.as_tensor(validate_true_lens(true_lens, tokens.shape[1]),
+                               dtype=torch.long, device=tokens.device)
     hidden, cache = backbone.forward(params, cfg, tokens=tokens,
                                      adapters=adapters, peft=peft,
-                                     mode="prefill")
+                                     mode="prefill", true_lens=lens)
     if true_lens is None:
         return cache, backbone.logits_fn(params, cfg, hidden[:, -1:])
-    idx = torch.as_tensor(validate_true_lens(true_lens, tokens.shape[1]),
-                          dtype=torch.long, device=hidden.device) - 1
+    idx = lens - 1
     last = hidden[torch.arange(hidden.shape[0], device=hidden.device),
                   idx][:, None]                               # (B, 1, d)
     return cache, backbone.logits_fn(params, cfg, last)
@@ -125,7 +132,10 @@ def prefill(params: Params, adapters: Optional[Params], batch: dict,
 @torch.no_grad()
 def pad_cache(cache: Params, cfg: ModelConfig, max_len: int) -> Params:
     """Grow a prefill-sized KV cache to ``max_len`` positions (zero
-    padded on the time axis) so decode can append."""
+    padded on the time axis) so decode can append.  A Mamba-2 cache
+    (``conv``, ``ssm``) is fixed-size already and comes back as it is."""
+    if "k" not in cache["pos0"]:
+        return cache
     k = cache["pos0"]["k"]                                 # (L, B, H, T, D)
     t = k.shape[-2]
     if t >= max_len:

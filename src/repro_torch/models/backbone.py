@@ -1,14 +1,19 @@
 """Decoder-only LM backbone of the port: dense attention layers
-(``block_pattern=("attn",)``) with a swiglu or gelu MLP.
+(``block_pattern=("attn",)``) with a swiglu or gelu MLP, and Mamba-2
+layers (``("ssd",)``, ``mlp_type="none"``: the mixer alone, as the JAX
+package's ``_init_layer`` builds it).
 
 Params keep the JAX package's stacked layout: every per-layer leaf of
 ``units/pos0/...`` carries a leading ``n_layers`` axis, and so do the
-adapters and the KV cache (``pos0/k``: (L, B, Hkv, T, D)).  ``forward``
-walks the layers in a Python loop over views of those stacks; in
-training (``mode="train"``) with ``cfg.remat == "full"`` each layer runs
-under ``torch.utils.checkpoint``, the counterpart of the JAX package's
-``jax.checkpoint`` of its scanned layer.  Other block types, MoE and the
-frontends are queued in ROADMAP.md.
+adapters and the serving cache (attention ``pos0/k``: (L, B, Hkv, T, D);
+Mamba-2 ``pos0/conv``: (L, B, W−1, C) and ``pos0/ssm``: (L, B, H, N, P)
+float32).  ``forward`` walks the layers in a Python loop over views of
+those stacks; in training (``mode="train"``) with ``cfg.remat == "full"``
+each layer runs under ``torch.utils.checkpoint``, the counterpart of the
+JAX package's ``jax.checkpoint`` of its scanned layer.  Mamba-2 serves
+only: training an ``ssd`` config raises NotPortedError (its SSD kernel
+has no backward yet).  Other block types, MoE and the frontends are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from repro_torch.common.dtypes import torch_dtype
 from repro_torch.core.peft import get_adapter
 from repro_torch.models import layers as L
 from repro_torch.models.attention import apply_attention, init_attention
+from repro_torch.models.ssm import init_mamba2, mamba2_block, ssm_dims
 
 Params = dict[str, Any]
 
@@ -86,9 +92,9 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotPortedError for what this backbone does not run yet."""
-    if tuple(cfg.block_pattern) != ("attn",):
+    if tuple(cfg.block_pattern) not in (("attn",), ("ssd",)):
         raise NotPortedError(f"block pattern {cfg.block_pattern}")
-    if cfg.mlp_type not in ("swiglu", "gelu"):
+    if cfg.mlp_type not in ("swiglu", "gelu", "none"):
         raise NotPortedError(f"mlp_type {cfg.mlp_type!r}")
     if cfg.frontend is not None:
         raise NotPortedError(f"the {cfg.frontend!r} frontend")
@@ -102,6 +108,20 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotPortedError(f"remat policy {cfg.remat!r}")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotPortedError for what the port serves but does not train:
+    the Mamba-2 ``ssd`` block, whose SSD kernel has no backward (its
+    output would carry no gradient to ``in_proj``'s adapter)."""
+    check_supported(cfg)
+    if "ssd" in cfg.block_pattern:
+        raise NotPortedError("training the Mamba-2 'ssd' block")
+
+
+def _ssm_kw(cfg: ModelConfig) -> dict:
+    return dict(expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                d_state=cfg.ssm_state, n_groups=cfg.ssm_groups)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -112,17 +132,20 @@ def init(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
     must live on ``device``."""
     check_supported(cfg)
     pdt, stack = cfg.pdt(), (cfg.n_layers,)
-    layer: Params = {
-        "norm1": L.init_rmsnorm(cfg.d_model, pdt, device, stack),
-        "mixer": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                cfg.hd, pdt, device, qkv_bias=cfg.qkv_bias,
-                                stack=stack),
-        "norm2": L.init_rmsnorm(cfg.d_model, pdt, device, stack),
-    }
+    layer: Params = {"norm1": L.init_rmsnorm(cfg.d_model, pdt, device, stack)}
+    if cfg.block_pattern[0] == "ssd":
+        layer["mixer"] = init_mamba2(generator, cfg.d_model, pdt, device,
+                                     stack=stack, **_ssm_kw(cfg))
+    else:
+        layer["mixer"] = init_attention(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, pdt,
+            device, qkv_bias=cfg.qkv_bias, stack=stack)
+    if cfg.mlp_type != "none":
+        layer["norm2"] = L.init_rmsnorm(cfg.d_model, pdt, device, stack)
     if cfg.mlp_type == "swiglu":
         layer["mlp"] = L.init_glu_mlp(generator, cfg.d_model, cfg.d_ff, pdt,
                                       device, stack)
-    else:
+    elif cfg.mlp_type == "gelu":
         layer["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, pdt,
                                   device, stack=stack)
     return {"embed": L.init_embedding(generator, cfg.vocab, cfg.d_model, pdt,
@@ -133,12 +156,23 @@ def init(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
     """Preallocated serving cache for the whole stack; the cursor is a
-    Python int (the next position to write)."""
+    Python int (the next position to write).  Mamba-2 layers keep their
+    fixed-size recurrent state, whatever ``max_len``."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv, max_len, cfg.hd)
-    return {"cursor": 0,
-            "pos0": {"k": torch.zeros(shape, dtype=cfg.cdt(), device=device),
-                     "v": torch.zeros(shape, dtype=cfg.cdt(), device=device)}}
+    n, cdt = cfg.n_layers, cfg.cdt()
+    if cfg.block_pattern[0] == "ssd":
+        d = ssm_dims(cfg.d_model, **_ssm_kw(cfg))
+        conv_ch = d["d_inner"] + 2 * d["n_groups"] * d["d_state"]
+        layer = {"conv": torch.zeros((n, batch, d["conv_width"] - 1,
+                                      conv_ch), dtype=cdt, device=device),
+                 "ssm": torch.zeros((n, batch, d["n_heads"], d["d_state"],
+                                     d["headdim"]), dtype=torch.float32,
+                                    device=device)}
+    else:
+        shape = (n, batch, cfg.n_kv, max_len, cfg.hd)
+        layer = {"k": torch.zeros(shape, dtype=cdt, device=device),
+                 "v": torch.zeros(shape, dtype=cdt, device=device)}
+    return {"cursor": 0, "pos0": layer}
 
 
 # ---------------------------------------------------------------------------
@@ -157,15 +191,28 @@ def _unstack(tree, n: int) -> list:
 
 def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
                  rope=None, cache=None, cache_pos=None, adapters=None,
-                 peft=None):
-    """Pre-norm residual block: attention + MLP.  Returns (x, layer cache)."""
+                 peft=None, true_lens=None):
+    """Pre-norm residual block: mixer + optional MLP.  Returns (x, layer
+    cache).  ``true_lens`` (B,) marks each row's real prompt length under
+    right-padded prefill: the Mamba-2 mixer makes pad positions identity
+    state updates (DESIGN.md §10); attention ignores it, causal masking
+    already hides pad KV."""
     h = L.rmsnorm(p["norm1"], x)
-    mixed, new_cache = apply_attention(
-        p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-        positions=positions, causal=True, rope=rope,
-        cache=cache, cache_pos=cache_pos, q_chunk=cfg.q_chunk,
-        adapters=get_adapter(adapters, "mixer"), peft=peft)
+    a_mixer = get_adapter(adapters, "mixer")
+    if cfg.block_pattern[0] == "ssd":
+        mixed, new_cache = mamba2_block(
+            p["mixer"], h, d_model=cfg.d_model, cache=cache,
+            chunk=cfg.ssm_chunk, adapters=a_mixer, peft=peft,
+            true_lens=true_lens, **_ssm_kw(cfg))
+    else:
+        mixed, new_cache = apply_attention(
+            p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, positions=positions, causal=True, rope=rope,
+            cache=cache, cache_pos=cache_pos, q_chunk=cfg.q_chunk,
+            adapters=a_mixer, peft=peft)
     x = x + mixed
+    if cfg.mlp_type == "none":
+        return x, new_cache
     h2 = L.rmsnorm(p["norm2"], x)
     a_mlp = get_adapter(adapters, "mlp")
     if cfg.mlp_type == "swiglu":
@@ -191,17 +238,24 @@ def _train_layer(p, x, cfg, positions, rope, adapters, peft):
 
 
 def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
-            adapters=None, peft=None, mode: str = "prefill", cache=None):
+            adapters=None, peft=None, mode: str = "prefill", cache=None,
+            true_lens: Optional[torch.Tensor] = None):
     """Run the backbone.
 
     mode='prefill': tokens (B, S) from position 0; returns the prompt's
-    KV as a new cache.  mode='decode': tokens (B, S) against ``cache``,
-    written in place at its cursor.  mode='train': the full sequence from
-    position 0, no cache kept (None), each layer rematerialised in the
-    backward when ``cfg.remat == "full"``.  Returns (hidden (B, S, d),
-    cache)."""
+    cache (attention KV, Mamba-2 conv tail and state) as a new cache;
+    ``true_lens`` (B,), prefill only, gives each right-padded row's real
+    length.  mode='decode': tokens (B, S) against ``cache``, written in
+    place at its cursor (attention KV) or replaced in place (Mamba-2
+    state).  mode='train': the full sequence from position 0, no cache
+    kept (None), each layer rematerialised in the backward when
+    ``cfg.remat == "full"``.  Returns (hidden (B, S, d), cache)."""
     if mode not in ("prefill", "decode", "train"):
         raise NotPortedError(f"backbone mode {mode!r}")
+    if true_lens is not None and mode != "prefill":
+        raise ValueError("true_lens only applies to prefill mode")
+    if mode == "train":
+        check_trainable(cfg)
     check_supported(cfg)
     x = L.embed(params["embed"], tokens, cfg.cdt())
     B, S = x.shape[:2]
@@ -219,19 +273,22 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
                              layer_adapters[i], peft)
         return L.rmsnorm(params["final_norm"], x), None
     layer_caches = _unstack(cache["pos0"] if mode == "decode" else None, n)
-    ks, vs = [], []
+    new = []
     for i in range(n):
         x, lc = _apply_layer(layer_params[i], x, cfg, positions=positions,
                              rope=rope, cache=layer_caches[i],
                              cache_pos=start if mode == "decode" else None,
-                             adapters=layer_adapters[i], peft=peft)
-        ks.append(lc["k"])
-        vs.append(lc["v"])
+                             adapters=layer_adapters[i], peft=peft,
+                             true_lens=true_lens)
+        if mode == "decode" and cfg.block_pattern[0] == "ssd":
+            for k, leaf in lc.items():          # the next state, in place
+                layer_caches[i][k].copy_(leaf)
+        new.append(lc)
     x = L.rmsnorm(params["final_norm"], x)
     if mode == "decode":
         return x, {"cursor": start + S, "pos0": cache["pos0"]}
-    return x, {"cursor": S, "pos0": {"k": torch.stack(ks),
-                                     "v": torch.stack(vs)}}
+    return x, {"cursor": S, "pos0": {k: torch.stack([lc[k] for lc in new])
+                                     for k in new[0]}}
 
 
 def logits_fn(params: Params, cfg: ModelConfig,

@@ -1091,3 +1091,173 @@ def test_bank_smoke_train_steps_on_the_card_match_the_cpu(cuda_device,
         for t in (0, 2, 3, 4, 6, 7):                 # no id names them
             assert torch.equal(leaf.select(nd, t).cpu(),
                                init[path].select(nd, t)), (path, t)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: the SSD chunk-scan kernel and serving
+# ---------------------------------------------------------------------------
+
+# log-decay a = −scale·softplus(N(0, 1)): a pass-through (a = 0), the
+# model's range, and strong decay (exp underflows beyond the diagonal)
+SSD_DECAY = {"zero": 0.0, "moderate": 1.0, "strong": 50.0}
+
+
+def _ssd_operands(device, b, s, h, p, g, n, decay, bc_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    a = -SSD_DECAY[decay] * torch.nn.functional.softplus(draw(b, s, h))
+    return (draw(b, s, h, p).to(device), a.to(device),
+            (0.5 * draw(b, s, g, n)).to(device, bc_dtype),
+            (0.5 * draw(b, s, g, n)).to(device, bc_dtype),
+            draw(b, h, n, p).to(device))
+
+
+def _ssd_close(got, want):
+    """Normalised max error ≤ 1e-4; exactly equal where the plain version
+    is all 0 (a chunk's decay exp(cum_L) underflows under strong decay)."""
+    if want.abs().max().item() == 0:
+        assert torch.equal(got, want)
+    else:
+        assert _max_err(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", list(SSD_DECAY))
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("chunk", [8, 32, 64, 256])
+def test_ssd_chunk_matches_its_plain_version(cuda_device, chunk, g, decay,
+                                             bc_dtype):
+    """The kernel against ``ref_ssd_chunk`` on the same card tensors at
+    mamba2-1.3b's head widths (P = 64, N = 128), and the ``ssd_chunked``
+    dispatch's ``cuda`` route (the kernel plus the inter-chunk
+    recurrence) against its ``torch`` route with S not a multiple of the
+    chunk and a nonzero initial state.  Normalised max error ≤ 1e-4:
+    float32 sums in another order, and the chunk's cumsum taken as a
+    warp scan."""
+    xv, a, b, c, init = _ssd_operands(cuda_device, 2, 2 * chunk, 4, 64, g,
+                                      128, decay, bc_dtype)
+    ops.reset_launches()
+    got = ops.ssd_chunk(xv, a, b, c, chunk)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(ssd_chunk=1)
+    for k, want in zip(got, ref.ref_ssd_chunk(xv, a, b, c, chunk)):
+        assert k.dtype == torch.float32 and k.shape == want.shape
+        assert torch.isfinite(k).all()
+        _ssd_close(k, want)
+    s = 2 * chunk + 3
+    xv, a, b, c, init = _ssd_operands(cuda_device, 2, s, 4, 64, g, 128,
+                                      decay, bc_dtype, seed=1)
+    for state in (None, init):
+        (y, final), (wy, wfinal) = (
+            execute.dispatch("ssd_chunked", be, xv, a, b, c, chunk=chunk,
+                             initial_state=state)
+            for be in ("cuda", "torch"))
+        _ssd_close(y, wy)
+        _ssd_close(final, wfinal)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 15, 3, 5, 3, 7, 5),
+                                               (3, 200, 6, 80, 2, 200, 100),
+                                               (1, 1, 2, 64, 1, 128, 1)])
+def test_ssd_chunk_takes_ragged_tiles(cuda_device, b, s, h, p, g, n, chunk):
+    xv, a, bb, cc, _ = _ssd_operands(cuda_device, b, s, h, p, g, n,
+                                     "moderate", torch.float32)
+    for k, want in zip(ops.ssd_chunk(xv, a, bb, cc, chunk),
+                       ref.ref_ssd_chunk(xv, a, bb, cc, chunk)):
+        _ssd_close(k, want)
+
+
+def test_ssd_wrappers_refuse_on_the_card_without_fallback(cuda_device):
+    xv, a, b, c, _ = _ssd_operands(cuda_device, 1, 16, 4, 8, 2, 6,
+                                   "moderate", torch.float32)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="multiple of chunk"):
+        ops.ssd_chunk(xv, a, b, c, 5)
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.ssd_chunk(xv, a.cpu(), b, c, 8)
+    with pytest.raises(ops.KernelInputError, match="contiguous"):
+        execute.dispatch("ssd_chunked", "cuda", xv, a, b[..., :3],
+                         c[..., :3])
+    assert ops.launches() == _launched()
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_mamba2_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
+                                                          merged):
+    """The Mamba-2 smoke model (weights drawn on the CPU) served on both
+    devices: every prefill layer's scan on the SSD kernel, every adapted
+    linear on its ETHER kernel, logits and greedy tokens as on the CPU."""
+    cfg = get_config("mamba2-1.3b", "smoke")
+    peft = PEFTConfig(n_blocks=8, targets=peft_targets("mamba2-1.3b"))
+    params = init_model(cfg, seed=0, device="cpu")
+    adapters = init_adapters(torch.Generator().manual_seed(1), params, peft)
+    tokens = torch.randint(0, cfg.vocab, (2, 19),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p, a = _to(params, dev), _to(adapters, dev)
+        execute.reset_counters()
+        ops.reset_launches()
+        if merged:
+            p, a, pc = merge_params(p, a, peft), None, None
+        else:
+            pc = peft
+        runs[str(dev)] = (serve.generate(p, a, tokens.to(dev), cfg, pc, 4),
+                          execute.counters(), ops.launches())
+    (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    scans = 2 * cfg.n_layers                    # two prefills, one a layer
+    if merged:
+        assert calls == {"ether_merge.cuda": 2 * cfg.n_layers,
+                         "ssd_chunked.cuda": scans}
+        assert launched == _launched(ether_merge=2 * cfg.n_layers,
+                                     ssd_chunk=scans)
+    else:
+        hh = 2 * cfg.n_layers * card["forwards"]
+        assert calls == {"householder_gemm.cuda": hh,
+                         "ssd_chunked.cuda": scans}
+        assert launched == _launched(householder_gemm=hh, ssd_chunk=scans)
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+@pytest.mark.parametrize("method", ["ether", "etherplus", "delora",
+                                    "hyperadapt"])
+def test_mamba2_smoke_bank_serving_on_the_card_matches_the_cpu(cuda_device,
+                                                               method):
+    """``serve --tenants`` on Mamba-2 at smoke width: a bank of 4 tenants
+    (each off its identity) on in_proj and out_proj, served on both
+    devices: the bank kernels and the SSD kernel on the card, logits and
+    greedy tokens as on the CPU."""
+    cfg = get_config("mamba2-1.3b", "smoke")
+    pc = PEFTConfig(method=method, n_blocks=8, rank=8, alpha=8.0,
+                    targets=peft_targets("mamba2-1.3b"))
+    params = init_model(cfg, seed=0, device="cpu")
+    bank = init_adapter_bank(1, params, pc, 4)
+    gen = torch.Generator().manual_seed(3)
+
+    def move(path, t):
+        fn = BANK_MOVES.get(path.rsplit("/", 1)[-1])
+        return t if fn is None else fn(t, torch.randn(t.shape, generator=gen))
+    tree = map_with_paths(move, bank.tree)
+    tokens = torch.randint(0, cfg.vocab, (3, 19),
+                           generator=torch.Generator().manual_seed(2))
+    ids = torch.tensor([3, 1, 3], dtype=torch.int32)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        bk = AdapterBank(_to(tree, dev), 4, bank.stack_ndims)
+        execute.reset_counters()
+        runs[str(dev)] = (serve.generate(_to(params, dev), bk,
+                                         tokens.to(dev), cfg, pc, 4,
+                                         tenant_ids=ids.to(dev)),
+                          execute.counters())
+    (card, calls), (cpu, _) = runs["cuda"], runs["cpu"]
+    op = {"ether": "householder_gemm_batched",
+          "etherplus": "etherplus_reflect_batched"}.get(
+              method, f"{method}_gemm_batched")
+    n = 2 * cfg.n_layers * card["forwards"] * (2 if method == "etherplus"
+                                               else 1)
+    assert calls == {f"{op}.cuda": n, "ssd_chunked.cuda": 2 * cfg.n_layers}
+    assert _max_err(card["logits"], cpu["logits"]) < 1e-4
+    assert torch.equal(card["tokens"], cpu["tokens"])

@@ -20,7 +20,8 @@ serving of ether, etherplus, delora or hyperadapt), ``mergerows``
 (phase 2's merge backward rows), ``weight:<method>`` (phase 13's
 weight-mode training, then for ether and etherplus its blockgemm run),
 ``bankbwdrows`` (phase 2's bank backward rows), ``banktrain:<method>``
-(phase 14's training through a bank).
+(phase 14's training through a bank), ``ssdrows`` (phase 2's SSD rows),
+``mamba`` (phase 15's Mamba-2 serving).
 """
 
 import os
@@ -132,6 +133,10 @@ def small(cs, failed):
     cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_STEPS, cs.TRAIN_CKPT = 2, 20, 4, 2
     cs.BANK_BWD_ROWS = ((4, 1), (2, 20), (4, 7))
     cs.BANK_TRAIN_IDS = [5, cs.BANK_TENANTS - 1]
+    cs.SSM_LINEARS = {"mamba2-1.3b": [(64, 304), (128, 64)]}
+    cs.SSD_SHAPE = dict(b=2, h=8, p=16, g=1, n=16, chunk=8)
+    cs.SSD_SEQS = (5, 20, 32)
+    cs.MAMBA_PROMPTS, cs.MAMBA_TRUE_LENS = (20, 5), [20, 13, 5, 1]
     cs.GEN = 4
     cs.timed_ms = lambda torch, fns: (fns[0](), 0.0)[1]
     cs.phase_device_and_build = lambda torch, build: "cpu rehearsal"
@@ -183,6 +188,10 @@ def main(parts):
                                 "top_level_ops": {"aten": 0}}}
             cs.phase_bank_train(torch, execute, ops, api, method, single,
                                 "cpu rehearsal")
+        elif name == "ssdrows":
+            print(len(cs.ssd_kernel_rows(torch, ops, ref)), "rows")
+        elif name == "mamba":
+            cs.phase_serve_mamba(torch, execute, ops, serve, api)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
