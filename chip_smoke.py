@@ -119,6 +119,17 @@
    each row's unpadded prompt (logits, next token, state); prints prefill
    ms, decode ms per token, peak memory and, from traces of a prefill and
    of the decode step, the device's idle share.
+16. The registry: each of the fourteen forward ops that have an autograd
+   Function (``execute.FUNCTIONS``: the two standalone reflections
+   ``ether_reflect`` and ``ether_reflect_batched``, and the twelve GEMM,
+   merge and bank ops of phases 3-14) dispatched through
+   ``execute.dispatch(op, "cuda", ...)`` under autograd at one
+   smollm-360m train layer's gate_proj (B·S = 8·128, 960×2560, 32 blocks,
+   a 64-tenant bank, ids BANK_TRAIN_IDS), bf16 and f32, x and the
+   adapters requiring grad, a scalar loss and ``backward()``: counted
+   (``<op>.cuda`` and ``<op>_bwd.cuda`` once each, no plain call), the
+   output and every gradient against the ``torch`` route on the card;
+   ``ssd_chunked`` under grad on ``cuda`` raises NotPortedError.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -148,7 +159,12 @@ bank at BANK_BWD_ROWS (decode, the train step's 8 × 128, a ragged S =
 scan (B·H = 4·64, P = 64, N = 128, chunk 256, b and c in bf16) at S ∈ {32,
 600 padded to 768, 2048} and timed beside it (see ssd_kernel_rows);
 ``householder_gemm`` and ``ether_merge`` are also timed at mamba2-1.3b's
-in_proj (2048×8512) and out_proj (4096×2048).
+in_proj (2048×8512) and out_proj (4096×2048).  The standalone reflections
+``ether_reflect``, ``ether_reflect_bwd``, ``ether_reflect_batched`` and
+``ether_reflect_batched_bwd`` are held to TOL (du to DU_TOL) at
+smollm-360m's input widths (T ∈ REFLECT_ROWS, n ∈ {8, 32}), Llama-2-7B's
+(db up to 1,376) and a 64-tenant bank at BANK_BWD_ROWS, bf16 and f32 (see
+reflect_kernel_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -200,6 +216,12 @@ BWD_RAGGED = 1000
 DU_TOL = 1e-4
 TRAIN_B, TRAIN_S, TRAIN_BLOCKS, TRAIN_STEPS, TRAIN_CKPT = 8, 128, 32, 8, 4
 TRAIN_LR, TRAIN_WARMUP = 2e-3, 2
+# phase 2's standalone reflections (the registry's ether_reflect and its
+# backward): smollm-360m's decode rows, its train rows and a ragged T
+REFLECT_ROWS = (B, TRAIN_B * TRAIN_S, BWD_RAGGED)
+# phase 16, the registry: the fourteen forward ops at one smollm-360m train
+# layer's gate_proj (d 960, f 2560), B·S = TRAIN_B·TRAIN_S rows
+REGISTRY_LINEAR = (960, 2560)
 # kernels' path vs plain path after TRAIN_STEPS bf16 steps: per-step
 # relative difference of the loss and of the gradient's global norm, and
 # relative Frobenius of the adapters' total update (final − initial).
@@ -1411,6 +1433,177 @@ def ssd_kernel_rows(torch, ops, ref):
               "({bound_by}: {gflop:.2f} GFLOP, {mbytes:.1f} MB)".format(
                   bh=bh, **rows[-1]), flush=True)
         del xv, a, bb, cc
+    torch.cuda.synchronize()
+    return rows
+
+
+def reflect_kernel_rows(torch, ops, ref, ker, kerb):
+    """Phase 2, the registry's standalone reflections: ether_reflect and
+    ether_reflect_bwd at REFLECT_ROWS rows of the linears' input widths
+    (smollm-360m's at n ∈ BLOCKS, Llama-2-7B's at the train rows: db 512
+    and 1,376 at n = 8), and ether_reflect_batched and
+    ether_reflect_batched_bwd at smollm-360m's widths through a
+    BANK_TENANTS-tenant bank at BANK_BWD_ROWS, ids BANK_IDS repeated to B,
+    bf16 and f32, through their wrappers against their plain versions: y
+    and dx to TOL, du and du_bank to DU_TOL (relative Frobenius), the
+    tenants no id names exactly zero.  A reflection acts on d alone, so a
+    (kernel, dtype, rows, d, n) is timed once, through its launcher (``ker``,
+    ``kerb``) beside its plain version, and the rows of the linears that
+    share d carry that time.  The bound counts x (and G) read and y (dx)
+    written once, u and the bank's named rows read, the f32 operations at
+    the f32 rate.  Operands from a generator of their own."""
+    print("== phase 2: the standalone reflections against their plain "
+          f"versions (A={BANK_TENANTS}, ids {BANK_IDS})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, timed = [], {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def err(got, want):
+        e = (got.float() - want.float()).abs().max().item()
+        return e, e / want.float().abs().max().item()
+
+    def once(key, fn):
+        if key not in timed:
+            timed[key] = timed_ms(torch, [fn])
+        return timed[key]
+
+    def add(row):
+        rows.append(row)
+        print("  {kernel:25s} {arch:11s} {dtype:8s} T={t:4d} d={d:5d} "
+              "f={f:5d} n={n:2d}  err {rel_err:.2e} (tol {tol:g})  du "
+              "{du_rel_frob:.2e}  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              "bound {bound_ms:.4f} ms ({bound_by})".format(**row),
+              flush=True)
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for arch, shapes in LINEARS.items():
+            for d, f in shapes:
+                for n in BLOCKS:
+                    u = randn(n, d // n)
+                    for t in REFLECT_ROWS if arch == ARCH else BWD_ROWS[:1]:
+                        x, g = randn(t, d).to(dt), randn(t, d).to(dt)
+                        ops.reset_launches()
+                        y = ops.ether_reflect(x, u)
+                        dx, du = ops.ether_reflect_bwd(x, u, g)
+                        torch.cuda.synchronize()
+                        check(ops.launches() == {
+                            **dict.fromkeys(ops.launches(), 0),
+                            "ether_reflect": 1, "ether_reflect_bwd": 1},
+                              f"reflection wrappers launched "
+                              f"{ops.launches()}")
+                        pdx, pdu = ref.ref_ether_reflect_bwd(x, u, g)
+                        e_y = err(y, ref.ref_ether_reflect(x, u))
+                        e_dx, fr = err(dx, pdx), frob(du, pdu)
+                        what = f"{arch} {dtype} T={t} d={d} n={n}"
+                        check(max(e_y[1], e_dx[1]) <= TOL[dtype]
+                              and fr <= DU_TOL,
+                              f"the reflection kernels disagree with their "
+                              f"plain versions at {what}: y {e_y[1]:.3e}, dx "
+                              f"{e_dx[1]:.3e} (tol {TOL[dtype]:g}), du "
+                              f"{fr:.3e} (tol {DU_TOL:g})")
+                        common = dict(arch=arch, dtype=dtype, t=t, d=d, f=f,
+                                      n=n, tol=TOL[dtype], matmul_ms=None,
+                                      library_ms=None)
+                        key = (dtype, t, d, n)
+                        b_ms, b_by = bound(2 * t * d * es + 4 * d,
+                                           {"float32": 6 * t * d})
+                        add(dict(common, kernel="ether_reflect",
+                                 max_abs_err=e_y[0], rel_err=e_y[1],
+                                 du_rel_frob=0.0, bound_ms=b_ms,
+                                 bound_by=b_by,
+                                 ms=once(("fwd",) + key,
+                                         lambda: ker.launch(x, u)),
+                                 plain_ms=once(("fwd plain",) + key,
+                                               lambda: ref.ref_ether_reflect(
+                                                   x, u))))
+                        b_ms, b_by = bound(3 * t * d * es + 8 * d,
+                                           {"float32": 12 * t * d})
+                        add(dict(common, kernel="ether_reflect_bwd",
+                                 max_abs_err=max(e_dx[0], (du - pdu).abs()
+                                                 .max().item()),
+                                 rel_err=e_dx[1], du_rel_frob=fr,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 ms=once(("bwd",) + key,
+                                         lambda: kerb.launch(x, u, g)),
+                                 plain_ms=once(
+                                     ("bwd plain",) + key,
+                                     lambda: ref.ref_ether_reflect_bwd(
+                                         x, u, g))))
+                        del x, g, y, dx, du
+        a_n = BANK_TENANTS
+        for d, f in LINEARS[ARCH]:
+            for n in BLOCKS:
+                ub = randn(a_n, n, d // n)
+                for b, s in BANK_BWD_ROWS:
+                    ids = torch.tensor(BANK_IDS * (b // len(BANK_IDS))
+                                       + BANK_IDS[:b % len(BANK_IDS)],
+                                       dtype=torch.int32, device="cuda")
+                    named = sorted(set(ids.tolist()))
+                    x, g = randn(b, s, d).to(dt), randn(b, s, d).to(dt)
+                    ops.reset_launches()
+                    y = ops.ether_reflect_batched(x, ub, ids)
+                    dx, du = ops.ether_reflect_batched_bwd(x, ub, ids, g)
+                    torch.cuda.synchronize()
+                    check(ops.launches() == {
+                        **dict.fromkeys(ops.launches(), 0),
+                        "ether_reflect_batched": 1,
+                        "ether_reflect_batched_bwd": 1},
+                          f"bank reflection wrappers launched "
+                          f"{ops.launches()}")
+                    pdx, pdu = ref.ref_ether_reflect_batched_bwd(x, ub, ids,
+                                                                 g)
+                    e_y = err(y, ref.ref_ether_reflect_batched(x, ub, ids))
+                    e_dx, fr = err(dx, pdx), frob(du, pdu)
+                    touched = torch.zeros(a_n, dtype=torch.bool)
+                    touched[named] = True
+                    what = f"{dtype} B={b} S={s} d={d} n={n}"
+                    check(max(e_y[1], e_dx[1]) <= TOL[dtype]
+                          and fr <= DU_TOL,
+                          f"the bank reflection kernels disagree with their "
+                          f"plain versions at {what}: y {e_y[1]:.3e}, dx "
+                          f"{e_dx[1]:.3e} (tol {TOL[dtype]:g}), du {fr:.3e} "
+                          f"(tol {DU_TOL:g})")
+                    check(torch.equal(du.flatten(1).abs().amax(1).cpu() > 0,
+                                      touched),
+                          f"bank reflection gradient rows at {what}: a named "
+                          f"tenant's row is zero or an untouched one is not")
+                    m = b * s
+                    common = dict(arch=ARCH, dtype=dtype, b=b, s=s, t=m, d=d,
+                                  f=f, n=n, tenants=a_n, tol=TOL[dtype],
+                                  matmul_ms=None, library_ms=None)
+                    key = (dtype, b, s, d, n)
+                    b_ms, b_by = bound(2 * m * d * es + 4 * b
+                                       + 4 * d * len(named),
+                                       {"float32": 6 * m * d})
+                    add(dict(common, kernel="ether_reflect_batched",
+                             max_abs_err=e_y[0], rel_err=e_y[1],
+                             du_rel_frob=0.0, bound_ms=b_ms, bound_by=b_by,
+                             ms=once(("bank",) + key,
+                                     lambda: ker.launch_batched(x, ub, ids)),
+                             plain_ms=once(
+                                 ("bank plain",) + key,
+                                 lambda: ref.ref_ether_reflect_batched(
+                                     x, ub, ids))))
+                    b_ms, b_by = bound(3 * m * d * es + 4 * b
+                                       + 4 * d * len(named) + 4 * a_n * d,
+                                       {"float32": 12 * m * d})
+                    add(dict(common, kernel="ether_reflect_batched_bwd",
+                             max_abs_err=max(e_dx[0], (du - pdu).abs().max()
+                                             .item()),
+                             rel_err=e_dx[1], du_rel_frob=fr, bound_ms=b_ms,
+                             bound_by=b_by,
+                             ms=once(("bank bwd",) + key,
+                                     lambda: kerb.launch_batched(x, ub, ids,
+                                                                 g)),
+                             plain_ms=once(
+                                 ("bank bwd plain",) + key,
+                                 lambda: ref.ref_ether_reflect_batched_bwd(
+                                     x, ub, ids, g))))
+                    del x, g, y, dx, du
     torch.cuda.synchronize()
     return rows
 
@@ -2801,6 +2994,145 @@ def print_modes(weight, activation, card):
               f"{w['peak_gb']:.3f} vs {a['peak_gb']:.3f} GB", flush=True)
 
 
+def registry_operands(torch, dtype, gen):
+    """The fourteen forward ops' operands at one full-width shape: one
+    smollm-360m train layer's gate_proj (x (TRAIN_B, TRAIN_S, 960) in
+    ``dtype``, w 960×2560), TRAIN_BLOCKS blocks (db 30; db_out 80),
+    DeLoRA's rank METHOD_RANK, banks of BANK_TENANTS tenants with ids
+    BANK_TRAIN_IDS; every adapter off its identity (ETHER+ v apart from u,
+    DeLoRA b ≠ 0, HyperAdapt r, c about 1).  Returns op → (operands, the
+    positions that train: x and the adapters, the JAX suites'
+    TRAINABLE_ARGS; w stays frozen)."""
+    from repro_torch.core.transforms import resolve_blocks
+    dt = getattr(torch, dtype)
+    d, f = REGISTRY_LINEAR
+    n, r, a = TRAIN_BLOCKS, METHOD_RANK, BANK_TENANTS
+    n_out = resolve_blocks(n, f)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, w = randn(TRAIN_B, TRAIN_S, d).to(dt), (randn(d, f) / d ** .5).to(dt)
+    ids = torch.tensor(BANK_TRAIN_IDS, dtype=torch.int32, device="cuda")
+    u, v = randn(n, d // n), randn(n, d // n)
+    u2, v2 = randn(n_out, f // n_out), randn(n_out, f // n_out)
+    ub, vb = randn(a, n, d // n), randn(a, n, d // n)
+    am, bm = randn(d, r), randn(r, f)
+    sm = (randn(r).abs() + 0.1).to(dt)
+    ab, bb = randn(a, d, r), randn(a, r, f)
+    sb = (randn(a, r).abs() + 0.1).to(dt)
+    rr, cc = 1 + HA_SPREAD * randn(d), 1 + HA_SPREAD * randn(f)
+    rb, cb = 1 + HA_SPREAD * randn(a, d), 1 + HA_SPREAD * randn(a, f)
+    return {
+        "ether_reflect": ((x, u), (0, 1)),
+        "ether_reflect_batched": ((x, ub, ids), (0, 1)),
+        "householder_gemm": ((x, w, u), (0, 2)),
+        "ether_merge": ((w, u), (1,)),
+        "etherplus_gemm": ((x, w, u, v, u2, v2), (0, 2, 3, 4, 5)),
+        "etherplus_merge": ((w, u, v, u2, v2), (1, 2, 3, 4)),
+        "delora_gemm": ((x, w, am, bm, sm), (0, 2, 3, 4)),
+        "delora_merge": ((w, am, bm, sm), (1, 2, 3)),
+        "hyperadapt_gemm": ((x, w, rr, cc), (0, 2, 3)),
+        "hyperadapt_merge": ((w, rr, cc), (1, 2)),
+        "householder_gemm_batched": ((x, w, ub, ids), (0, 2)),
+        "etherplus_reflect_batched": ((x, ub, vb, ids), (0, 1, 2)),
+        "delora_gemm_batched": ((x, w, ab, bb, sb, ids), (0, 2, 3, 4)),
+        "hyperadapt_gemm_batched": ((x, w, rb, cb, ids), (0, 2, 3)),
+    }
+
+
+def phase_registry(torch, execute, ops):
+    """Phase 16, the registry: each of the fourteen forward ops of
+    ``execute.FUNCTIONS`` dispatched on ``cuda`` under autograd, at
+    registry_operands' shape, bf16 and f32, with x and the adapters
+    requiring grad; a scalar loss (the output against a fixed probe) and
+    ``backward()``.  Counted from 0 just before each op's run and read
+    just after it: ``<op>.cuda`` and ``<op>_bwd.cuda`` once each, no
+    ``.torch`` call, an output with a grad_fn.  Then the same on the
+    ``torch`` backend on the card: the output and every gradient to the
+    tolerance phase 2 holds the op's kernels to (normalised max error:
+    TOL, METHOD_TOL for DeLoRA and HyperAdapt; in f32 the reflections'
+    adapter gradients also by relative Frobenius to DU_TOL; in bf16 a
+    composite backward rounds recomputed intermediates, y0 and dy0, where
+    a flip can fall differently, so there TOL holds them).  Last,
+    ``ssd_chunked`` under grad on ``cuda`` must raise NotPortedError."""
+    from repro_torch import NotPortedError
+    print(f"== phase 16: the registry, {len(execute.FUNCTIONS)} forward ops "
+          f"dispatched on cuda under autograd at {REGISTRY_LINEAR[0]}×"
+          f"{REGISTRY_LINEAR[1]}, B={TRAIN_B} S={TRAIN_S}, n={TRAIN_BLOCKS}, "
+          f"A={BANK_TENANTS}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    launches = dict.fromkeys(ops.launches(), 0)
+    results = []
+    for dtype in ("bfloat16", "float32"):
+        operands = registry_operands(torch, dtype, gen)
+        check(sorted(operands) == sorted(execute.FUNCTIONS),
+              f"phase 16 drives {sorted(operands)}, the registry has "
+              f"Functions for {sorted(execute.FUNCTIONS)}")
+        for op, (args, train) in operands.items():
+            probe, got = None, {}
+            for backend in ("cuda", "torch"):
+                leaves = [a.detach().clone().requires_grad_(i in train)
+                          for i, a in enumerate(args)]
+                execute.reset_counters()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                out = execute.dispatch(op, backend, *leaves)
+                if probe is None:
+                    probe = torch.randn(out.shape, generator=gen,
+                                        device="cuda")
+                (out.float() * probe).sum().backward()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                counts, lc = execute.counters(), ops.launches()
+                check(out.grad_fn is not None,
+                      f"dispatch({op!r}, {backend!r}) under grad gave an "
+                      f"output without grad_fn")
+                check(counts == {f"{op}.{backend}": 1,
+                                 f"{op}_bwd.{backend}": 1},
+                      f"{op} on {backend} under autograd counted {counts}")
+                if backend == "cuda":
+                    check(sum(lc.values()) > 0, f"{op} launched no kernel")
+                    for k, c in lc.items():
+                        launches[k] += c
+                    cuda_launches = {k: c for k, c in lc.items() if c}
+                    cuda_ms = wall
+                got[backend] = (out.detach(), [leaves[i].grad for i in train])
+            (y, dk), (py, dp) = got["cuda"], got["torch"]
+            method_op = op.startswith(("delora", "hyperadapt"))
+            tol = (METHOD_TOL if method_op else TOL)[dtype]
+            errs = [(g.float() - p.float()).abs().max().item()
+                    / p.float().abs().max().item()
+                    for g, p in zip([y, *dk], [py, *dp])]
+            fr = max((frob(g, p) for g, p in zip(dk, dp)), default=0.0) if (
+                dtype == "float32" and not method_op) else 0.0
+            check(max(errs) <= tol and fr <= DU_TOL,
+                  f"{op} on cuda under autograd disagrees with the torch "
+                  f"route at {dtype}: output and gradients {errs} (tol "
+                  f"{tol:g}), adapter gradients {fr:.3e} (tol {DU_TOL:g})")
+            results.append(dict(op=op, dtype=dtype, rel_err=max(errs),
+                                grads_rel_err=errs[1:], du_rel_frob=fr,
+                                tol=tol, launches=cuda_launches,
+                                wall_ms=cuda_ms))
+            print(f"  {op:26s} {dtype:8s} grads {len(train)}  err "
+                  f"{max(errs):.2e} (tol {tol:g})  du {fr:.2e}  launches "
+                  f"{cuda_launches}", flush=True)
+    xv = torch.randn(TRAIN_B, 32, 4, 8, generator=gen, device="cuda",
+                     requires_grad=True)
+    a = -torch.rand(TRAIN_B, 32, 4, generator=gen, device="cuda")
+    bc = torch.randn(TRAIN_B, 32, 1, 16, generator=gen, device="cuda")
+    execute.reset_counters()
+    try:
+        execute.dispatch("ssd_chunked", "cuda", xv, a, bc, bc, chunk=32)
+        refused = False
+    except NotPortedError:
+        refused = True
+    check(refused and execute.counters() == {},
+          "ssd_chunked under grad on cuda did not raise NotPortedError")
+    print("  ssd_chunked under grad on cuda: NotPortedError, no call counted",
+          flush=True)
+    return {"ops": results, "launches": launches}
+
+
 def main() -> int:
     # before CUDA starts: cuBLAS picks deterministic kernels (phases 4, 6)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2817,6 +3149,8 @@ def main() -> int:
     from repro_torch.core import execute
     from repro_torch.kernels import batched as kb
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ether_reflect as ker
+    from repro_torch.kernels import ether_reflect_bwd as kerb
     from repro_torch.kernels import etherplus_merge as kepm
     from repro_torch.kernels import etherplus_reflect_bwd as krb
     from repro_torch.kernels import merge_bwd as kmb
@@ -2847,6 +3181,8 @@ def main() -> int:
     rows += timed("2 bank backward rows",
                   lambda: bank_bwd_rows(torch, ops, ref, kb))
     rows += timed("2 ssd rows", lambda: ssd_kernel_rows(torch, ops, ref))
+    rows += timed("2 reflect rows",
+                  lambda: reflect_kernel_rows(torch, ops, ref, ker, kerb))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -2876,6 +3212,7 @@ def main() -> int:
         for method in BANK_OP}
     mamba = timed("15", lambda: phase_serve_mamba(torch, execute, ops, serve,
                                                  api))
+    registry = timed("16", lambda: phase_registry(torch, execute, ops))
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -2900,6 +3237,7 @@ def main() -> int:
     for plen, r in mamba["prompts"].items():
         paths.update({f"mamba2 serve P={plen}": r["unmerged_launches"],
                       f"mamba2 merge P={plen}": r["merged_launches"]})
+    paths["registry under autograd"] = registry["launches"]
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
@@ -2986,7 +3324,18 @@ def main() -> int:
             "src/repro/kernels/reflect_bwd_batched.py:147",
             (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
              f"one smollm-360m train layer through a bank (both sides of "
-             f"each linear), B=8 S=128, n=32, A={BANK_TENANTS}"), {})}
+             f"each linear), B=8 S=128, n=32, A={BANK_TENANTS}"), {}),
+        "ether_reflect": ("ether_reflect",
+                          "src/repro/kernels/ether_reflect.py:53", train, {}),
+        "ether_reflect_batched": (
+            "ether_reflect", "src/repro/kernels/ether_reflect_batched.py:71",
+            bank_train, {}),
+        "ether_reflect_bwd": ("ether_reflect_bwd",
+                              "src/repro/kernels/reflect_bwd.py:128", train,
+                              {}),
+        "ether_reflect_batched_bwd": (
+            "ether_reflect_bwd",
+            "src/repro/kernels/reflect_bwd_batched.py:108", bank_train, {})}
     kernels = []
     for name, (source, replaces, (n, t, what), match) in table.items():
         s = layer_summary(rows, name, n, t, **match)
@@ -3048,9 +3397,9 @@ def main() -> int:
                                            "plain_ms", "bound_ms",
                                            "bound_by")}
                    for seq, r in ssd.items()}})
-    check(len(kernels) == 22, f"the kernels line lists {len(kernels)}")
+    check(len(kernels) == 26, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-15 took {total_s:.1f} s (" + ", ".join(
+    print(f"chip_smoke: phases 1-16 took {total_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3066,7 +3415,8 @@ def main() -> int:
                    **{f"{m}_blockgemm_train": r
                       for m, r in blockgemm.items()},
                    **{f"{m}_bank_train": r for m, r in trained_bank.items()},
-                   "mamba2_serve": mamba, "kernels": kernels, "phase_seconds": seconds,
+                   "mamba2_serve": mamba, "registry": registry,
+                   "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

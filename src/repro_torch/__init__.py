@@ -17,9 +17,12 @@ JAX registry but VeRA.  ETHER runs on the hand-written CUDA kernels
 ``delora_gemm`` and ``delora_merge``; HyperAdapt on ``hyperadapt_gemm``
 and ``hyperadapt_merge`` (``csrc/``); bank serving on their batched
 kernels ``householder_gemm_batched``, ``etherplus_reflect_batched``,
-``delora_gemm_batched`` and ``hyperadapt_gemm_batched``.  OFT, Naive,
-LoRA and full
-finetuning are plain PyTorch, as the JAX package runs them in jnp.
+``delora_gemm_batched`` and ``hyperadapt_gemm_batched``; the registry's
+standalone reflections ``ether_reflect`` and ``ether_reflect_batched``
+on kernels of the same names and their backwards, all through
+``core.execute.dispatch``, differentiable on every backend.  OFT, Naive,
+LoRA and full finetuning are plain PyTorch, as the JAX package runs them
+in jnp.
 Everything else is queued in ROADMAP.md.
 """
 

@@ -18,24 +18,27 @@ which maps ``(op, backend)`` to an implementation:
     shape-based choice: the kernels take every shape.
 
 ``counters()`` counts the calls each ``op.backend`` pair ran, so a run
-can show which implementation it went through.
+can show which implementation it went through (``counters("bwd")`` the
+``*_bwd`` ops alone); ``available(op)`` lists an op's backends.
 
-Mamba-2's chunked scan ``ssd_chunked`` (``models/ssm.py``) dispatches
-here too: ``cuda`` runs its chunks on the SSD kernel (``ops.ssd_chunk``),
-``torch`` on their plain version (``ref.ref_ssd_chunk``).
+The registry also holds the JAX registry's standalone reflections
+``ether_reflect`` (H_B x over any leading dims) and
+``ether_reflect_batched`` (each sequence of a (B, S, d) batch by its
+tenant of a bank), which no model calls.  Mamba-2's chunked scan
+``ssd_chunked`` (``models/ssm.py``) dispatches here too: ``cuda`` runs its
+chunks on the SSD kernel (``ops.ssd_chunk``), ``torch`` on their plain
+version (``ref.ref_ssd_chunk``).
 
-Training differentiates ``householder_gemm`` through
-:class:`HouseholderGemm`, ``etherplus_gemm`` through
-:class:`EtherPlusGemm`, ``delora_gemm`` through :class:`DeloraGemm` and
-``hyperadapt_gemm`` through :class:`HyperAdaptGemm`, in weight mode the
-merges through :class:`EtherMerge`, :class:`EtherPlusMerge`,
-:class:`DeloraMerge` and :class:`HyperAdaptMerge`, and through an adapter
-bank the bank forwards through :class:`HouseholderGemmBatched`,
-:class:`EtherPlusReflectBatched`, :class:`DeloraGemmBatched` and
-:class:`HyperAdaptGemmBatched`:
-``torch.autograd.Function``s whose backward dispatches ``<op>_bwd`` on
-the backend its forward resolved (counted as ``<op>_bwd.<backend>``), as
-the JAX package's ``_registry_vjp`` dispatches ``<op>_bwd``.
+``dispatch`` is differentiable on every backend, as the JAX package's
+pallas ops are through ``_registry_vjp``: a forward op dispatched while
+grad is enabled and an operand requires grad runs under its autograd
+Function (``FUNCTIONS``), whose backward dispatches ``<op>_bwd`` on the
+backend its forward resolved (counted as ``<op>_bwd.<backend>``).
+Without grad it calls the implementation directly, so serving pays
+nothing for autograd.  ``ssd_chunked`` has no Function: under grad its
+``torch`` route is plain autograd and its ``cuda`` route raises
+:class:`repro_torch.NotPortedError` rather than return an output without
+a gradient.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import NotPortedError
 from repro_torch.kernels import ops, ref
 
 BACKENDS = ("torch", "cuda", "auto")
@@ -59,6 +63,15 @@ def _ssd_chunked(intra):
 
 
 _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
+    # the standalone reflections, single-tenant and through a bank
+    ("ether_reflect", "torch"): ref.ref_ether_reflect,
+    ("ether_reflect", "cuda"): ops.ether_reflect,
+    ("ether_reflect_bwd", "torch"): ref.ref_ether_reflect_bwd,
+    ("ether_reflect_bwd", "cuda"): ops.ether_reflect_bwd,
+    ("ether_reflect_batched", "torch"): ref.ref_ether_reflect_batched,
+    ("ether_reflect_batched", "cuda"): ops.ether_reflect_batched,
+    ("ether_reflect_batched_bwd", "torch"): ref.ref_ether_reflect_batched_bwd,
+    ("ether_reflect_batched_bwd", "cuda"): ops.ether_reflect_batched_bwd,
     ("householder_gemm", "torch"): ref.ref_householder_gemm,
     ("householder_gemm", "cuda"): ops.householder_gemm,
     ("householder_gemm_bwd", "torch"): ref.ref_householder_gemm_bwd,
@@ -141,15 +154,86 @@ def selected_backend(op: str, backend: str, first) -> str:
     return backend
 
 
+def available(op: str) -> tuple[str, ...]:
+    """Backends registered for ``op`` (``auto`` resolves to one of them)."""
+    return tuple(b for (o, b) in _REGISTRY if o == op)
+
+
+def is_bwd_op(op: str) -> bool:
+    """True for the registered backward ops (the ``*_bwd`` tier)."""
+    return op.endswith("_bwd")
+
+
+def _needs_grad(args, kwargs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad
+        for a in (*args, *kwargs.values()))
+
+
 def dispatch(op: str, backend: str, *args, **kwargs):
-    """Run ``op`` on the resolved backend and count the call."""
+    """Run ``op`` on the resolved backend and count the call; under
+    autograd a forward op runs through its Function (``FUNCTIONS``),
+    which counts the call once."""
     be = selected_backend(op, backend, args[0])
+    if _needs_grad(args, kwargs) and not is_bwd_op(op):
+        fn = FUNCTIONS.get(op)
+        if fn is not None:
+            # the Function's forward runs without grad and dispatches
+            # again; optional operands it was not given are None
+            arity = fn.forward.__code__.co_argcount - 2   # ctx, backend
+            return fn.apply(*args, *(None,) * (arity - len(args)), be,
+                            **kwargs)
+        if be == "cuda":
+            raise NotPortedError(f"the gradient of {op!r} on the 'cuda' "
+                                 f"backend")
     impl = _REGISTRY.get((op, be))
     if impl is None:
         raise KeyError(f"no {be!r} implementation registered for {op!r}")
     key = f"{op}.{be}"
     _COUNTERS[key] = _COUNTERS.get(key, 0) + 1
     return impl(*args, **kwargs)
+
+
+class EtherReflect(torch.autograd.Function):
+    """H_B x with the registry's backward, as ``EtherReflect.apply(x, u,
+    backend)``; x takes any leading dims.  Saves the operands themselves
+    (the backward recomputes û), as the JAX package's ``_registry_vjp``
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, u, backend):
+        be = selected_backend("ether_reflect", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, u)
+        return dispatch("ether_reflect", be, x, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, u = ctx.saved_tensors
+        dx, du = dispatch("ether_reflect_bwd", ctx.backend, x, u,
+                          g.contiguous())
+        return dx, du, None
+
+
+class EtherReflectBatched(torch.autograd.Function):
+    """R_{ids[b]} x[b] through an adapter bank with the registry's
+    backward, as ``EtherReflectBatched.apply(x, u_bank, ids, backend)``.
+    ids take no gradient; du_bank sums each sequence's gradient into its
+    tenant's row (an exact zero for a tenant no id names)."""
+
+    @staticmethod
+    def forward(ctx, x, u_bank, ids, backend):
+        be = selected_backend("ether_reflect_batched", backend, x)
+        ctx.backend = be
+        ctx.save_for_backward(x, u_bank, ids)
+        return dispatch("ether_reflect_batched", be, x, u_bank, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, u_bank, ids = ctx.saved_tensors
+        dx, du = dispatch("ether_reflect_batched_bwd", ctx.backend, x,
+                          u_bank, ids, g.contiguous())
+        return dx, du, None, None
 
 
 class HouseholderGemm(torch.autograd.Function):
@@ -410,9 +494,38 @@ class HyperAdaptGemmBatched(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def counters() -> dict[str, int]:
-    """Calls per ``op.backend`` since the last reset."""
-    return dict(_COUNTERS)
+# op -> the autograd Function that differentiates it: ``dispatch`` under
+# grad and the methods (through ``dispatch``) take the same one
+FUNCTIONS: dict[str, type] = {
+    "ether_reflect": EtherReflect,
+    "ether_reflect_batched": EtherReflectBatched,
+    "householder_gemm": HouseholderGemm,
+    "ether_merge": EtherMerge,
+    "etherplus_gemm": EtherPlusGemm,
+    "etherplus_merge": EtherPlusMerge,
+    "delora_gemm": DeloraGemm,
+    "delora_merge": DeloraMerge,
+    "hyperadapt_gemm": HyperAdaptGemm,
+    "hyperadapt_merge": HyperAdaptMerge,
+    "householder_gemm_batched": HouseholderGemmBatched,
+    "etherplus_reflect_batched": EtherPlusReflectBatched,
+    "delora_gemm_batched": DeloraGemmBatched,
+    "hyperadapt_gemm_batched": HyperAdaptGemmBatched,
+}
+
+
+def counters(phase: str | None = None) -> dict[str, int]:
+    """Calls per ``op.backend`` since the last reset: ``phase="fwd"`` the
+    forward ops alone, ``"bwd"`` the ``*_bwd`` ops alone (a backward that
+    ran the plain version shows as ``<op>_bwd.torch``)."""
+    if phase is None:
+        return dict(_COUNTERS)
+    if phase not in ("fwd", "bwd"):
+        raise ValueError(f"phase must be 'fwd', 'bwd' or None, got "
+                         f"{phase!r}")
+    want = phase == "bwd"
+    return {k: v for k, v in _COUNTERS.items()
+            if is_bwd_op(k.split(".", 1)[0]) == want}
 
 
 def reset_counters() -> None:

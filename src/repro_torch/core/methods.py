@@ -18,9 +18,12 @@ registry) serve and train through an
 :class:`~repro_torch.core.peft.AdapterBank` on their batched kernels
 (differentiated through the bank autograd Functions of
 :mod:`~repro_torch.core.execute`); ``bank_dense`` of any other method
-raises the JAX package's ValueError.  The kernel ops (ETHER, ETHER+, DeLoRA, HyperAdapt) dispatch
-through :mod:`repro_torch.core.execute`; OFT, Naive, LoRA and ``full``
-are plain PyTorch, as the JAX package runs them in jnp.
+raises the JAX package's ValueError.  The kernel ops (ETHER, ETHER+,
+DeLoRA, HyperAdapt; each method's ``ops``) go through
+:func:`repro_torch.core.execute.dispatch`, which runs an op under its
+autograd Function when an operand requires grad and calls the op
+directly otherwise; OFT, Naive, LoRA and ``full`` are plain PyTorch, as
+the JAX package runs them in jnp.
 """
 
 from __future__ import annotations
@@ -98,12 +101,6 @@ def identity_like(name: str, tree: Params) -> Params:
     return walk(tree)
 
 
-def _needs_grad(*leaves) -> bool:
-    """Serving (no_grad, or nothing to differentiate) calls a kernel op's
-    forward itself and pays nothing for autograd."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
-
-
 class PEFTMethod:
     """One PEFT method; ``cfg`` is a ``transforms.PEFTConfig``.
     ``dense`` takes x with any leading dims and does not add the bias."""
@@ -112,6 +109,9 @@ class PEFTMethod:
     # Can an AdapterBank stack this method's adapters on a tenant axis and
     # serve each request with its own tenant's through a batched kernel?
     bank_servable: bool = False
+    # the core.execute forward ops this method's kernel path dispatches,
+    # as the JAX registry lists them (tooling walks every (op, backend))
+    ops: tuple[str, ...] = ()
 
     def bank_dense(self, x, W, adapter: Params, cfg) -> torch.Tensor:
         """The bank forward: x (B, S, d), every adapter leaf the whole bank
@@ -148,6 +148,8 @@ class PEFTMethod:
 class EtherMethod(PEFTMethod):
     name = "ether"
     bank_servable = True
+    ops = ("ether_reflect", "householder_gemm", "ether_merge",
+           "ether_reflect_batched", "householder_gemm_batched")
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         from repro_torch.core.transforms import resolve_blocks
@@ -164,17 +166,12 @@ class EtherMethod(PEFTMethod):
             return x @ self.merge(W, adapter, cfg).to(x.dtype)
         if cfg.mode == "blockgemm":                 # paper-literal §3.4
             return x @ self.merge(W, adapter, cfg, literal=True).to(x.dtype)
-        if _needs_grad(x, W, u):
-            return execute.HouseholderGemm.apply(x, W, u, cfg.backend)
         return execute.dispatch("householder_gemm", cfg.backend, x, W, u)
 
     def bank_dense(self, x, W, adapter, cfg):
         # u is the (A, n, db) bank; each sequence reflects with its own
         # tenant's hyperplanes inside the GEMM (DESIGN.md §2)
         u, ids = adapter["u"], adapter["ids"]
-        if _needs_grad(x, W, u):
-            return execute.HouseholderGemmBatched.apply(x, W, u, ids,
-                                                        cfg.backend)
         return execute.dispatch("householder_gemm_batched", cfg.backend, x,
                                 W, u, ids)
 
@@ -183,8 +180,6 @@ class EtherMethod(PEFTMethod):
         u = adapter["u"]
         if literal:
             return T.block_diag_matmul(T.householder_blocks(u), W)
-        if _needs_grad(W, u):
-            return execute.EtherMerge.apply(W, u, cfg.backend)
         return execute.dispatch("ether_merge", cfg.backend, W, u)
 
     def materialize(self, adapter, cfg, d_in, d_out):
@@ -204,6 +199,7 @@ class EtherPlusMethod(PEFTMethod):
 
     name = "etherplus"
     bank_servable = True
+    ops = ("etherplus_gemm", "etherplus_reflect_batched", "etherplus_merge")
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         from repro_torch.core.transforms import resolve_blocks
@@ -240,10 +236,6 @@ class EtherPlusMethod(PEFTMethod):
             return x @ Wt.to(x.dtype)
         u1, v1 = adapter["u1"], adapter["v1"]
         u2, v2 = self._pair(adapter, cfg)
-        if _needs_grad(*(t for t in (x, W, u1, v1, u2, v2)
-                         if t is not None)):
-            return execute.EtherPlusGemm.apply(x, W, u1, v1, u2, v2,
-                                               cfg.backend)
         return execute.dispatch("etherplus_gemm", cfg.backend, x, W, u1, v1,
                                 u2, v2)
 
@@ -253,13 +245,8 @@ class EtherPlusMethod(PEFTMethod):
         # two-sided, the output side's (u2/v2 banks over f)
         u2, v2 = self._pair(adapter, cfg)
         ids = adapter["ids"]
-        grad = _needs_grad(x, W, adapter["u1"], adapter["v1"],
-                           *(t for t in (u2, v2) if t is not None))
 
         def reflect(t, u, v):
-            if grad:
-                return execute.EtherPlusReflectBatched.apply(t, u, v, ids,
-                                                             cfg.backend)
             return execute.dispatch("etherplus_reflect_batched", cfg.backend,
                                     t, u, v, ids)
         y = reflect(x, adapter["u1"], adapter["v1"]) @ W.to(x.dtype)
@@ -275,9 +262,6 @@ class EtherPlusMethod(PEFTMethod):
             return Wt
         u1, v1 = adapter["u1"], adapter["v1"]
         u2, v2 = self._pair(adapter, cfg)
-        if _needs_grad(*(t for t in (W, u1, v1, u2, v2) if t is not None)):
-            return execute.EtherPlusMerge.apply(W, u1, v1, u2, v2,
-                                                cfg.backend)
         return execute.dispatch("etherplus_merge", cfg.backend, W, u1, v1,
                                 u2, v2)
 
@@ -452,6 +436,7 @@ class DeLoRAMethod(PEFTMethod):
 
     name = "delora"
     bank_servable = True
+    ops = ("delora_gemm", "delora_gemm_batched", "delora_merge")
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         dt = torch_dtype(cfg.adapter_dtype)
@@ -488,8 +473,6 @@ class DeLoRAMethod(PEFTMethod):
         # s rounded to the activation dtype before the GEMM, as the JAX
         # package rounds it
         s = self.scale(a, b, adapter["lam"]).to(x.dtype)
-        if _needs_grad(x, W, a, b, s):
-            return execute.DeloraGemm.apply(x, W, a, b, s, cfg.backend)
         return execute.dispatch("delora_gemm", cfg.backend, x, W, a, b, s)
 
     def bank_dense(self, x, W, adapter, cfg):
@@ -497,17 +480,12 @@ class DeLoRAMethod(PEFTMethod):
         # package computes it (src/repro/core/methods.py:527-531)
         a, b, ids = adapter["a"], adapter["b"], adapter["ids"]
         s = self.scale(a, b, adapter["lam"]).to(x.dtype)
-        if _needs_grad(x, W, a, b, s):
-            return execute.DeloraGemmBatched.apply(x, W, a, b, s, ids,
-                                                   cfg.backend)
         return execute.dispatch("delora_gemm_batched", cfg.backend, x, W, a,
                                 b, s, ids)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         a, b = adapter["a"], adapter["b"]
         s = self.scale(a, b, adapter["lam"]).to(W.dtype)
-        if _needs_grad(W, a, b, s):
-            return execute.DeloraMerge.apply(W, a, b, s, cfg.backend)
         return execute.dispatch("delora_merge", cfg.backend, W, a, b, s)
 
     def param_count(self, d_in, d_out, cfg):
@@ -522,6 +500,7 @@ class HyperAdaptMethod(PEFTMethod):
 
     name = "hyperadapt"
     bank_servable = True
+    ops = ("hyperadapt_gemm", "hyperadapt_gemm_batched", "hyperadapt_merge")
 
     def init(self, generator, d_in, d_out, cfg, stack, device):
         dt = torch_dtype(cfg.adapter_dtype)
@@ -535,22 +514,15 @@ class HyperAdaptMethod(PEFTMethod):
         if cfg.mode != "activation":
             return x @ self.merge(W, adapter, cfg).to(x.dtype)
         r, c = adapter["r"], adapter["c"]
-        if _needs_grad(x, W, r, c):
-            return execute.HyperAdaptGemm.apply(x, W, r, c, cfg.backend)
         return execute.dispatch("hyperadapt_gemm", cfg.backend, x, W, r, c)
 
     def bank_dense(self, x, W, adapter, cfg):
         r, c, ids = adapter["r"], adapter["c"], adapter["ids"]
-        if _needs_grad(x, W, r, c):
-            return execute.HyperAdaptGemmBatched.apply(x, W, r, c, ids,
-                                                       cfg.backend)
         return execute.dispatch("hyperadapt_gemm_batched", cfg.backend, x, W,
                                 r, c, ids)
 
     def merge(self, W, adapter, cfg, *, literal=False):
         r, c = adapter["r"], adapter["c"]
-        if _needs_grad(W, r, c):
-            return execute.HyperAdaptMerge.apply(W, r, c, cfg.backend)
         return execute.dispatch("hyperadapt_merge", cfg.backend, W, r, c)
 
     def materialize(self, adapter, cfg, d_in, d_out):

@@ -90,6 +90,15 @@ def reflect_activation(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return ref.ref_ether_reflect(x, u)
 
 
+def reflect_activation_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                               ids: torch.Tensor) -> torch.Tensor:
+    """Multi-tenant ``H_B x``: sequence b of x (B, S, d) reflected by
+    tenant ids[b] of u_bank (A, n, db), each sequence's hyperplanes
+    gathered first, then normalised (O(B·d), not O(A·d)); the registry's
+    plain forward of ``ether_reflect_batched``."""
+    return ref.ref_ether_reflect_batched(x, u_bank, ids)
+
+
 def reflect_weight(W: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Blockwise ``H_B W`` on the input dim of W: (d, f); u: (n, db)."""
     return ref.ref_ether_merge(W, u)
@@ -101,6 +110,15 @@ def etherplus_activation(x: torch.Tensor, u: torch.Tensor,
     true rank-2 update (both projections read the original x, not two
     sequential reflections); u, v: (n, db)."""
     return ref.ref_etherplus_reflect(x, u, v)
+
+
+def etherplus_activation_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                                 v_bank: torch.Tensor,
+                                 ids: torch.Tensor) -> torch.Tensor:
+    """Multi-tenant ``H⁺x``: sequence b of x (B, S, d) by tenant ids[b] of
+    the bank pair (A, n, db), gathered first, then normalised; the
+    registry's plain forward of ``etherplus_reflect_batched``."""
+    return ref.ref_etherplus_reflect_batched(x, u_bank, v_bank, ids)
 
 
 def etherplus_weight(W: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

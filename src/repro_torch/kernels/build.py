@@ -30,7 +30,8 @@ SOURCES = ("householder_gemm", "ether_merge", "reflect_gemm_dx",
            "etherplus_reflect_batched", "delora_gemm_batched",
            "hyperadapt_gemm_batched", "merge_bwd",
            "householder_gemm_batched_bwd", "householder_gemm_batched_dw",
-           "etherplus_reflect_batched_bwd", "ssd_scan")
+           "etherplus_reflect_batched_bwd", "ssd_scan", "ether_reflect",
+           "ether_reflect_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -28,7 +28,11 @@ launches its one kernel, which for ``householder_gemm_batched`` and
 launches ``delora_gemm_batched`` for dx and ``hyperadapt_gemm_batched_bwd``
 ``hyperadapt_gemm_batched`` twice, for z and y0, each ``reflect_gemm_dw``
 with a zero hyperplane only when asked for dW; ``ssd_chunk`` launches
-the SSD kernel once a call), so a run can show that its path went
+the SSD kernel once a call; the registry's standalone reflections
+``ether_reflect``, ``ether_reflect_batched``, ``ether_reflect_bwd`` and
+``ether_reflect_batched_bwd`` launch their one kernel each, the
+backwards' fixed-order ĝ sums and norm chain included), so a run can
+show that its path went
 through the kernels.  The rank-r and per-feature cotangents of
 DeLoRA and HyperAdapt (and their scatter-add over a bank's ids) are a few
 thin PyTorch ops beside the kernels, as the JAX package leaves them to
@@ -44,6 +48,8 @@ import torch
 from repro_torch.kernels import batched as _bk
 from repro_torch.kernels import delora_gemm as _dg
 from repro_torch.kernels import ether_merge as _merge
+from repro_torch.kernels import ether_reflect as _er
+from repro_torch.kernels import ether_reflect_bwd as _erb
 from repro_torch.kernels import etherplus_gemm as _ep
 from repro_torch.kernels import etherplus_merge as _epm
 from repro_torch.kernels import etherplus_reflect_bwd as _rb
@@ -66,7 +72,9 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "merge_left_bwd": 0, "merge_right_bwd": 0,
              "householder_gemm_batched_bwd": 0,
              "householder_gemm_batched_dw": 0,
-             "etherplus_reflect_batched_bwd": 0, "ssd_chunk": 0}
+             "etherplus_reflect_batched_bwd": 0, "ssd_chunk": 0,
+             "ether_reflect": 0, "ether_reflect_batched": 0,
+             "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -937,3 +945,102 @@ def ssd_chunk(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     err, y, states, decays = _ssd.launch(xv, a, b, c, chunk)
     _launched("ssd_chunk", err)
     return y, states, decays
+
+
+# ---------------------------------------------------------------------------
+# The registry's standalone reflections (no GEMM), forward and backward
+# ---------------------------------------------------------------------------
+
+def _check_reflect(op: str, x: torch.Tensor, u: torch.Tensor,
+                   g: Optional[torch.Tensor] = None) -> None:
+    """The single-tenant reflection wrappers' check: x (..., d) float32 or
+    bfloat16, u a float32 (n, db) tensor with n·db = d [, g like x], all
+    contiguous on one device, x not empty.  Raises KernelInputError naming
+    the first check the operands fail."""
+    d = x.shape[-1] if x.dim() else -1
+    named = {"x": x, "u": u, **({} if g is None else {"g": g})}
+    dev = x.device
+    if (x.dtype in _hh.DTYPE_CODE and u.dtype == _F32 and u.dim() == 2
+            and u.shape[0] * u.shape[1] == d
+            and (g is None or (g.dtype == x.dtype and g.shape == x.shape))
+            and all(t.device == dev and t.is_contiguous()
+                    for t in named.values())
+            and dev.type in ("cpu", "cuda") and x.numel() > 0):
+        return
+    if x.dtype not in _hh.DTYPE_CODE:
+        why = "the kernel takes float32 or bfloat16 activations"
+    elif u.dtype != _F32 or u.dim() != 2:
+        why = "u must be a float32 (n, db) tensor"
+    elif u.shape[0] * u.shape[1] != d:
+        why = "need x (..., d) and u (n, db) with n·db = d"
+    elif g is not None and (g.dtype != x.dtype or g.shape != x.shape):
+        why = "g must have x's shape and dtype"
+    elif len({t.device for t in named.values()}) != 1:
+        why = "all operands must be on one device"
+    elif dev.type not in ("cpu", "cuda"):
+        why = "operands must be on the CPU or a CUDA device"
+    elif not all(t.is_contiguous() for t in named.values()):
+        why = "operands must be contiguous"
+    else:
+        why = "operands must not be empty"
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in named.items())
+    raise KernelInputError(f"{op} refuses {desc}: {why}")
+
+
+def ether_reflect(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """H_B x over the last dim; x: (..., d), any leading dims, flattened
+    into the kernel's row axis; u: (n, db) f32, n·db = d.  Every shape:
+    the JAX wrapper's fallback to jnp for T % 256 ≠ 0 has no counterpart."""
+    _check_reflect("ether_reflect", x, u)
+    if x.device.type == "cpu":
+        return ref.ref_ether_reflect(x, u)
+    err, out = _er.launch(x.view(-1, x.shape[-1]), u)
+    _launched("ether_reflect", err)
+    return out.view(x.shape)
+
+
+def ether_reflect_bwd(x: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
+    """(dx, du) of :func:`ether_reflect` under cotangent g (x's shape and
+    dtype): dx in x's dtype, du (n, db) f32 summed over every row in a
+    fixed order."""
+    _check_reflect("ether_reflect_bwd", x, u, g)
+    if x.device.type == "cpu":
+        return ref.ref_ether_reflect_bwd(x, u, g)
+    d = x.shape[-1]
+    err, dx, du = _erb.launch(x.view(-1, d), u, g.view(-1, d))
+    _launched("ether_reflect_bwd", err)
+    return dx.view(x.shape), du
+
+
+def ether_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """R_{ids[b]} x[b]; x: (B, S, d), any S; u_bank: (A, n, db) f32 with
+    n·db = d; ids: (B,) int32 or int64, mapped into [0, A) on the
+    device."""
+    d = x.shape[-1] if x.dim() else -1
+    _check_bank("ether_reflect_batched", x, None, ids,
+                {"u_bank": (u_bank, _planes(u_bank, d), _F32)})
+    if x.device.type == "cpu":
+        return ref.ref_ether_reflect_batched(x, u_bank, ids)
+    err, out = _er.launch_batched(x, u_bank, ids)
+    _launched("ether_reflect_batched", err)
+    return out
+
+
+def ether_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
+                              ids: torch.Tensor, g: torch.Tensor):
+    """(dx, du_bank) of :func:`ether_reflect_batched` under cotangent g
+    (B, S, d), du_bank (A, n, db) f32 as
+    :func:`householder_gemm_batched_bwd` forms it: each sequence's dL/dû
+    summed over the ids that name a tenant, an exact zero for a tenant no
+    id names."""
+    d = x.shape[-1] if x.dim() else -1
+    _check_bank("ether_reflect_batched_bwd", x, None, ids,
+                {"u_bank": (u_bank, _planes(u_bank, d), _F32),
+                 "g": (g, _cotangent(x, d), x.dtype)})
+    if x.device.type == "cpu":
+        return ref.ref_ether_reflect_batched_bwd(x, u_bank, ids, g)
+    err, dx, _, du = _erb.launch_batched(x, u_bank, ids, g)
+    _launched("ether_reflect_batched_bwd", err)
+    return dx, du

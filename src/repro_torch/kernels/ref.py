@@ -17,7 +17,8 @@ gather maps an index (and the kernels do): from the end if negative, then
 clamped.  Their backwards (training through a bank) return what the
 Pallas kernels return — dx and the per-sequence dL/dû — and
 :func:`bank_grad` finishes them as the JAX package's ``ops._bank_grad``
-does, scatter-adding over the ids mapped as the forward maps them.
+does, scatter-adding over the ids mapped as the forward maps them (the
+registry's ``ref_ether_reflect_batched_bwd`` returns them finished).
 
 DeLoRA (``y = xW + ((x a)·s) b``) and HyperAdapt (``y = ((x·r) W)·c``)
 take their scales as given: DeLoRA's s is the method layer's primal, in
@@ -221,6 +222,18 @@ def ref_etherplus_reflect_bwd(x: torch.Tensor, u: torch.Tensor,
     return (dx.reshape(x.shape).to(x.dtype),
             norm_chain(u.float(), gu).to(u.dtype),
             norm_chain(v.float(), gv).to(v.dtype))
+
+
+def ref_ether_reflect_bwd(x: torch.Tensor, u: torch.Tensor,
+                          g: torch.Tensor):
+    """(dx, du) of y = H_B x under cotangent g (``_r1_bwd_kernel``): dx =
+    g − 2(ûᵀg)û in x's dtype, du through the norm chain in u's dtype, in
+    float32 inside.  x, g: (..., d); u: (n, db)."""
+    n, db = u.shape
+    dx, (gu,) = _reflect_bwd_f32(x.float().reshape(-1, n, db),
+                                 g.float().reshape(-1, n, db), _dirs(u, None))
+    return (dx.reshape(x.shape).to(x.dtype),
+            norm_chain(u.float(), gu).to(u.dtype))
 
 
 def ref_etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
@@ -474,6 +487,15 @@ def _rank2_bank_f32(x: torch.Tensor, u_bank: torch.Tensor,
             + pv[..., None] * vh[:, None]).reshape(b, s, d)
 
 
+def ref_ether_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
+                              ids: torch.Tensor) -> torch.Tensor:
+    """R_{ids[b]} x[b] in float32, rounded once: each sequence's
+    hyperplanes gathered first, then normalised, then the reflection (the
+    JAX package's order, ``repro.kernels.ref.ref_ether_reflect_batched``).
+    x: (B, S, d); u_bank: (A, n, db); ids: (B,)."""
+    return _rank2_bank_f32(x, u_bank, None, ids).to(x.dtype)
+
+
 def ref_householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                                  u_bank: torch.Tensor,
                                  ids: torch.Tensor) -> torch.Tensor:
@@ -598,6 +620,17 @@ def ref_etherplus_reflect_batched_grads(x: torch.Tensor, u_bank: torch.Tensor,
     the JAX package's ``ops.etherplus_reflect_batched_bwd``."""
     dx, gu, gv = ref_etherplus_reflect_batched_bwd(x, u_bank, v_bank, ids, g)
     return dx, bank_grad(u_bank, ids, gu), bank_grad(v_bank, ids, gv)
+
+
+def ref_ether_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
+                                  ids: torch.Tensor, g: torch.Tensor):
+    """(dx, du_bank) of :func:`ref_ether_reflect_batched` under cotangent g
+    (B, S, d), in float32 inside: dx = R_t g in x's dtype, and the
+    per-sequence dL/dû (``ether_reflect_batched_bwd_pallas``'s second
+    output) through :func:`bank_grad`, as the JAX package's
+    ``ops.ether_reflect_batched_bwd`` finishes it."""
+    dx, (gu,) = _bank_reflect_bwd_f32(x, g, u_bank, None, ids)
+    return dx.to(x.dtype), bank_grad(u_bank, ids, gu)
 
 
 def delora_bank_cotangents(x: torch.Tensor, g: torch.Tensor,

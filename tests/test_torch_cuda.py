@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the serving and training slices (ETHER, ETHER+, DeLoRA, HyperAdapt and
-the plain-PyTorch methods) on the card against the same runs on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, the
+serving and training slices (ETHER, ETHER+, DeLoRA, HyperAdapt and the
+plain-PyTorch methods) on the card against the same runs on the CPU, and
+``execute.dispatch`` under autograd on ``cuda`` against ``torch``.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import NotPortedError
 from repro_torch.common.pytree import flatten_with_paths, map_with_paths
 from repro_torch.configs import get_config, peft_targets
 from repro_torch.core import execute
@@ -1261,3 +1263,165 @@ def test_mamba2_smoke_bank_serving_on_the_card_matches_the_cpu(cuda_device,
     assert calls == {f"{op}.cuda": n, "ssd_chunked.cuda": 2 * cfg.n_layers}
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+# the registry's standalone reflections: (T, d, n) single-tenant and
+# (B, S, d, n, A) through a bank, odd and full widths: db 32 and 12 on an
+# odd T, smollm-360m's train layer (n = 32: db 30, 80), its decode rows
+# (n = 8) and Llama-2-7B's widest block (11008 / 8 = 1376)
+REFLECT_SHAPES = [(13, 96, 3), (13, 96, 8), (1024, 960, 32),
+                  (1024, 2560, 32), (4, 960, 8), (67, 11008, 8)]
+REFLECT_BANK_SHAPES = [(4, 13, 96, 8, 5), (8, 128, 960, 32, 64),
+                       (4, 1, 2560, 8, 64), (3, 37, 120, 8, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,n", REFLECT_SHAPES)
+def test_reflect_kernels_match_plain_versions(cuda_device, t, d, n, dtype):
+    rng = np.random.default_rng(t + d + n)
+    x, g = (torch.from_numpy(rng.standard_normal((t, d), np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    u = torch.from_numpy(rng.standard_normal((n, d // n), np.float32)).to(
+        cuda_device)
+    ops.reset_launches()
+    y = ops.ether_reflect(x, u)
+    dx, du = ops.ether_reflect_bwd(x, u, g)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(ether_reflect=1, ether_reflect_bwd=1)
+    assert y.dtype == dtype and dx.dtype == dtype and du.dtype == torch.float32
+    assert _max_err(y, ref.ref_ether_reflect(x, u)) < TOL[dtype]
+    pdx, pdu = ref.ref_ether_reflect_bwd(x, u, g)
+    assert _max_err(dx, pdx) < TOL[dtype]
+    assert _frob(du, pdu) < DU_TOL
+    # the same inputs give the same bits: no float atomics
+    assert torch.equal(ops.ether_reflect_bwd(x, u, g)[1], du)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,n,a", REFLECT_BANK_SHAPES)
+def test_reflect_bank_kernels_match_plain_versions(cuda_device, b, s, d, n, a,
+                                                   dtype):
+    rng = np.random.default_rng(b * s + d + n + a)
+    x, g = (torch.from_numpy(rng.standard_normal((b, s, d), np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    ub = torch.from_numpy(rng.standard_normal((a, n, d // n), np.float32)).to(
+        cuda_device)
+    # a repeat and the last tenant A − 1; an id ≥ A maps to A − 1
+    ids = torch.tensor(([a - 1, 1 % a, a - 1, 0] * b)[:b], dtype=torch.int32,
+                       device=cuda_device)
+    ops.reset_launches()
+    y = ops.ether_reflect_batched(x, ub, ids)
+    dx, du = ops.ether_reflect_batched_bwd(x, ub, ids, g)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(ether_reflect_batched=1,
+                                       ether_reflect_batched_bwd=1)
+    assert _max_err(y, ref.ref_ether_reflect_batched(x, ub, ids)) < TOL[dtype]
+    pdx, pdu = ref.ref_ether_reflect_batched_bwd(x, ub, ids, g)
+    assert _max_err(dx, pdx) < TOL[dtype] and _frob(du, pdu) < DU_TOL
+    named = set(ids.tolist())
+    for t in range(a):
+        assert (du[t].abs().max().item() > 0) == (t in named), t
+    outside = ids.clone()
+    outside[0] = a + 3
+    assert torch.equal(ops.ether_reflect_batched(x, ub, outside), y)
+    assert torch.equal(ops.ether_reflect_batched_bwd(x, ub, outside, g)[1], du)
+    assert torch.equal(ops.ether_reflect_batched(x, ub, ids.long()), y)
+
+
+def test_reflect_wrappers_refuse_on_the_card_without_fallback(cuda_device):
+    x = torch.randn(2, 3, 96, device=cuda_device)
+    u = torch.randn(8, 12, device=cuda_device)
+    ub = torch.randn(3, 8, 12, device=cuda_device)
+    ids = torch.tensor([0, 2], device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.ether_reflect(x, u.cpu())
+    with pytest.raises(ops.KernelInputError, match="n·db = d"):
+        ops.ether_reflect_bwd(x, u[:, :5].contiguous(), x)
+    with pytest.raises(ops.KernelInputError, match="int32 or int64"):
+        ops.ether_reflect_batched(x, ub, ids.float())
+    with pytest.raises(ops.KernelInputError, match="g must be"):
+        ops.ether_reflect_batched_bwd(x, ub, ids, x.half())
+    assert ops.launches() == _launched()
+
+
+def _registry_operands(device, seed=70):
+    """Operands of the fourteen forward ops at small widths (d = 24, f =
+    16, 4 blocks, rank 3, a bank of 4 tenants, ids [3, 0, 3]), every
+    adapter off its identity, and the positions that train: x and the
+    adapters, w frozen (the JAX suites' TRAINABLE_ARGS, and x)."""
+    rng = np.random.default_rng(seed)
+    bs, s, d, f, n, r, a = 3, 5, 24, 16, 4, 3, 4
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((shift + scale * rng.standard_normal(
+            shape)).astype(np.float32)).to(device)
+    x, w = t(bs, s, d), t(d, f, scale=d ** -.5)
+    ids = torch.tensor([a - 1, 0, a - 1], device=device)
+    u, v, u2, v2 = t(n, d // n), t(n, d // n), t(n, f // n), t(n, f // n)
+    ub, vb = t(a, n, d // n), t(a, n, d // n)
+    am, bm, sm = t(d, r), t(r, f), t(r, scale=0.3, shift=1.0)
+    ab, bb, sb = t(a, d, r), t(a, r, f), t(a, r, scale=0.3, shift=1.0)
+    rr, cc = t(d, scale=0.3, shift=1.0), t(f, scale=0.3, shift=1.0)
+    rb, cb = t(a, d, scale=0.3, shift=1.0), t(a, f, scale=0.3, shift=1.0)
+    return {
+        "ether_reflect": ((x, u), (0, 1)),
+        "ether_reflect_batched": ((x, ub, ids), (0, 1)),
+        "householder_gemm": ((x, w, u), (0, 2)),
+        "ether_merge": ((w, u), (1,)),
+        "etherplus_gemm": ((x, w, u, v, u2, v2), (0, 2, 3, 4, 5)),
+        "etherplus_merge": ((w, u, v, u2, v2), (1, 2, 3, 4)),
+        "delora_gemm": ((x, w, am, bm, sm), (0, 2, 3, 4)),
+        "delora_merge": ((w, am, bm, sm), (1, 2, 3)),
+        "hyperadapt_gemm": ((x, w, rr, cc), (0, 2, 3)),
+        "hyperadapt_merge": ((w, rr, cc), (1, 2)),
+        "householder_gemm_batched": ((x, w, ub, ids), (0, 2)),
+        "etherplus_reflect_batched": ((x, ub, vb, ids), (0, 1, 2)),
+        "delora_gemm_batched": ((x, w, ab, bb, sb, ids), (0, 2, 3, 4)),
+        "hyperadapt_gemm_batched": ((x, w, rb, cb, ids), (0, 2, 3)),
+    }
+
+
+@pytest.mark.parametrize("op", sorted(execute.FUNCTIONS))
+def test_dispatch_on_cuda_is_differentiable(cuda_device, op):
+    """``dispatch(op, "cuda", ...)`` under grad runs the op's Function: the
+    output has a grad_fn, ``<op>_bwd.cuda`` runs once and nothing runs the
+    plain versions, and the gradients equal the ``torch`` route's on the
+    card.  (Before the registry took its Functions, the cuda route handed
+    back a tensor written through ctypes, with no gradient.)"""
+    args, train = _registry_operands(cuda_device)[op]
+    probe = None
+    grads = {}
+    for backend in ("cuda", "torch"):
+        leaves = [a.clone().requires_grad_(i in train)
+                  for i, a in enumerate(args)]
+        execute.reset_counters()
+        out = execute.dispatch(op, backend, *leaves)
+        assert out.grad_fn is not None, backend
+        if probe is None:
+            probe = torch.randn(out.shape, device=cuda_device,
+                                generator=torch.Generator(
+                                    cuda_device).manual_seed(1))
+        (out * probe).sum().backward()
+        assert execute.counters() == {f"{op}.{backend}": 1,
+                                      f"{op}_bwd.{backend}": 1}
+        grads[backend] = (out, [leaves[i].grad for i in train])
+    (got, dgot), (want, dwant) = grads["cuda"], grads["torch"]
+    assert _max_err(got, want) < TOL[torch.float32]
+    for i, a, b in zip(train, dgot, dwant):
+        assert _max_err(a, b) < TOL[torch.float32], i
+
+
+def test_ssd_chunked_under_grad_on_cuda_raises(cuda_device):
+    """ssd_chunked has no backward on the card: under grad its cuda route
+    raises NotPortedError instead of an output without a gradient."""
+    xv, a, b, c, _ = _ssd_operands(cuda_device, 1, 16, 4, 8, 2, 6,
+                                   "moderate", torch.float32)
+    xv.requires_grad_(True)
+    execute.reset_counters()
+    with pytest.raises(NotPortedError, match="ssd_chunked"):
+        execute.dispatch("ssd_chunked", "cuda", xv, a, b, c, chunk=8)
+    assert execute.counters() == {}
+    with torch.no_grad():
+        y, _ = execute.dispatch("ssd_chunked", "cuda", xv, a, b, c, chunk=8)
+    assert y.shape == xv.shape

@@ -21,7 +21,10 @@ serving of ether, etherplus, delora or hyperadapt), ``mergerows``
 weight-mode training, then for ether and etherplus its blockgemm run),
 ``bankbwdrows`` (phase 2's bank backward rows), ``banktrain:<method>``
 (phase 14's training through a bank), ``ssdrows`` (phase 2's SSD rows),
-``mamba`` (phase 15's Mamba-2 serving).
+``mamba`` (phase 15's Mamba-2 serving), ``reflectrows`` (phase 2's
+standalone reflection rows), ``registry`` (phase 16: every forward op
+dispatched under autograd; here the ``cuda`` backend is let through on
+CPU tensors, so its wrappers take their plain versions).
 """
 
 import os
@@ -119,6 +122,19 @@ def fake_card():
     batched.householder_gemm_batched_dw = lambda x, u, ids, g: (
         0, ref.ref_householder_gemm_batched_dw(x, u, ids, g, x.dtype))
     batched.etherplus_reflect_batched_bwd = ep_bwd
+    from repro_torch.kernels import ether_reflect, ether_reflect_bwd
+    ether_reflect.launch = lambda x, u: (0, ref.ref_ether_reflect(x, u))
+    ether_reflect.launch_batched = lambda x, u, ids: (
+        0, ref.ref_ether_reflect_batched(x, u, ids))
+    ether_reflect_bwd.launch = lambda x, u, g: (
+        0, *ref.ref_ether_reflect_bwd(x, u, g))
+    ether_reflect_bwd.launch_batched = lambda x, u, ids, g: (
+        0, *ref.ref_ether_reflect_batched_bwd(x, u, ids, g))
+    # phase 16 dispatches on "cuda" by name: let it through on the host
+    from repro_torch.core import execute
+    select = execute.selected_backend
+    execute.selected_backend = lambda op, backend, first: (
+        backend if backend == "cuda" else select(op, backend, first))
 
 
 def small(cs, failed):
@@ -136,6 +152,8 @@ def small(cs, failed):
     cs.SSM_LINEARS = {"mamba2-1.3b": [(64, 304), (128, 64)]}
     cs.SSD_SHAPE = dict(b=2, h=8, p=16, g=1, n=16, chunk=8)
     cs.SSD_SEQS = (5, 20, 32)
+    cs.REFLECT_ROWS = (4, 40, 37)
+    cs.REGISTRY_LINEAR = (96, 256)
     cs.MAMBA_PROMPTS, cs.MAMBA_TRUE_LENS = (20, 5), [20, 13, 5, 1]
     cs.GEN = 4
     cs.timed_ms = lambda torch, fns: (fns[0](), 0.0)[1]
@@ -192,6 +210,12 @@ def main(parts):
             print(len(cs.ssd_kernel_rows(torch, ops, ref)), "rows")
         elif name == "mamba":
             cs.phase_serve_mamba(torch, execute, ops, serve, api)
+        elif name == "reflectrows":
+            from repro_torch.kernels import ether_reflect, ether_reflect_bwd
+            print(len(cs.reflect_kernel_rows(torch, ops, ref, ether_reflect,
+                                             ether_reflect_bwd)), "rows")
+        elif name == "registry":
+            cs.phase_registry(torch, execute, ops)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
