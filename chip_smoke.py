@@ -8,7 +8,8 @@
    each, all at once) and prints their build time and ptxas lines.
 2. Kernels: holds each CUDA kernel against its plain PyTorch version on
    the card, at T ∈ {4, 128, 2048} rows and the linears of smollm-360m
-   and Llama-2-7B, n ∈ {8, 32} blocks, bf16 and float32, and times the
+   (Llama-2-7B's for the standalone reflections, WIDE_LINEARS), n ∈ {8,
+   32} blocks, bf16 and float32, and times the
    kernel, its plain version and ``torch.matmul`` on the same product
    (CUDA events, warmed up, weights rotated past the 50 MB L2).  The
    ETHER+ kernels (``etherplus_gemm`` one- and two-sided, the left and
@@ -18,8 +19,10 @@
 3. Serve: smollm-360m at full width (32 layers, bf16, random weights from
    a seed) with ETHER n_blocks=8, B=4, P=32, 16 new tokens, through the
    CLI's ``serve`` entry point, unmerged and then merged; asserts that
-   every adapted linear ran the CUDA kernels and nothing ran the plain
-   versions, holds merged against unmerged and the kernels' path against
+   every adapted linear ran the CUDA kernels, every layer's attention of
+   every prefill and decode step the flash kernel (``flash_attention.cuda``;
+   so do phases 5, 7, 9, 11 and 12), and nothing ran the plain versions,
+   holds merged against unmerged and the kernels' path against
    the plain path, and prints prefill ms, decode ms per token and peak
    memory.
 4. Train: smollm-360m at full width (32 layers, bf16, remat "full",
@@ -130,6 +133,22 @@
    (``<op>.cuda`` and ``<op>_bwd.cuda`` once each, no plain call), the
    output and every gradient against the ``torch`` route on the card;
    ``ssd_chunked`` under grad on ``cuda`` raises NotPortedError.
+17. Serve qwen2.5-32b: ``full()`` at full width (d_model 5120, 40 query
+   heads over 8 KV heads of 128, d_ff 27648, QKV bias, rope θ 1e6, the
+   untied 152,064-entry head, bf16), depth cut to QWEN_LAYERS = 8 of 64
+   (memory: see QWEN_LAYERS), random weights from a seed, ETHER n_blocks
+   8 on all seven linears, B = 2 at P = 2048, 16 new tokens, through
+   ``serve.generate`` unmerged and merged: counted (every layer's prefill
+   and decode attention on ``flash_attention.cuda``, every adapted linear
+   on ``householder_gemm`` or merged by ``ether_merge``, no plain call),
+   merged vs unmerged and kernels vs plain path to SERVE_TOL with the
+   adapters moving the logits by more, the logits against
+   ``torch.matmul`` of the final hidden state by the untied head; prints
+   prefill ms, decode ms per token, peak memory and, from traces of a
+   prefill and a decode step, the device's idle share.  Training never
+   reaches the flash kernel (it has no backward): the train phases
+   count every layer's attention and its remat recompute as
+   ``flash_attention.torch``, the plain route under autograd.
 
 Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
@@ -164,7 +183,12 @@ in_proj (2048×8512) and out_proj (4096×2048).  The standalone reflections
 ``ether_reflect_batched_bwd`` are held to TOL (du to DU_TOL) at
 smollm-360m's input widths (T ∈ REFLECT_ROWS, n ∈ {8, 32}), Llama-2-7B's
 (db up to 1,376) and a 64-tenant bank at BANK_BWD_ROWS, bf16 and f32 (see
-reflect_kernel_rows).
+reflect_kernel_rows).  The flash kernel ``flash_attention`` is held to
+FLASH_TOL against its plain version at FLASH_ROWS (qwen2.5-32b's prefill
+layer, a ragged S = T = 2000 under a window, a cached-prefix chunk, two
+decode steps, rows with no valid key: exact zeros), bf16 and f32, and
+timed beside its plain version and ``scaled_dot_product_attention`` (see
+flash_kernel_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -197,8 +221,13 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # are rounded to bf16 once more; with the plain versions on the CPU the
 # two differ by 2.4e-2 at this config (seed 0), so 5e-2 keeps a 2x margin
 SERVE_TOL = 5e-2
-LINEARS = {"smollm-360m": [(960, 960), (960, 320), (960, 2560), (2560, 960)],
-           "llama-2-7b": [(4096, 4096), (4096, 11008), (11008, 4096)]}
+LINEARS = {"smollm-360m": [(960, 960), (960, 320), (960, 2560), (2560, 960)]}
+# Llama-2-7B's linears, swept by the standalone reflections' rows alone
+# (db up to 1,376).  The kernels that the path phases hold at
+# smollm-360m's widths lost their Llama-2-7B rows when the script's
+# phases passed 1,050 s of its 1,200 s (1,150.1 s on the H100 of one run;
+# PERF.md)
+WIDE_LINEARS = {"llama-2-7b": [(4096, 4096), (4096, 11008), (11008, 4096)]}
 # one smollm-360m layer: q, o (960²), k, v (960×320), gate, up, down
 LAYER = {(960, 960): 2, (960, 320): 2, (960, 2560): 2, (2560, 960): 1}
 ROWS = (4, 128, 2048)
@@ -320,6 +349,38 @@ SSD_SHAPE, SSD_SEQS = dict(b=4, h=64, p=64, g=1, n=128, chunk=256), (32, 600,
 # phase 2 also times householder_gemm and ether_merge at mamba2-1.3b's
 # adapted linears, in_proj 2048×8512 and out_proj 4096×2048
 SSM_LINEARS = {"mamba2-1.3b": [(2048, 8512), (4096, 2048)]}
+# and at phase 17's: qwen2.5-32b's q/o (5120²), k/v (5120×1024),
+# gate/up (5120×27648) and down (27648×5120) linears, n = N_BLOCKS (db
+# 640 and 3,456), at the rows of its decode step and its prefill (see
+# QWEN_B and QWEN_P below)
+QWEN_LINEARS = {"qwen2.5-32b": [(5120, 5120), (5120, 1024), (5120, 27648),
+                                (27648, 5120)]}
+# phase 2's flash rows: (name, B, H, Hkv, S, T, D, q_offset, window), all
+# causal: qwen2.5-32b's prefill layer (phase 17's main path), a ragged
+# prompt under a window, a cached-prefix chunk, smollm-360m's prefill
+# (phases 3-12) and decode steps, qwen2.5-32b's decode step, and rows
+# that see no key (window 16 past the last key)
+FLASH_ROWS = (("qwen2.5-32b prefill", 2, 40, 8, 2048, 2048, 128, 0, None),
+              ("ragged, window 1024", 2, 40, 8, 2000, 2000, 128, 0, 1024),
+              ("cached-prefix chunk", 2, 40, 8, 128, 2048, 128, 1920, None),
+              ("smollm-360m prefill", 4, 15, 5, 32, 32, 64, 0, None),
+              ("smollm-360m decode", 4, 15, 5, 1, 48, 64, 47, None),
+              ("qwen2.5-32b decode", 2, 40, 8, 1, 2064, 128, 2048, None),
+              ("fully masked rows", 1, 4, 2, 256, 128, 64, 136, 16))
+# f32: normalised max error (the same f32 math, sums over up to 2048 keys
+# in another order); bf16: relative Frobenius norm, one rounding of an
+# f32 result on each side
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# phase 17: qwen2.5-32b full() at full width, depth cut to QWEN_LAYERS of
+# its 64 layers (8 layers are 7.8 GB of bf16 weights beside the 3.1 GB
+# embedding and untied head; merge_params adds a second 7.8 GB; 64 would
+# be 65.5 GB before the merged copy), ETHER n_blocks 8 on all seven
+# linears, B = QWEN_B at P = QWEN_P (a long-document prompt), GEN new
+# tokens
+QWEN_ARCH, QWEN_LAYERS, QWEN_B, QWEN_P = "qwen2.5-32b", 8, 2, 2048
+# phase 17's logits against torch.matmul of the final hidden state by the
+# untied head: the same product on the same hidden state, in float32
+QWEN_HEAD_TOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -414,14 +475,20 @@ def phase_kernels(torch, ops, ref):
     def copies(nbytes):
         return max(1, min(256, int(100e6 // max(nbytes, 1)) + 1))
 
+    # arch: (its adapted linears (d, f), n_blocks, rows T)
+    sweep = {**{arch: (shapes, BLOCKS, ROWS) for arch, shapes in
+                {**LINEARS, **SSM_LINEARS}.items()},
+             **{arch: (shapes, (N_BLOCKS,), (QWEN_B, QWEN_B * QWEN_P))
+                for arch, shapes in QWEN_LINEARS.items()}}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
-        for arch, shapes in {**LINEARS, **SSM_LINEARS}.items():
+        for arch, (shapes, blocks, ts) in sweep.items():
             for d, f in shapes:
                 w0 = torch.randn(d, f, generator=gen, device="cuda") / d ** .5
                 ws = [w0.to(dt).clone() for _ in range(copies(d * f * es))]
-                for n in BLOCKS:
+                del w0
+                for n in blocks:
                     db = d // n
                     u = torch.randn(n, db, generator=gen, device="cuda")
                     err, rel = compare(ops.ether_merge(ws[0], u),
@@ -443,7 +510,7 @@ def phase_kernels(torch, ops, ref):
                           "{tol:g})  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                           "bound {bound_ms:.4f} ms ({bound_by})"
                           .format(**rows[-1]), flush=True)
-                    for t in ROWS:
+                    for t in ts:
                         x = torch.randn(t, d, generator=gen,
                                         device="cuda").to(dt)
                         err, rel = compare(ops.householder_gemm(x, ws[0], u),
@@ -1259,15 +1326,15 @@ def bank_bwd_rows(torch, ops, ref, kb):
 def merge_bwd_rows(torch, ops, ref, kmb):
     """Phase 2, weight mode: merge_left_bwd (rank 1 and 2, with and
     without dW) and merge_right_bwd (ETHER+'s output side, n_out =
-    resolve_blocks(n, f): db_out 10, 30, 80 at smollm-360m's linears and
-    n = 32, 1,376 at Llama-2-7B's gate/up and n = 8) through their
-    wrappers against their plain versions, on phase 2's linears with v
+    resolve_blocks(n, f): db_out 10 to 320 at smollm-360m's linears, n ∈
+    {8, 32}) through their wrappers against their plain versions, on
+    phase 2's linears with v
     drawn apart from u, then timed through their launchers (``kmb``)
     beside their plain versions, rotating (W, G) pairs past the L2.  The
     left kernel keeps its strips of W and G in shared memory up to db 160
     in f32, 320 in bf16, and re-reads them past that: smollm-360m's
-    down_proj at n = 8 (db 320) in f32 and Llama-2-7B's linears at n = 8
-    (db 512, 1,376) take the re-read branch."""
+    down_proj at n = 8 (db 320) in f32 takes the re-read branch (the card
+    tests take it at db 1,376 too)."""
     from repro_torch.core.transforms import resolve_blocks
     print("== phase 2: merge backward kernels against their plain versions",
           flush=True)
@@ -1437,6 +1504,109 @@ def ssd_kernel_rows(torch, ops, ref):
     return rows
 
 
+def flash_pairs(s, t, q_offset, window):
+    """The (query, key) pairs a causal attention of S queries at
+    ``q_offset``.. against T keys attends to (``window``: the last
+    ``window`` positions only): the work this row's data needs."""
+    pairs = 0
+    for i in range(s):
+        qpos = q_offset + i
+        lo = 0 if window is None else max(0, qpos - window + 1)
+        pairs += max(0, min(t - 1, qpos) - lo + 1)
+    return pairs
+
+
+def flash_mask(torch, s, t, q_offset, window):
+    """The (S, T) boolean mask of those pairs (True: attend), on the card."""
+    qpos = q_offset + torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(t, device="cuda")[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_kernel_rows(torch, ops, ref):
+    """Phase 2's flash rows: ``flash_attention`` against
+    ``ref_flash_attention`` on the same card tensors at each of FLASH_ROWS,
+    bf16 and f32 (f32 to FLASH_TOL's normalised max error, bf16 to its
+    relative Frobenius norm: one rounding of an f32 result); a row with no
+    valid key must be exact zeros where the plain version's is.  Timed:
+    the kernel, its plain version and, as ``library_ms``,
+    ``scaled_dot_product_attention`` on the same q, k, v (``enable_gqa``;
+    an explicit boolean mask unless the queries start at 0 on a square,
+    windowless causal mask), a yardstick nothing in the port calls.  The
+    bound: q, k, v read once and the output written once, and the
+    4·D FLOP of QKᵀ and PV for each attended pair (flash_pairs) at the
+    dtype's peak."""
+    print("== phase 2: the flash attention kernel against its plain version",
+          flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        es = torch.tensor([], dtype=dt).element_size()
+        for name, b, h, hkv, s, t, d, off, win in FLASH_ROWS:
+            q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dt)
+            k = torch.randn(b, hkv, t, d, generator=gen, device="cuda").to(dt)
+            v = torch.randn(b, hkv, t, d, generator=gen, device="cuda").to(dt)
+            kw = dict(causal=True, window=win, q_offset=off)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.ref_flash_attention(q, k, v, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == "float32":
+                rel = err / want.float().abs().max().item()
+            else:
+                rel = frob(got.float(), want.float())
+            check(rel <= FLASH_TOL[dtype], f"flash_attention {name} {dtype} "
+                  f"disagrees with its plain version: {rel:.3e} > "
+                  f"{FLASH_TOL[dtype]:g}")
+            empty = (want == 0).all(dim=-1)
+            n_empty = int(empty.sum().item())
+            check(bool((got[empty] == 0).all()) and bool(
+                torch.isfinite(got).all()), f"flash_attention {name}: a row "
+                f"with no valid key is not exact zeros")
+            if name == "fully masked rows":
+                check(n_empty > 0, "the fully masked row has no empty row")
+            del got, want
+            square = off == 0 and win is None and s == t
+            mask = None if square else flash_mask(torch, s, t, off, win)
+            try:
+                sdpa(q, k, v, attn_mask=mask, is_causal=square,
+                     enable_gqa=True)
+                library_ms = timed_ms(torch, [lambda: sdpa(
+                    q, k, v, attn_mask=mask, is_causal=square,
+                    enable_gqa=True)])
+            except TypeError:               # a torch without enable_gqa
+                library_ms = None
+            pairs = flash_pairs(s, t, off, win)
+            flops = 4 * d * pairs * b * h
+            nbytes = es * (2 * b * h * s * d + 2 * b * hkv * t * d)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rows.append(dict(
+                kernel="flash_attention", arch=name, dtype=dtype, b=b, h=h,
+                hkv=hkv, s=s, t=t, d=d, q_offset=off, window=win,
+                empty_rows=n_empty, max_abs_err=err, rel_err=rel,
+                tol=FLASH_TOL[dtype],
+                ms=timed_ms(torch, [lambda: ops.flash_attention(q, k, v,
+                                                                **kw)]),
+                plain_ms=timed_ms(torch, [
+                    lambda: ref.ref_flash_attention(q, k, v, **kw)]),
+                library_ms=library_ms, matmul_ms=None, bound_ms=b_ms,
+                bound_by=b_by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+            print("  flash_attention  {arch:20s} {dtype:8s} B={b} H={h}/{hkv} "
+                  "S={s} T={t} D={d} q_offset={q_offset} window={window}  "
+                  "err {rel_err:.2e} (tol {tol:g})  {ms:.4f} ms  plain "
+                  "{plain_ms:.4f} ms  sdpa {lib}  bound {bound_ms:.4f} ms "
+                  "({bound_by}: {gflop:.2f} GFLOP, {mbytes:.1f} MB)".format(
+                      lib="n/a" if library_ms is None
+                      else f"{library_ms:.4f} ms", **rows[-1]), flush=True)
+            del q, k, v, mask
+    torch.cuda.synchronize()
+    return rows
+
+
 def reflect_kernel_rows(torch, ops, ref, ker, kerb):
     """Phase 2, the registry's standalone reflections: ether_reflect and
     ether_reflect_bwd at REFLECT_ROWS rows of the linears' input widths
@@ -1480,7 +1650,7 @@ def reflect_kernel_rows(torch, ops, ref, ker, kerb):
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
-        for arch, shapes in LINEARS.items():
+        for arch, shapes in {**LINEARS, **WIDE_LINEARS}.items():
             for d, f in shapes:
                 for n in BLOCKS:
                     u = randn(n, d // n)
@@ -1644,40 +1814,66 @@ def counted(torch, execute, ops, run):
     return r
 
 
+# the device's own work in a Chrome trace, and the host's events
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def trace_tables(events, steps):
+    """Per step, from a Chrome trace's complete ("X") events: the device's
+    busy ms (its kernels, copies and sets) and its busiest kernels; the
+    top-level host operators -- on each thread, the host events no other
+    event of that thread contains -- as ATen ops, CUDA runtime calls
+    (such as the ctypes kernel launches) and others, with their CPU µs."""
+    dev = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            dev[e["name"]] = dev.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
+    top = {"aten": [], "cuda runtime": [], "other": []}
+    ends = {}                           # thread -> end of its open event
+    for e in sorted((e for e in events if e.get("cat") in HOST_CATS),
+                    key=lambda e: (e["pid"], e["tid"], e["ts"], -e["dur"])):
+        thread = (e["pid"], e["tid"])
+        if e["ts"] < ends.get(thread, -math.inf):
+            continue                    # inside a top-level event
+        ends[thread] = e["ts"] + e["dur"]
+        name = e["name"]
+        kind = ("aten" if name.startswith("aten::") else "cuda runtime"
+                if name.startswith("cuda") else "other")
+        top[kind].append(e["dur"])
+    return {"device_busy_ms": sum(dev.values()),
+            "busiest_ms": sorted(dev.items(), key=lambda r: -r[1])[:6],
+            "top_level_ops": {k: len(v) / steps for k, v in top.items()},
+            "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
+                                 for k, v in top.items()},
+            "top_level_cpu_ms": sum(map(sum, top.values())) / 1e3 / steps}
+
+
 def trace_steps(torch, run, steps):
     """torch.profiler trace of ``run()``, which runs ``steps`` steps and
-    synchronises.  Returns, per step: the device's busy ms and its
-    busiest kernels, and the host side -- wall ms under the profiler,
-    top-level operators (ATen ops, CUDA runtime calls such as the ctypes
-    kernel launches, others) and their mean CPU µs."""
-    from torch.autograd import DeviceType
+    synchronises: wall ms a step under the profiler and
+    :func:`trace_tables` of the trace; and the seconds the profiler's
+    stop and these tables took after the run (what the trace costs the
+    script).  The tables read the Chrome trace that the profiler writes
+    in C++: building its Python events instead took 35-54% of a train
+    phase with two traced steps (PERF.md)."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()        # the profiler's start and stop
         run()                           # are left out of the wall time
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device work: the kernels and copies themselves.  A CPU op's (and a
-    # record_function range's) self device time repeats the time of the
-    # kernels it launched, so summing every event would count them twice
-    dev = [(e.key, e.self_device_time_total / 1e3 / steps)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)
-           and e.self_device_time_total > 0]
-    top = {"aten": [], "cuda runtime": [], "other": []}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
-            kind = ("aten" if e.name.startswith("aten::") else "cuda runtime"
-                    if e.name.startswith("cuda") else "other")
-            top[kind].append(e.cpu_time_total)
-    return {"profiled_wall_ms": wall_ms,
-            "device_busy_ms": sum(t for _, t in dev),
-            "busiest_ms": sorted(dev, key=lambda r: -r[1])[:6],
-            "top_level_ops": {k: len(v) / steps for k, v in top.items()},
-            "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
-                                 for k, v in top.items()},
-            "top_level_cpu_ms": sum(map(sum, top.values())) / 1e3 / steps}
+        t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("ph") == "X"]
+    return {"profiled_wall_ms": (t1 - t0) * 1e3 / steps,
+            **trace_tables(events, steps),
+            "processing_s": time.perf_counter() - t1}
 
 
 def print_trace(name, t, unprofiled_ms):
@@ -1695,7 +1891,8 @@ def print_trace(name, t, unprofiled_ms):
           f"{100 * t['top_level_cpu_ms'] / t['profiled_wall_ms']:.1f}% "
           f"of the profiled wall")
     print("    busiest device work: " + ", ".join(
-        f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"]))
+        f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"])
+        + f"; the trace's processing took {t['processing_s']:.1f} s")
 
 
 def profile_decode(torch, serve, api, steps, **kw):
@@ -1728,10 +1925,19 @@ def trace_decode(torch, api, steps, params, adapters, tokens, cfg, peft,
     return trace_steps(torch, decode, steps)
 
 
-def check_served(torch, cfg, runs, want):
+def with_attention(want, cfg, forwards):
+    """``want`` (dispatch counters, kernel launches) of a dense decoder's
+    serving run with its attention added: every layer of every forward
+    (each prefill and decode step) on the flash kernel."""
+    n = cfg.n_layers * forwards
+    return ({**want[0], "flash_attention.cuda": n},
+            {**want[1], "flash_attention": n})
+
+
+def check_served(torch, cfg, runs, want, batch=B):
     """Hold each served path's counts to ``want[name]`` (dispatch
-    counters, kernel launches) and its outputs to their shapes; print its
-    times."""
+    counters, kernel launches) and its outputs to their shapes (``batch``
+    rows); print its times."""
     for name, r in runs.items():
         print(f"[{name}] dispatch counters: {r['counters']}  kernel "
               f"launches: {r['launches']}")
@@ -1739,11 +1945,11 @@ def check_served(torch, cfg, runs, want):
               f"{name} path ran {r['counters']} / launched "
               f"{r['launches']}, want {want[name][0]} / {want[name][1]} "
               f"({r['forwards']} forwards, no plain version)")
-        check(tuple(r["logits"].shape) == (B, 1, cfg.vocab)
+        check(tuple(r["logits"].shape) == (batch, 1, cfg.vocab)
               and r["logits"].dtype == torch.float32
               and bool(torch.isfinite(r["logits"]).all()),
               f"{name} logits are not finite (B, 1, V) float32")
-        check(tuple(r["tokens"].shape) == (B, GEN + 1),
+        check(tuple(r["tokens"].shape) == (batch, GEN + 1),
               f"{name} generated {tuple(r['tokens'].shape)} tokens")
         print(f"[{name}] prefill {r['prefill_s'] * 1e3:.2f} ms  decode "
               f"{r['per_token_s'] * 1e3:.3f} ms/token  peak memory "
@@ -1774,15 +1980,17 @@ def phase_serve(torch, execute, ops, serve, api):
     cfg = get_config(ARCH, "full")
     per_forward = 7 * cfg.n_layers
     # each path's own counts: the unmerged path runs householder_gemm on
-    # every adapted linear of every forward and nothing else; the merged
-    # path runs ether_merge once per adapted linear and nothing else
+    # every adapted linear of every forward; the merged path runs
+    # ether_merge once per adapted linear; both run every layer's
+    # attention of every forward on the flash kernel, and nothing else
     none = dict.fromkeys(ops.launches(), 0)
-    want = {"unmerged": ({"householder_gemm.cuda": per_forward
-                          * un["forwards"]},
-                         {**none, "householder_gemm": per_forward
-                          * un["forwards"]}),
-            "merged": ({"ether_merge.cuda": per_forward},
-                       {**none, "ether_merge": per_forward})}
+    want = {"unmerged": with_attention((
+                {"householder_gemm.cuda": per_forward * un["forwards"]},
+                {**none, "householder_gemm": per_forward * un["forwards"]}),
+                cfg, un["forwards"]),
+            "merged": with_attention((
+                {"ether_merge.cuda": per_forward},
+                {**none, "ether_merge": per_forward}), cfg, mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
     merged_err = frob(mg["logits"], un["logits"])
     check(merged_err <= SERVE_TOL, f"merged vs unmerged logits "
@@ -1888,12 +2096,14 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
     # ETHER+ merges with two kernels, left then right
     merges = {"etherplus": ("etherplus_merge_left", "etherplus_merge_right")
               }.get(method, (f"{method}_merge",))
-    want = {"unmerged": ({f"{method}_gemm.cuda": per_forward
-                          * un["forwards"]},
-                         {**none, f"{method}_gemm": per_forward
-                          * un["forwards"]}),
-            "merged": ({f"{method}_merge.cuda": per_forward},
-                       {**none, **dict.fromkeys(merges, per_forward)})}
+    want = {"unmerged": with_attention((
+                {f"{method}_gemm.cuda": per_forward * un["forwards"]},
+                {**none, f"{method}_gemm": per_forward * un["forwards"]}),
+                cfg, un["forwards"]),
+            "merged": with_attention((
+                {f"{method}_merge.cuda": per_forward},
+                {**none, **dict.fromkeys(merges, per_forward)}), cfg,
+                mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
 
     # outside the counted runs: the frozen model, and the plain versions
@@ -2150,6 +2360,133 @@ def phase_serve_mamba(torch, execute, ops, serve, api):
                 weights_bytes=weights_bytes)
 
 
+def phase_serve_qwen(torch, execute, ops, serve, api):
+    """Phase 17: qwen2.5-32b ``full()`` at full width (d_model 5120, 40
+    query heads over 8 KV heads of 128, d_ff 27648, QKV bias, rope θ 1e6,
+    an untied 152,064-entry head, bf16), depth cut to QWEN_LAYERS of 64,
+    random weights from seed 0, ETHER n_blocks 8 on all seven linears
+    (its random hyperplanes are off the identity), B = QWEN_B at P =
+    QWEN_P, GEN new tokens, through ``serve.generate`` unmerged and after
+    ``merge_params``, each counted from 0: every layer's prefill and
+    decode attention on the flash kernel (``flash_attention.cuda``), every
+    adapted linear on ``householder_gemm`` (or merged once by
+    ``ether_merge``), no plain call.  Held: merged vs unmerged and the
+    kernels' path vs the plain path to SERVE_TOL, the adapters moving the
+    logits by more, and the logits against ``torch.matmul`` of the final
+    hidden state by the untied head (which the tied table would not give).
+    Prints prefill ms, decode ms per token, peak memory and, from traces
+    of a prefill and of a decode step, the device's idle share."""
+    import dataclasses
+
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.peft import init_adapters, merge_params
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.models import backbone
+    from repro_torch.models.layers import logits_out
+    full = get_config(QWEN_ARCH, "full")
+    cfg = dataclasses.replace(full, n_layers=min(QWEN_LAYERS, full.n_layers))
+    peft = PEFTConfig(method="ether", n_blocks=N_BLOCKS,
+                      targets=peft_targets(QWEN_ARCH))
+    params = api.init_model(cfg, seed=0, device="cuda")
+    adapters = init_adapters(torch.Generator(device="cuda").manual_seed(1),
+                             params, peft)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_B, QWEN_P),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2), device="cuda")
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for _, t in flatten_with_paths(params))
+    print(f"== phase 17: serve {QWEN_ARCH} full width ({cfg.n_layers} of "
+          f"{full.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, untied head, {cfg.param_dtype}, "
+          f"{weights_bytes / 1e9:.2f} GB of weights), ETHER "
+          f"n_blocks={N_BLOCKS}, B={QWEN_B} P={QWEN_P} gen={GEN}",
+          flush=True)
+
+    def merged():
+        t0 = time.perf_counter()
+        mp = merge_params(params, adapters, peft)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        return dict(serve.generate(mp, None, tokens, cfg, None, GEN),
+                    merge_s=merge_s)
+
+    un = counted(torch, execute, ops, lambda: dict(serve.generate(
+        params, adapters, tokens, cfg, peft, GEN), merge_s=None))
+    mg = counted(torch, execute, ops, merged)
+    per_forward = 7 * cfg.n_layers
+    none = dict.fromkeys(ops.launches(), 0)
+    want = {"unmerged": with_attention((
+                {"householder_gemm.cuda": per_forward * un["forwards"]},
+                {**none, "householder_gemm": per_forward * un["forwards"]}),
+                cfg, un["forwards"]),
+            "merged": with_attention((
+                {"ether_merge.cuda": per_forward},
+                {**none, "ether_merge": per_forward}), cfg, mg["forwards"])}
+    check_served(torch, cfg, {"unmerged": un, "merged": mg}, want,
+                 batch=QWEN_B)
+
+    # outside the counted runs: the plain path, the frozen model, and the
+    # untied head against torch.matmul of the final hidden state
+    batch = {"tokens": tokens}
+    _, plain = api.prefill(params, adapters, batch, cfg,
+                           dataclasses.replace(peft, backend="torch"))
+    _, frozen = api.prefill(params, None, batch, cfg, None)
+    effect = frob(un["logits"], frozen)
+    merged_err = frob(mg["logits"], un["logits"])
+    plain_err = frob(un["logits"], plain)
+    del plain, frozen
+    with torch.no_grad():
+        hidden, _ = backbone.forward(params, cfg, tokens=tokens,
+                                     adapters=adapters, peft=peft,
+                                     mode="prefill")
+        last = hidden[:, -1:]
+        by_matmul = torch.matmul(last.float(),
+                                 params["lm_head"]["kernel"].float())
+        head_err = frob(un["logits"], by_matmul)
+        tied_apart = frob(logits_out(params["embed"], last), by_matmul)
+    del hidden
+    print(f"adapters vs frozen model: logits rel. Frobenius {effect:.3e} "
+          f"(must exceed {SERVE_TOL:g})")
+    print(f"merged vs unmerged: logits rel. Frobenius {merged_err:.3e} "
+          f"(tol {SERVE_TOL:g}), greedy tokens agree "
+          f"{agree(mg['tokens'], un['tokens']) * 100:.1f}%")
+    print(f"kernels vs plain path: logits rel. Frobenius {plain_err:.3e} "
+          f"(tol {SERVE_TOL:g})")
+    print(f"untied head: logits vs torch.matmul(hidden, lm_head) rel. "
+          f"Frobenius {head_err:.3e} (tol {QWEN_HEAD_TOL:g}); the tied "
+          f"table's logits lie {tied_apart:.3e} apart", flush=True)
+    check(effect > SERVE_TOL, f"qwen2.5-32b adapters moved the logits by "
+          f"only {effect:.3e}")
+    check(merged_err <= SERVE_TOL and plain_err <= SERVE_TOL,
+          "qwen2.5-32b serving paths disagree")
+    check(head_err <= QWEN_HEAD_TOL and tied_apart > 0.5,
+          f"qwen2.5-32b logits are not the untied head's ({head_err:.3e}, "
+          f"tied {tied_apart:.3e})")
+
+    def one_prefill():
+        api.prefill(params, adapters, batch, cfg, peft)
+        torch.cuda.synchronize()
+    traces = {"prefill": trace_steps(torch, one_prefill, 1),
+              "decode": trace_decode(torch, api, 1, params, adapters, tokens,
+                                     cfg, peft)}
+    print_trace("qwen2.5-32b prefill", traces["prefill"],
+                un["prefill_s"] * 1e3)
+    print_trace("qwen2.5-32b decode", traces["decode"],
+                un["per_token_s"] * 1e3)
+    return dict(adapter_effect=effect, merged_vs_unmerged=merged_err,
+                kernels_vs_plain=plain_err, head_vs_matmul=head_err,
+                tied_apart=tied_apart, weights_bytes=weights_bytes,
+                n_layers=cfg.n_layers,
+                token_agreement=agree(mg["tokens"], un["tokens"]),
+                **{f"{name}_{k}": r[k] for name, r in
+                   (("unmerged", un), ("merged", mg))
+                   for k in ("prefill_s", "per_token_s", "peak_gb",
+                             "forwards", "merge_s", "counters", "launches")},
+                traces=traces)
+
+
 BANK_OP = {"ether": "householder_gemm_batched",
            "etherplus": "etherplus_reflect_batched",
            "delora": "delora_gemm_batched",
@@ -2221,11 +2558,14 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
     none = dict.fromkeys(ops.launches(), 0)
     merges = {"etherplus": ("etherplus_merge_left", "etherplus_merge_right")
               }.get(method, (f"{method}_merge",))
-    want = {"bank": ({f"{op}.cuda": per_forward * bk["forwards"]},
-                     {**none, op: per_forward * bk["forwards"]}),
-            "merged t=0": ({f"{method}_merge.cuda": 7 * cfg.n_layers},
-                           {**none, **dict.fromkeys(merges,
-                                                    7 * cfg.n_layers)})}
+    want = {"bank": with_attention((
+                {f"{op}.cuda": per_forward * bk["forwards"]},
+                {**none, op: per_forward * bk["forwards"]}), cfg,
+                bk["forwards"]),
+            "merged t=0": with_attention((
+                {f"{method}_merge.cuda": 7 * cfg.n_layers},
+                {**none, **dict.fromkeys(merges, 7 * cfg.n_layers)}), cfg,
+                mg["forwards"])}
     check_served(torch, cfg, {"bank": bk, "merged t=0": mg}, want)
 
     # outside the counted runs: the plain path on the card, each distinct
@@ -2305,7 +2645,9 @@ def phase_baselines(torch, execute, ops, serve):
     full width on the card: a short serve (LoRA, OFT, Naive unmerged and
     merged, adapters moved off their init; ``full`` unmerged), then
     BASELINE_STEPS train steps from each method's init through
-    ``launch/steps``; nothing may dispatch to a kernel."""
+    ``launch/steps``; nothing may dispatch to a kernel but serving's
+    attention (every layer of every forward on the flash kernel); the
+    training's attention dispatches its plain route under autograd."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs import get_config, peft_targets
     from repro_torch.core.peft import merge_params
@@ -2342,9 +2684,11 @@ def phase_baselines(torch, execute, ops, serve):
                 merge_s=None))
         res = {"merged_vs_unmerged": None}
         for name, r in runs.items():
-            check((r["counters"], r["launches"]) == none,
+            want = with_attention(none, cfg, r["forwards"])
+            check((r["counters"], r["launches"]) == want,
                   f"{method} {name} ran {r['counters']} / launched "
-                  f"{r['launches']}; it has no kernel")
+                  f"{r['launches']}; it has no kernel but the attention's, "
+                  f"want {want}")
             check(bool(torch.isfinite(r["logits"]).all()),
                   f"{method} {name} logits are not finite")
             res[f"{name}_per_token_s"] = r["per_token_s"]
@@ -2376,9 +2720,10 @@ def phase_baselines(torch, execute, ops, serve):
             state, metrics = step(state, batch)
             losses.append(metrics["loss"].item())       # synchronises
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        check((execute.counters(), ops.launches()) == none,
+        want = (train_attention(cfg, BASELINE_STEPS), none[1])
+        check((execute.counters(), ops.launches()) == want,
               f"{method} training ran {execute.counters()} / launched "
-              f"{ops.launches()}; it has no kernel")
+              f"{ops.launches()}; it has no kernel, want {want}")
         check(all(map(math.isfinite, losses)),
               f"{method} train losses {losses} are not finite")
         res.update(losses=losses, step_ms=step_ms,
@@ -2430,11 +2775,20 @@ def moved_off_init(torch, method):
     return start
 
 
-def expected_train_counts(method, mode, n, launch_keys):
-    """Per train run of n = 7·L·steps adapted-linear steps, the dispatch
-    counters and kernel launches of ``method`` in ``mode``: each linear's
+def train_attention(cfg, steps):
+    """The dispatch counters of a train run's attention: every layer's
+    forward and its remat recompute on the plain route under autograd
+    (the flash kernel has no backward, nor has the Pallas kernel)."""
+    per_step = (2 if cfg.remat == "full" else 1) * cfg.n_layers
+    return {"flash_attention.torch": per_step * steps}
+
+
+def expected_train_counts(method, mode, cfg, steps, launch_keys):
+    """Per train run of ``steps`` steps, the dispatch counters and kernel
+    launches of ``method`` in ``mode``: each of the 7·L adapted linears'
     forward and its remat recompute, and one backward (no dW: PEFT
-    freezes W)."""
+    freezes W); the attention's (:func:`train_attention`)."""
+    n = 7 * cfg.n_layers * steps
     if mode == "weight":
         # the merge forward twice (remat), its backward once; ETHER+'s
         # two-sided backward recomputes H⁺W (etherplus_merge_left)
@@ -2465,7 +2819,8 @@ def expected_train_counts(method, mode, n, launch_keys):
                                   "reflect_gemm_dx": n},
                     "delora": {"delora_gemm": 3 * n},
                     "hyperadapt": {"hyperadapt_gemm": 4 * n}}[method]
-    return counters, {**dict.fromkeys(launch_keys, 0), **launches}
+    return ({**counters, **train_attention(cfg, steps)},
+            {**dict.fromkeys(launch_keys, 0), **launches})
 
 
 def phase_train(torch, execute, ops, phase, method, mode="activation",
@@ -2548,15 +2903,15 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
         tr.close()
         log = logged("a")
 
-        # per step, each of the 7·L adapted linears
-        n = 7 * cfg.n_layers * steps
-        want = expected_train_counts(method, mode, n, ops.launches())
+        want = expected_train_counts(method, mode, cfg, steps,
+                                     ops.launches())
         print(f"[kernels] dispatch counters: {counters}  kernel launches: "
               f"{launches}")
         check((counters, launches) == want,
               f"train path ran {counters} / launched {launches}, want "
               f"{want[0]} / {want[1]} (forward + remat recompute + backward "
-              f"of {7 * cfg.n_layers} linears a step, no plain version)")
+              f"of {7 * cfg.n_layers} linears a step, no plain version; "
+              f"attention on the plain route under autograd)")
         losses = [m["loss"] for m in log]
         check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -2694,7 +3049,8 @@ def phase_blockgemm(torch, execute, ops, method, weight):
     blockgemm mode (the paper's dense (db × db) blocks and n block GEMMs,
     plain PyTorch as in the JAX package) from the same start
     (:func:`moved_off_init`) and schedule as the weight-mode run
-    ``weight``, counted: no kernel op dispatches.  Its per-step losses
+    ``weight``, counted: no kernel op dispatches (the attention takes
+    its plain route under autograd).  Its per-step losses
     are held to weight mode's within BLOCKGEMM_TOL; the schedule's first
     step has lr 0 (warmup), so the last loss is the first to follow an
     update."""
@@ -2734,8 +3090,10 @@ def phase_blockgemm(torch, execute, ops, method, weight):
             log = [json.loads(line) for line in fh]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(not counters and not any(launches.values()),
-          f"blockgemm mode dispatched {counters} / launched {launches}")
+    check(counters == train_attention(cfg, BLOCKGEMM_STEPS)
+          and not any(launches.values()),
+          f"blockgemm mode dispatched {counters} / launched {launches}, "
+          f"want its attention alone on the plain route")
     losses = [m["loss"] for m in log]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, weight["losses"]))
     step_ms = [m["step_time"] * 1e3 for m in log]
@@ -2751,10 +3109,12 @@ def phase_blockgemm(torch, execute, ops, method, weight):
                 peak_gb=peak_gb, counters=counters, launches=launches)
 
 
-def expected_bank_counts(method, n, launch_keys):
-    """Per run of n = 7·L·steps adapted-linear steps through a bank: each
-    linear's bank forward and its remat recompute (ETHER+: two reflection
-    calls each), one backward (no dW: PEFT freezes W)."""
+def expected_bank_counts(method, cfg, steps, launch_keys):
+    """Per run of ``steps`` steps through a bank: each of the 7·L adapted
+    linears' bank forward and its remat recompute (ETHER+: two reflection
+    calls each), one backward (no dW: PEFT freezes W); the attention's
+    (:func:`train_attention`)."""
+    n = 7 * cfg.n_layers * steps
     op = BANK_OP[method]
     calls = 2 if method == "etherplus" else 1
     counters = {f"{op}.cuda": 2 * calls * n, f"{op}_bwd.cuda": calls * n}
@@ -2764,7 +3124,8 @@ def expected_bank_counts(method, n, launch_keys):
                 "etherplus": {op: 4 * n, f"{op}_bwd": 2 * n},
                 "delora": {op: 3 * n},
                 "hyperadapt": {op: 4 * n}}[method]
-    return counters, {**dict.fromkeys(launch_keys, 0), **launches}
+    return ({**counters, **train_attention(cfg, steps)},
+            {**dict.fromkeys(launch_keys, 0), **launches})
 
 
 def phase_bank_train(torch, execute, ops, api, method, single, card):
@@ -2859,15 +3220,15 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
         final_step = state["step"].clone()
-        n = 7 * cfg.n_layers * n_steps
-        want = expected_bank_counts(method, n, ops.launches())
+        want = expected_bank_counts(method, cfg, n_steps, ops.launches())
         print(f"[kernels] dispatch counters: {counters}  kernel launches: "
               f"{launches}")
         check((counters, launches) == want,
               f"bank train path ran {counters} / launched {launches}, want "
               f"{want[0]} / {want[1]} (forward + remat recompute + backward "
               f"of {7 * cfg.n_layers} linears a step through the bank "
-              f"kernels, no plain version, no dW)")
+              f"kernels, no plain version, no dW; attention on the plain "
+              f"route under autograd)")
         check(all(map(math.isfinite, losses + norms)),
               f"bank train losses {losses} / grad norms {norms} not finite")
         steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
@@ -3183,6 +3544,7 @@ def main() -> int:
     rows += timed("2 ssd rows", lambda: ssd_kernel_rows(torch, ops, ref))
     rows += timed("2 reflect rows",
                   lambda: reflect_kernel_rows(torch, ops, ref, ker, kerb))
+    rows += timed("2 flash rows", lambda: flash_kernel_rows(torch, ops, ref))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -3213,6 +3575,8 @@ def main() -> int:
     mamba = timed("15", lambda: phase_serve_mamba(torch, execute, ops, serve,
                                                  api))
     registry = timed("16", lambda: phase_registry(torch, execute, ops))
+    qwen = timed("17", lambda: phase_serve_qwen(torch, execute, ops, serve,
+                                               api))
 
     # each main path's own launches, counted from 0 just before it
     paths = {"ether serve": served["unmerged_launches"],
@@ -3238,6 +3602,8 @@ def main() -> int:
         paths.update({f"mamba2 serve P={plen}": r["unmerged_launches"],
                       f"mamba2 merge P={plen}": r["merged_launches"]})
     paths["registry under autograd"] = registry["launches"]
+    paths.update({"qwen2.5-32b serve": qwen["unmerged_launches"],
+                  "qwen2.5-32b merge": qwen["merged_launches"]})
     decode = (N_BLOCKS, B, "one smollm-360m decode layer, T=4, n=8")
     weights = (N_BLOCKS, None, "one smollm-360m layer's weights, n=8")
     train = (TRAIN_BLOCKS, TRAIN_B * TRAIN_S,
@@ -3397,9 +3763,35 @@ def main() -> int:
                                            "plain_ms", "bound_ms",
                                            "bound_by")}
                    for seq, r in ssd.items()}})
-    check(len(kernels) == 26, f"the kernels line lists {len(kernels)}")
+    # the flash kernel: one qwen2.5-32b prefill layer's attention of phase
+    # 17's main path (B = 2, 40 over 8 heads, S = T = 2048, D = 128), bf16;
+    # every other row of phase 2 beside it
+    flash = [r for r in rows if r["kernel"] == "flash_attention"]
+    main_row = next(r for r in flash if r["dtype"] == "bfloat16"
+                    and r["arch"] == FLASH_ROWS[0][0])
+    by_path = {p: c["flash_attention"] for p, c in paths.items()
+               if c["flash_attention"]}
+    check(sum(by_path.values()) > 0, "no main path launched flash_attention")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:76",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in flash),
+        **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "matmul_ms": None,
+        "shapes": "one qwen2.5-32b prefill layer's attention: B=2, H=40 "
+                  "over Hkv=8, S=T=2048, D=128, causal, bf16",
+        "by_row": [{k: r[k] for k in ("arch", "dtype", "b", "h", "hkv", "s",
+                                      "t", "d", "q_offset", "window",
+                                      "empty_rows", "max_abs_err", "rel_err",
+                                      "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in flash]})
+    check(len(kernels) == 27, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
-    print(f"chip_smoke: phases 1-16 took {total_s:.1f} s (" + ", ".join(
+    print(f"chip_smoke: phases 1-17 took {total_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3416,6 +3808,7 @@ def main() -> int:
                       for m, r in blockgemm.items()},
                    **{f"{m}_bank_train": r for m, r in trained_bank.items()},
                    "mamba2_serve": mamba, "registry": registry,
+                   "qwen2p5_32b_serve": qwen,
                    "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

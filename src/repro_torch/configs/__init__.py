@@ -1,8 +1,8 @@
-"""Architecture registry of the port: the dense decoders and Mamba-2
-(serving only).  Each module exports ``ARCH``, ``full()`` (the published
-config), ``smoke()`` (the reduced CPU-test config) and ``PEFT_TARGETS``,
-as the JAX package's config modules do.  The other architectures are
-queued in ROADMAP.md."""
+"""Architecture registry of the port: the dense decoders (tied and untied
+output heads) and Mamba-2 (serving only).  Each module exports ``ARCH``,
+``full()`` (the published config), ``smoke()`` (the reduced CPU-test
+config) and ``PEFT_TARGETS``, as the JAX package's config modules do.
+The other architectures are queued in ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -10,13 +10,17 @@ import importlib
 
 from repro_torch import NotPortedError
 
-ARCH_IDS = ["smollm_360m", "paper_llama2_7b", "mamba2_1p3b"]
+ARCH_IDS = ["smollm_360m", "paper_llama2_7b", "mamba2_1p3b", "qwen2p5_32b",
+            "deepseek_coder_33b", "minicpm_2b"]
 
 # CLI-friendly aliases → module names
 ALIASES = {
     "smollm-360m": "smollm_360m",
     "llama-2-7b": "paper_llama2_7b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "qwen2.5-32b": "qwen2p5_32b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "minicpm-2b": "minicpm_2b",
 }
 
 

@@ -27,7 +27,11 @@ The registry also holds the JAX registry's standalone reflections
 tenant of a bank), which no model calls.  Mamba-2's chunked scan
 ``ssd_chunked`` (``models/ssm.py``) dispatches here too: ``cuda`` runs its
 chunks on the SSD kernel (``ops.ssd_chunk``), ``torch`` on their plain
-version (``ref.ref_ssd_chunk``).
+version (``ref.ref_ssd_chunk``).  Every dense decoder's attention
+(``models/attention.py``) dispatches ``flash_attention``: ``cuda`` runs
+the flash kernel (``ops.flash_attention``), ``torch`` its plain version
+chunked over queries (``ref.ref_flash_attention``, the JAX package's
+einsum ``attention_core``), which is also the route of training.
 
 ``dispatch`` is differentiable on every backend, as the JAX package's
 pallas ops are through ``_registry_vjp``: a forward op dispatched while
@@ -35,8 +39,9 @@ grad is enabled and an operand requires grad runs under its autograd
 Function (``FUNCTIONS``), whose backward dispatches ``<op>_bwd`` on the
 backend its forward resolved (counted as ``<op>_bwd.<backend>``).
 Without grad it calls the implementation directly, so serving pays
-nothing for autograd.  ``ssd_chunked`` has no Function: under grad its
-``torch`` route is plain autograd and its ``cuda`` route raises
+nothing for autograd.  ``ssd_chunked`` and ``flash_attention`` have no
+Function (the JAX package has no backward for either kernel): under grad
+their ``torch`` route is plain autograd and their ``cuda`` route raises
 :class:`repro_torch.NotPortedError` rather than return an output without
 a gradient.
 """
@@ -131,6 +136,9 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     # Mamba-2's chunked scan (serving; no backward yet)
     ("ssd_chunked", "torch"): _ssd_chunked(ref.ref_ssd_chunk),
     ("ssd_chunked", "cuda"): _ssd_chunked(ops.ssd_chunk),
+    # every dense decoder's attention (no backward kernel)
+    ("flash_attention", "torch"): ref.ref_flash_attention,
+    ("flash_attention", "cuda"): ops.flash_attention,
 }
 _COUNTERS: dict[str, int] = {}
 

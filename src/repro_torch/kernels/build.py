@@ -31,12 +31,13 @@ SOURCES = ("householder_gemm", "ether_merge", "reflect_gemm_dx",
            "hyperadapt_gemm_batched", "merge_bwd",
            "householder_gemm_batched_bwd", "householder_gemm_batched_dw",
            "etherplus_reflect_batched_bwd", "ssd_scan", "ether_reflect",
-           "ether_reflect_bwd")
+           "ether_reflect_bwd", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": wall time of its nvcc, "ptxas": its -Xptxas -v lines}
+# name -> {"seconds": wall time of its nvcc, "ptxas": its -Xptxas -v lines,
+# the stack frame and spill lines among them}
 BUILD_LOG: dict[str, dict] = {}
 
 
@@ -81,7 +82,8 @@ def build(names=SOURCES) -> dict[str, dict]:
             out, _ = proc.communicate()
             BUILD_LOG[name] = {
                 "seconds": time.perf_counter() - t0,
-                "ptxas": [ln for ln in out.splitlines() if "ptxas" in ln]}
+                "ptxas": [ln for ln in out.splitlines()
+                          if "ptxas" in ln or "spill" in ln]}
             if proc.returncode:
                 failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})"
                               f"\n{out}")

@@ -31,8 +31,8 @@ with a zero hyperplane only when asked for dW; ``ssd_chunk`` launches
 the SSD kernel once a call; the registry's standalone reflections
 ``ether_reflect``, ``ether_reflect_batched``, ``ether_reflect_bwd`` and
 ``ether_reflect_batched_bwd`` launch their one kernel each, the
-backwards' fixed-order ĝ sums and norm chain included), so a run can
-show that its path went
+backwards' fixed-order ĝ sums and norm chain included; ``flash_attention``
+launches its kernel once a call), so a run can show that its path went
 through the kernels.  The rank-r and per-feature cotangents of
 DeLoRA and HyperAdapt (and their scatter-add over a bank's ids) are a few
 thin PyTorch ops beside the kernels, as the JAX package leaves them to
@@ -53,6 +53,7 @@ from repro_torch.kernels import ether_reflect_bwd as _erb
 from repro_torch.kernels import etherplus_gemm as _ep
 from repro_torch.kernels import etherplus_merge as _epm
 from repro_torch.kernels import etherplus_reflect_bwd as _rb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import householder_gemm as _hh
 from repro_torch.kernels import hyperadapt_gemm as _hg
 from repro_torch.kernels import merge_bwd as _mb
@@ -74,7 +75,8 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "householder_gemm_batched_dw": 0,
              "etherplus_reflect_batched_bwd": 0, "ssd_chunk": 0,
              "ether_reflect": 0, "ether_reflect_batched": 0,
-             "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0}
+             "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0,
+             "flash_attention": 0}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -1044,3 +1046,78 @@ def ether_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
     err, dx, _, du = _erb.launch_batched(x, u_bank, ids, g)
     _launched("ether_reflect_batched_bwd", err)
     return dx, du
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+_I32 = 2 ** 31 - 1
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int], q_offset: int) -> None:
+    """``flash_attention``'s check: q (B, H, S, D), k and v (B, Hkv, T, D)
+    of one dtype, float32 or bfloat16, H % Hkv == 0, D in
+    ``flash_attention.HEAD_DIMS``, S, T ≥ 1, all contiguous on one device
+    (16-byte aligned on the card); window None or an int, q_offset an int,
+    both in int32 range.  Raises KernelInputError naming the first check
+    the operands fail."""
+    named = {"q": q, "k": k, "v": v}
+    shaped = q.dim() == 4 and k.dim() == 4
+    B, H, S, D = q.shape if q.dim() == 4 else (-1,) * 4
+    Hkv, T = k.shape[1:3] if k.dim() == 4 else (-1, -1)
+    if not shaped or q.dtype not in _fa.DTYPE_CODE:
+        why = "q must be a float32 or bfloat16 (B, H, S, D) tensor"
+    elif (k.shape != (B, Hkv, T, D) or v.shape != k.shape
+          or k.dtype != q.dtype or v.dtype != q.dtype):
+        why = "k and v must be (B, Hkv, T, D) tensors of q's dtype"
+    elif Hkv < 1 or H % Hkv:
+        why = "the query heads must be a multiple of the KV heads"
+    elif D not in _fa.HEAD_DIMS:
+        why = f"the kernel takes head widths {_fa.HEAD_DIMS}"
+    elif S < 1 or T < 1 or B < 1:
+        why = "operands must not be empty"
+    elif not (isinstance(q_offset, int) and abs(q_offset) <= _I32
+              and (window is None or (isinstance(window, int)
+                                      and abs(window) <= _I32))):
+        why = "q_offset and window must be ints in int32 range"
+    elif len({t.device for t in named.values()}) != 1:
+        why = "all operands must be on one device"
+    elif q.device.type not in ("cpu", "cuda"):
+        why = "operands must be on the CPU or a CUDA device"
+    elif not all(t.is_contiguous() for t in named.values()):
+        why = "operands must be contiguous"
+    elif q.device.type == "cuda" and any(t.data_ptr() % 16
+                                         for t in named.values()):
+        why = "operands must be 16-byte aligned on the card"
+    else:
+        return
+    desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
+                     for k, t in named.items())
+    raise KernelInputError(f"flash_attention refuses {desc}, window "
+                           f"{window!r}, q_offset {q_offset!r}: {why}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0,
+                    q_chunk: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention of q (B, H, S, D) against k, v (B, Hkv, T, D),
+    KV head h // (H/Hkv) for query head h, scale 1/√D: query row i sits
+    at ``q_offset + i`` against keys 0..T−1 (causal: kpos ≤ qpos;
+    ``window``: kpos > qpos − window), a row with no valid key is exact
+    zeros.  Returns (B, H, S, D) in q's dtype.  The counterpart of the JAX
+    package's ``ops.flash_attention``, at every S and T: its fallback for
+    shapes not tileable by 128, which drops ``q_offset``, has none (see
+    :func:`repro_torch.kernels.ref.ref_flash_attention`).  ``q_chunk``
+    bounds the plain version's live scores on the CPU; the kernel walks
+    its own tiles of 64 query rows."""
+    _check_flash(q, k, v, window, q_offset)
+    if q.device.type == "cpu":
+        return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, q_chunk=q_chunk)
+    err, out = _fa.launch(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    _launched("flash_attention", err)
+    return out

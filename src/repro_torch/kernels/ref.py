@@ -779,3 +779,47 @@ def ref_ssd_chunk(xv: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     states = torch.einsum("bclhn,bclh,bclhp->bhcnp", bh, w_in, x)
     decays = torch.exp(cum[:, :, -1]).transpose(1, 2)         # (B, H, nc)
     return y.reshape(B, S, H, P), states, decays.contiguous()
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        q_offset: Optional[int] = None,
+                        q_chunk: Optional[int] = None) -> torch.Tensor:
+    """Exact softmax attention, call for call the JAX package's
+    ``ref_flash_attention`` (src/repro/kernels/ref.py:256): q (B, H, S, D)
+    against k, v (B, Hkv, T, D), query head h on KV head h // (H/Hkv)
+    (grouped, not repeated); f32 scores scaled by ``scale`` (default
+    1/√D), masked where kpos > qpos (``causal``) or kpos ≤ qpos −
+    ``window``, the masked probabilities zeroed as the Pallas kernel
+    does, so a row with no valid key is exact zeros; one rounding to q's
+    dtype.  Query row i sits at ``q_offset + i``; ``q_offset=None``
+    places it at T − S + i, as the JAX ref does (the kernel's wrapper
+    always passes its own q_offset).
+
+    ``q_chunk`` rows of queries at a time bound the live scores to (B, H,
+    q_chunk, T), as the JAX package's einsum ``attention_core`` does: the
+    ``torch`` route of the models' attention, under autograd too."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    off = t - s if q_offset is None else q_offset
+    if q_chunk is not None and s > q_chunk:
+        return torch.cat([ref_flash_attention(
+            q[:, :, i:i + q_chunk], k, v, causal=causal, window=window,
+            scale=scale, q_offset=off + i) for i in range(0, s, q_chunk)],
+            dim=2)
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    qpos = off + torch.arange(s, device=q.device)
+    kpos = torch.arange(t, device=q.device)
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    qg = q.reshape(b, hkv, h // hkv, s, d)                # (B, G, R, S, D)
+    logits = (qg.float() @ k.float()[:, :, None].transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p.masked_fill(~mask, 0.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (p @ v.float()[:, :, None]).reshape(b, h, s, d).to(q.dtype)

@@ -100,8 +100,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotPortedError(f"the {cfg.frontend!r} frontend")
     if cfg.window is not None:
         raise NotPortedError("sliding-window attention")
-    if not cfg.tie_embeddings:
-        raise NotPortedError("untied output heads")
     if cfg.norm != "rmsnorm":
         raise NotPortedError(f"norm {cfg.norm!r}")
     if cfg.remat not in ("full", "none"):
@@ -148,10 +146,15 @@ def init(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
     elif cfg.mlp_type == "gelu":
         layer["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, pdt,
                                   device, stack=stack)
-    return {"embed": L.init_embedding(generator, cfg.vocab, cfg.d_model, pdt,
-                                      device),
-            "final_norm": L.init_rmsnorm(cfg.d_model, pdt, device),
-            "units": {"pos0": layer}}
+    params = {"embed": L.init_embedding(generator, cfg.vocab, cfg.d_model,
+                                        pdt, device),
+              "final_norm": L.init_rmsnorm(cfg.d_model, pdt, device),
+              "units": {"pos0": layer}}
+    if not cfg.tie_embeddings:
+        # drawn last, so a tied config's weights are what they were
+        params["lm_head"] = L.init_dense(generator, cfg.d_model, cfg.vocab,
+                                         pdt, device)
+    return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
@@ -189,7 +192,7 @@ def _unstack(tree, n: int) -> list:
     return [{k: per_key[k][i] for k in tree} for i in range(n)]
 
 
-def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
+def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  rope=None, cache=None, cache_pos=None, adapters=None,
                  peft=None, true_lens=None):
     """Pre-norm residual block: mixer + optional MLP.  Returns (x, layer
@@ -207,7 +210,7 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     else:
         mixed, new_cache = apply_attention(
             p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-            head_dim=cfg.hd, positions=positions, causal=True, rope=rope,
+            head_dim=cfg.hd, causal=True, rope=rope,
             cache=cache, cache_pos=cache_pos, q_chunk=cfg.q_chunk,
             adapters=a_mixer, peft=peft)
     x = x + mixed
@@ -222,19 +225,18 @@ def _apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     return x + out, new_cache
 
 
-def _layer_out(p, x, cfg, positions, rope, adapters, peft):
-    return _apply_layer(p, x, cfg, positions=positions, rope=rope,
-                        adapters=adapters, peft=peft)[0]
+def _layer_out(p, x, cfg, rope, adapters, peft):
+    return _apply_layer(p, x, cfg, rope=rope, adapters=adapters,
+                        peft=peft)[0]
 
 
-def _train_layer(p, x, cfg, positions, rope, adapters, peft):
+def _train_layer(p, x, cfg, rope, adapters, peft):
     """One layer of a training forward; under ``remat="full"`` its
     activations are dropped and recomputed in the backward."""
     if cfg.remat == "full" and torch.is_grad_enabled():
-        return checkpoint(_layer_out, p, x, cfg, positions, rope, adapters,
-                          peft, use_reentrant=False,
-                          preserve_rng_state=False)
-    return _layer_out(p, x, cfg, positions, rope, adapters, peft)
+        return checkpoint(_layer_out, p, x, cfg, rope, adapters, peft,
+                          use_reentrant=False, preserve_rng_state=False)
+    return _layer_out(p, x, cfg, rope, adapters, peft)
 
 
 def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
@@ -269,14 +271,14 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
     layer_adapters = _unstack(get_adapter(adapters, "units", "pos0"), n)
     if mode == "train":
         for i in range(n):
-            x = _train_layer(layer_params[i], x, cfg, positions, rope,
+            x = _train_layer(layer_params[i], x, cfg, rope,
                              layer_adapters[i], peft)
         return L.rmsnorm(params["final_norm"], x), None
     layer_caches = _unstack(cache["pos0"] if mode == "decode" else None, n)
     new = []
     for i in range(n):
-        x, lc = _apply_layer(layer_params[i], x, cfg, positions=positions,
-                             rope=rope, cache=layer_caches[i],
+        x, lc = _apply_layer(layer_params[i], x, cfg, rope=rope,
+                             cache=layer_caches[i],
                              cache_pos=start if mode == "decode" else None,
                              adapters=layer_adapters[i], peft=peft,
                              true_lens=true_lens)
@@ -293,7 +295,11 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
 
 def logits_fn(params: Params, cfg: ModelConfig,
               hidden: torch.Tensor) -> torch.Tensor:
-    return L.logits_out(params["embed"], hidden)
+    """float32 logits: the tied head (hidden @ embedding tableᵀ), or the
+    untied ``lm_head`` (d_model, vocab) as hidden @ kernel in float32."""
+    if cfg.tie_embeddings:
+        return L.logits_out(params["embed"], hidden)
+    return hidden.float() @ params["lm_head"]["kernel"].float()
 
 
 def lm_loss(params: Params, cfg: ModelConfig, hidden: torch.Tensor,

@@ -535,7 +535,8 @@ def test_bank_prefill_and_decode_match_jax(arch, method):
           "etherplus": "etherplus_reflect_batched"}.get(
               method, f"{method}_gemm_batched")
     per_pass = 7 * r["n_layers"] * (2 if method == "etherplus" else 1)
-    assert r["calls"] == {f"{op}.torch": per_pass}
+    assert r["calls"] == {f"{op}.torch": per_pass,
+                          "flash_attention.torch": r["n_layers"]}
     assert _max_err(r["tlog"], r["jlog"]) < MODEL_TOL
     for t_lg, j_lg in zip(r["tsteps"], r["jsteps"]):
         assert _max_err(t_lg, j_lg) < MODEL_TOL
@@ -613,9 +614,12 @@ def test_serve_cli_tenants_runs_on_cpu(method, capsys):
               method, f"{method}_gemm_batched")
     per_forward = 7 * 4 * (2 if method == "etherplus" else 1)
     bank, merged = res["bank"], res["merged"]
-    assert bank["counters"] == {f"{op}.torch": per_forward * bank["forwards"]}
+    assert bank["counters"] == {f"{op}.torch": per_forward * bank["forwards"],
+                                "flash_attention.torch": 4 * bank["forwards"]}
     merge_op = f"{method}_merge"
-    assert merged["counters"] == {f"{merge_op}.torch": 7 * 4}
+    assert merged["counters"] == {f"{merge_op}.torch": 7 * 4,
+                                  "flash_attention.torch":
+                                  4 * merged["forwards"]}
     assert bank["tokens"].shape == merged["tokens"].shape == (3, 3)
     assert torch.isfinite(bank["logits"]).all()
     ids = res["tenant_ids"]

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, the
 serving and training slices (ETHER, ETHER+, DeLoRA, HyperAdapt and the
-plain-PyTorch methods) on the card against the same runs on the CPU, and
-``execute.dispatch`` under autograd on ``cuda`` against ``torch``.
+plain-PyTorch methods) on the card against the same runs on the CPU,
+``execute.dispatch`` under autograd on ``cuda`` against ``torch``, and
+the flash attention kernel that every dense decoder's serving runs.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -161,8 +162,10 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device):
         execute.reset_counters()
         out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
     per_pass = 7 * cfg.n_layers
+    # each layer's attention on its plain route under autograd
     assert execute.counters() == {"householder_gemm.cuda": per_pass,
-                                  "householder_gemm_bwd.cuda": per_pass}
+                                  "householder_gemm_bwd.cuda": per_pass,
+                                  "flash_attention.torch": cfg.n_layers}
     assert ops.launches() == _launched(householder_gemm=per_pass,
                                        reflect_gemm_dx=per_pass)
     (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
@@ -199,11 +202,13 @@ def test_smoke_serving_on_the_card_matches_the_cpu(cuda_device, merged):
         runs[str(dev)] = (serve.generate(p, a, tokens.to(dev), cfg, pc, 4),
                           execute.counters())
     (card, calls), (cpu, _) = runs["cuda"], runs["cpu"]
+    # every layer's attention of every forward on the flash kernel
+    attention = {"flash_attention.cuda": cfg.n_layers * card["forwards"]}
     if merged:
-        assert calls == {"ether_merge.cuda": 7 * cfg.n_layers}
+        assert calls == {"ether_merge.cuda": 7 * cfg.n_layers, **attention}
     else:
         assert calls == {"householder_gemm.cuda":
-                         7 * cfg.n_layers * card["forwards"]}
+                         7 * cfg.n_layers * card["forwards"], **attention}
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
 
@@ -324,7 +329,8 @@ def test_etherplus_smoke_train_step_on_the_card_matches_the_cpu(cuda_device,
         out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
     per_pass = 7 * cfg.n_layers
     assert execute.counters() == {"etherplus_gemm.cuda": per_pass,
-                                  "etherplus_gemm_bwd.cuda": per_pass}
+                                  "etherplus_gemm_bwd.cuda": per_pass,
+                                  "flash_attention.torch": cfg.n_layers}
     sides = int(two_sided)
     assert ops.launches() == _launched(
         etherplus_gemm=(1 + sides) * per_pass,
@@ -360,14 +366,18 @@ def test_etherplus_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
                           execute.counters(), ops.launches())
     (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
     per_pass = 7 * cfg.n_layers
+    attn = cfg.n_layers * card["forwards"]
     if merged:
-        assert calls == {"etherplus_merge.cuda": per_pass}
+        assert calls == {"etherplus_merge.cuda": per_pass,
+                         "flash_attention.cuda": attn}
         assert launched == _launched(etherplus_merge_left=per_pass,
-                                     etherplus_merge_right=per_pass)
+                                     etherplus_merge_right=per_pass,
+                                     flash_attention=attn)
     else:
-        assert calls == {"etherplus_gemm.cuda": per_pass * card["forwards"]}
+        assert calls == {"etherplus_gemm.cuda": per_pass * card["forwards"],
+                         "flash_attention.cuda": attn}
         assert launched == _launched(
-            etherplus_gemm=per_pass * card["forwards"])
+            etherplus_gemm=per_pass * card["forwards"], flash_attention=attn)
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
 
@@ -519,6 +529,7 @@ def test_method_smoke_train_step_on_the_card_matches_the_cpu(cuda_device,
                             "hyperadapt_gemm_bwd.cuda": per_pass},
                            _launched(hyperadapt_gemm=3 * per_pass))}.get(
         method, ({}, _launched()))
+    want[0]["flash_attention.torch"] = cfg.n_layers
     assert (execute.counters(), ops.launches()) == want
     (card, cm), (cpu, pm) = out["cuda"], out["cpu"]
     for k in ("loss", "grad_norm"):
@@ -566,13 +577,18 @@ def test_method_smoke_serving_on_the_card_matches_the_cpu(cuda_device,
                           execute.counters(), ops.launches())
     (card, calls, launched), (cpu, _, _) = runs["cuda"], runs["cpu"]
     per_pass = 7 * cfg.n_layers
+    attn = cfg.n_layers * card["forwards"]
     if merged:
-        assert calls == {f"{method}_merge.cuda": per_pass}
-        assert launched == _launched(**{f"{method}_merge": per_pass})
+        assert calls == {f"{method}_merge.cuda": per_pass,
+                         "flash_attention.cuda": attn}
+        assert launched == _launched(**{f"{method}_merge": per_pass},
+                                     flash_attention=attn)
     else:
         n = per_pass * card["forwards"]
-        assert calls == {f"{method}_gemm.cuda": n}
-        assert launched == _launched(**{f"{method}_gemm": n})
+        assert calls == {f"{method}_gemm.cuda": n,
+                         "flash_attention.cuda": attn}
+        assert launched == _launched(**{f"{method}_gemm": n},
+                                     flash_attention=attn)
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
 
@@ -734,8 +750,9 @@ def test_bank_smoke_serving_on_the_card_matches_the_cpu(cuda_device, method):
               method, f"{method}_gemm_batched")
     n = 7 * cfg.n_layers * card["forwards"] * (2 if method == "etherplus"
                                                else 1)
-    assert calls == {f"{op}.cuda": n}
-    assert launched == _launched(**{op: n})
+    attn = cfg.n_layers * card["forwards"]
+    assert calls == {f"{op}.cuda": n, "flash_attention.cuda": attn}
+    assert launched == _launched(**{op: n}, flash_attention=attn)
     assert _max_err(card["logits"], cpu["logits"]) < 1e-4
     assert torch.equal(card["tokens"], cpu["tokens"])
 
@@ -890,7 +907,8 @@ def test_weight_mode_smoke_train_step_on_the_card_matches_the_cpu(
         out[str(dev)] = step(moved, {k: v.to(dev) for k, v in batch.items()})
     pp = 7 * cfg.n_layers                    # remat "none" at smoke size
     op = f"{method}_merge"
-    assert execute.counters() == {f"{op}.cuda": pp, f"{op}_bwd.cuda": pp}
+    assert execute.counters() == {f"{op}.cuda": pp, f"{op}_bwd.cuda": pp,
+                                  "flash_attention.torch": cfg.n_layers}
     assert ops.launches() == {
         "ether": _launched(ether_merge=pp, merge_left_bwd=pp),
         "etherplus": _launched(etherplus_merge_left=2 * pp,
@@ -1078,7 +1096,9 @@ def test_bank_smoke_train_steps_on_the_card_match_the_cpu(cuda_device,
           "etherplus": "etherplus_reflect_batched"}.get(
               method, f"{method}_gemm_batched")
     n = 7 * cfg.n_layers * 2 * (2 if method == "etherplus" else 1)
-    assert calls == {f"{op}.cuda": n, f"{op}_bwd.cuda": n}
+    # each layer's attention on its plain route under autograd, 2 steps
+    assert calls == {f"{op}.cuda": n, f"{op}_bwd.cuda": n,
+                     "flash_attention.torch": 2 * cfg.n_layers}
     fwd = {"delora": 2 * n, "hyperadapt": 3 * n}.get(method, n)
     bwd = ({f"{op}_bwd": n} if method in ("ether", "etherplus") else {})
     assert launched == _launched(**{op: fwd}, **bwd)
@@ -1425,3 +1445,119 @@ def test_ssd_chunked_under_grad_on_cuda_raises(cuda_device):
     with torch.no_grad():
         y, _ = execute.dispatch("ssd_chunked", "cuda", xv, a, b, c, chunk=8)
     assert y.shape == xv.shape
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: every dense decoder's prefill and decode attention
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, T, D, q_offset, window): ragged S and T (not multiples of
+# the 64-row tiles), D 32, 64 and 128, MHA and GQA 4:1 and 5:1, windows, a
+# cached prefix, decode rows, and rows that see no key (the last two)
+FLASH_SHAPES = [(2, 4, 1, 77, 77, 64, 0, None),
+                (1, 5, 1, 130, 130, 128, 0, 33),
+                (2, 3, 3, 65, 200, 32, 135, None),
+                (3, 15, 5, 1, 48, 64, 47, None),
+                (2, 40, 8, 1, 300, 128, 299, None),
+                (1, 8, 2, 100, 190, 128, 90, 70),
+                (1, 4, 2, 200, 128, 64, 136, 16),
+                (2, 2, 1, 9, 5, 32, -7, None)]
+# f32: normalised max error (sums over up to 300 keys in another order);
+# bf16: relative Frobenius norm, one rounding of an f32 result each
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _flash_operands(device, b, h, hkv, s, t, d, dtype):
+    rng = np.random.default_rng(b * h + s * t + d)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            device, dtype)
+    return draw(b, h, s, d), draw(b, hkv, t, d), draw(b, hkv, t, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,t,d,q_offset,window", FLASH_SHAPES)
+def test_flash_attention_matches_its_plain_version(cuda_device, b, h, hkv, s,
+                                                   t, d, q_offset, window,
+                                                   dtype):
+    q, k, v = _flash_operands(cuda_device, b, h, hkv, s, t, d, dtype)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches() == _launched(flash_attention=1)
+    want = ref.ref_flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == (b, h, s, d)
+    empty = (want == 0).all(dim=-1)
+    assert torch.equal(got[empty], want[empty])           # exact zeros
+    if bool(empty.all()):
+        return
+    if dtype == torch.float32:
+        assert _max_err(got, want) < FLASH_TOL[dtype]
+    else:
+        diff = (got.float() - want.float()).norm() / want.float().norm()
+        assert diff.item() < FLASH_TOL[dtype]
+
+
+def test_flash_attention_counts_one_launch_a_call(cuda_device):
+    q, k, v = _flash_operands(cuda_device, 1, 4, 2, 16, 16, 64,
+                              torch.bfloat16)
+    ops.reset_launches()
+    for i in range(1, 4):
+        ops.flash_attention(q, k, v, q_offset=0)
+        assert ops.launches()["flash_attention"] == i
+
+
+def test_flash_attention_refuses_on_the_card_without_fallback(cuda_device):
+    q, k, v = _flash_operands(cuda_device, 1, 4, 2, 16, 16, 80,
+                              torch.float32)
+    ops.reset_launches()
+    with pytest.raises(ops.KernelInputError, match="head widths"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_operands(cuda_device, 1, 4, 2, 16, 16, 64,
+                              torch.float32)
+    with pytest.raises(ops.KernelInputError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    with pytest.raises(ops.KernelInputError, match="one device"):
+        ops.flash_attention(q, k.cpu(), v)
+    assert ops.launches() == _launched()
+
+
+def test_flash_attention_under_grad_on_cuda_raises(cuda_device):
+    """flash_attention has no backward (nor has the Pallas kernel): under
+    grad its cuda route raises NotPortedError; the models' attention
+    dispatches its plain version under autograd instead, counted as
+    ``flash_attention.torch``."""
+    from repro_torch.models import attention
+    q, k, v = _flash_operands(cuda_device, 1, 4, 2, 16, 16, 64,
+                              torch.float32)
+    q.requires_grad_(True)
+    execute.reset_counters()
+    with pytest.raises(NotPortedError, match="flash_attention"):
+        execute.dispatch("flash_attention", "cuda", q, k, v)
+    out = attention.attention_core(q, k, v, backend="cuda")
+    assert (execute.counters() == {"flash_attention.torch": 1}
+            and out.grad_fn is not None)
+    with torch.no_grad():
+        got = execute.dispatch("flash_attention", "cuda", q, k, v)
+    assert execute.counters() == {"flash_attention.torch": 1,
+                                  "flash_attention.cuda": 1}
+    assert _max_err(got, out.detach()) < FLASH_TOL[torch.float32]
+
+
+def test_flash_attention_does_not_repeat_kv(cuda_device):
+    """A GQA call at T = 4096 allocates its output and nothing near the
+    8× KV that repeating the 4 KV heads to 32 would take."""
+    q, k, v = _flash_operands(cuda_device, 1, 32, 4, 16, 4096, 128,
+                              torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.flash_attention(q, k, v, q_offset=4080)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    repeated = 2 * k.numel() * k.element_size() * (32 // 4)
+    out_bytes = out.numel() * out.element_size()
+    assert extra <= out_bytes + (1 << 20) < repeated

@@ -462,7 +462,8 @@ def _serve_run(arch):
 def test_prefill_decode_and_merged_logits_match_jax(arch):
     r = _serve_run(arch)
     per_pass = 7 * r["cfg"].n_layers
-    assert r["calls"] == {"etherplus_gemm.torch": per_pass}
+    assert r["calls"] == {"etherplus_gemm.torch": per_pass,
+                          "flash_attention.torch": r["cfg"].n_layers}
     assert r["merge_calls"] == {"etherplus_merge.torch": per_pass}
     assert _max_err(r["tlog"], r["jlog"]) < F32_TOL
     for t_lg, j_lg in zip(r["tsteps"], r["jsteps"]):
@@ -500,8 +501,10 @@ def test_train_loss_and_adapter_grads_match_jax(arch):
     for path, leaf in leaves:
         assert _max_err(_np(leaf.grad), jg[path]) < GRAD_TOL, path
     per_pass = 7 * tcfg.n_layers
+    # and each layer's attention, on its plain route under autograd
     assert execute.counters() == {"etherplus_gemm.torch": per_pass,
-                                  "etherplus_gemm_bwd.torch": per_pass}
+                                  "etherplus_gemm_bwd.torch": per_pass,
+                                  "flash_attention.torch": tcfg.n_layers}
 
 
 @functools.lru_cache(maxsize=None)
@@ -596,6 +599,7 @@ def test_serve_cli_runs_etherplus_on_cpu(merged, capsys):
     per_forward = 7 * 4
     want = ({"etherplus_merge.torch": per_forward} if merged else
             {"etherplus_gemm.torch": per_forward * res["forwards"]})
+    want["flash_attention.torch"] = 4 * res["forwards"]
     assert f"dispatch counters: {want}" in out
 
 

@@ -503,7 +503,8 @@ def test_full_finetuning_trains_the_base_params_only():
         vocab=cfg.vocab, batch=B, seq_len=S, seed=0).batch_at(0).items()}
     execute.reset_counters()
     new, metrics = steps.make_train_step(cfg, tp, opt)(state, batch)
-    assert execute.counters() == {}          # plain products, autograd
+    # plain products and the attention's plain route, under autograd
+    assert execute.counters() == {"flash_attention.torch": cfg.n_layers}
     assert np.isfinite(float(metrics["loss"]))
     moved = [p for p, v in flatten_with_paths(new["params"])
              if not torch.equal(v, before[p])]
@@ -591,8 +592,9 @@ def test_prefill_decode_and_merged_logits_match_jax(arch, method):
     r = _serve_run(arch, method)
     per_pass = 7 * r["cfg"].n_layers
     kernel_op = method in ("delora", "hyperadapt")
-    assert r["calls"] == ({f"{method}_gemm.torch": per_pass} if kernel_op
-                          else {})
+    assert r["calls"] == {**({f"{method}_gemm.torch": per_pass}
+                             if kernel_op else {}),
+                          "flash_attention.torch": r["cfg"].n_layers}
     assert r["merge_calls"] == ({f"{method}_merge.torch": per_pass}
                                 if kernel_op else {})
     assert _max_err(r["tlog"], r["jlog"]) < MODEL_TOL
@@ -642,9 +644,11 @@ def test_train_loss_and_adapter_grads_match_jax(arch, method):
     for path, leaf in leaves:
         assert _max_err(_np(leaf.grad), jg[path]) < GRAD_TOL, path
     per_pass = 7 * tcfg.n_layers
-    assert execute.counters() == (
-        {f"{method}_gemm.torch": per_pass, f"{method}_gemm_bwd.torch":
-         per_pass} if method in ("delora", "hyperadapt") else {})
+    # and each layer's attention, on its plain route under autograd
+    assert execute.counters() == {
+        **({f"{method}_gemm.torch": per_pass, f"{method}_gemm_bwd.torch":
+            per_pass} if method in ("delora", "hyperadapt") else {}),
+        "flash_attention.torch": tcfg.n_layers}
 
 
 def test_delora_gradient_at_its_init_is_nan_in_jax_and_finite_here():
@@ -787,6 +791,7 @@ def test_serve_cli_runs_the_new_methods_on_cpu(method, merged, capsys):
     want = ({} if method == "lora" else
             {f"{method}_merge.torch": per_forward} if merged else
             {f"{method}_gemm.torch": per_forward * res["forwards"]})
+    want["flash_attention.torch"] = 4 * res["forwards"]
     assert f"dispatch counters: {want}" in out
 
 

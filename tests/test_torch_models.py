@@ -132,9 +132,11 @@ def test_prefill_logits_and_cache_match_jax(arch):
                 == r["jcache"]["pos0"][kv].shape)
         assert _max_err(r["tcache"]["pos0"][kv],
                         r["jcache"]["pos0"][kv]) < F32_TOL
-    # every adapted linear of every layer went through householder_gemm
+    # every adapted linear of every layer went through householder_gemm,
+    # every layer's attention through the flash_attention dispatch
     assert r["prefill_calls"] == {"householder_gemm.torch":
-                                  2 * 7 * cfg.n_layers}
+                                  2 * 7 * cfg.n_layers,
+                                  "flash_attention.torch": 2 * cfg.n_layers}
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -472,6 +472,8 @@ def test_train_loss_and_adapter_grads_match_jax(arch, method, mode):
         method)
     want = ({} if mode == "blockgemm" or op is None else
             {f"{op}.torch": per_pass, f"{op}_bwd.torch": per_pass})
+    # and each layer's attention, on its plain route under autograd
+    want["flash_attention.torch"] = tcfg.n_layers
     assert execute.counters() == want
 
 
@@ -550,7 +552,8 @@ def test_serve_with_tenants_below_one_serves_single_tenant(capsys,
     assert "adapter bank" not in out and "generated:" in out
     assert res["tokens"].shape == (4, 3)
     assert f"dispatch counters: {{'householder_gemm.torch': " \
-           f"{7 * 4 * res['forwards']}}}" in out
+           f"{7 * 4 * res['forwards']}, 'flash_attention.torch': " \
+           f"{4 * res['forwards']}}}" in out
     m = serve.build(device="cpu", tenants=-2)
     assert m["tenant_ids"] is None
     assert not isinstance(m["adapters"], peft.AdapterBank)

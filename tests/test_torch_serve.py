@@ -29,11 +29,13 @@ def test_cli_serves_on_cpu_and_reports_counters(merged, capsys):
     assert f"kernel launches: {dict.fromkeys(ops.launches(), 0)}" in out
     assert "'householder_gemm': 0, 'ether_merge': 0" in out
     per_forward = 7 * 4                         # linears × smoke layers
+    attention = {"flash_attention.torch": 4 * res["forwards"]}
     if merged:
         # each adapted linear merged once, then the plain model served
-        want = {"ether_merge.torch": per_forward}
+        want = {"ether_merge.torch": per_forward, **attention}
     else:
-        want = {"householder_gemm.torch": per_forward * res["forwards"]}
+        want = {"householder_gemm.torch": per_forward * res["forwards"],
+                **attention}
     assert f"dispatch counters: {want}" in out
 
 

@@ -199,7 +199,8 @@ def test_no_grad_forward_pays_nothing_for_autograd():
     execute.reset_counters()
     _, logits = api.prefill(params, adapters, {"tokens": tokens}, cfg, peft)
     assert logits.grad_fn is None and not logits.requires_grad
-    assert execute.counters() == {"householder_gemm.torch": 7 * cfg.n_layers}
+    assert execute.counters() == {"householder_gemm.torch": 7 * cfg.n_layers,
+                                  "flash_attention.torch": cfg.n_layers}
     # and with grad on but nothing to differentiate, the same
     execute.reset_counters()
     y = adapted_dense(torch.randn(3, 96), torch.randn(96, 16), None,
@@ -277,8 +278,10 @@ def test_train_loss_and_adapter_grads_match_jax(arch):
     for path, leaf in leaves:
         assert _max_err(_np(leaf.grad), jg[path]) < GRAD_TOL, path
     per_pass = 7 * tcfg.n_layers                 # remat "none" at smoke size
+    # and each layer's attention, on its plain route under autograd
     assert execute.counters() == {"householder_gemm.torch": per_pass,
-                                  "householder_gemm_bwd.torch": per_pass}
+                                  "householder_gemm_bwd.torch": per_pass,
+                                  "flash_attention.torch": tcfg.n_layers}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -353,11 +356,14 @@ def test_remat_full_matches_none_and_runs_each_forward_twice():
         out[remat] = (loss.item(), [leaf.grad for _, leaf in
                                     flatten_with_paths(state["adapters"])],
                       execute.counters())
-    per_pass = 7 * base.n_layers
+    per_pass, layers = 7 * base.n_layers, base.n_layers
+    # the attention (plain route under autograd) is rerun with its layer
     assert out["none"][2] == {"householder_gemm.torch": per_pass,
-                              "householder_gemm_bwd.torch": per_pass}
+                              "householder_gemm_bwd.torch": per_pass,
+                              "flash_attention.torch": layers}
     assert out["full"][2] == {"householder_gemm.torch": 2 * per_pass,
-                              "householder_gemm_bwd.torch": per_pass}
+                              "householder_gemm_bwd.torch": per_pass,
+                              "flash_attention.torch": 2 * layers}
     assert out["full"][0] == out["none"][0]
     for a, b in zip(out["full"][1], out["none"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -12,8 +12,9 @@ launch-count check fails; ``check`` prints its failures instead of
 raising, and whatever else fails (a wrong key, shape or argument) raises
 as it would on the card.  No time printed here is a device time.
 
-PART picks phases instead of the whole script: ``rows`` (phase 2's
-DeLoRA and HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
+PART picks phases instead of the whole script: ``gemmrows`` (phase 2's
+householder_gemm and ether_merge rows), ``rows`` (phase 2's DeLoRA and
+HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
 ``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
 training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
 serving of ether, etherplus, delora or hyperadapt), ``mergerows``
@@ -24,7 +25,9 @@ weight-mode training, then for ether and etherplus its blockgemm run),
 ``mamba`` (phase 15's Mamba-2 serving), ``reflectrows`` (phase 2's
 standalone reflection rows), ``registry`` (phase 16: every forward op
 dispatched under autograd; here the ``cuda`` backend is let through on
-CPU tensors, so its wrappers take their plain versions).
+CPU tensors, so its wrappers take their plain versions), ``flashrows``
+(phase 2's flash attention rows), ``qwen`` (phase 17's qwen2.5-32b
+serving, at the smoke config).
 """
 
 import os
@@ -141,8 +144,8 @@ def small(cs, failed):
     """chip_smoke's sizes cut to the smoke configs, its checks printed."""
     cs.check = lambda ok, what: ok or failed.append(what) or print(
         "CHECK FAILED:", what[:300])
-    cs.LINEARS = {"smollm-360m": [(96, 96), (96, 32), (96, 256), (256, 96)],
-                  "llama-2-7b": [(128, 128)]}
+    cs.LINEARS = {"smollm-360m": [(96, 96), (96, 32), (96, 256), (256, 96)]}
+    cs.WIDE_LINEARS = {"llama-2-7b": [(128, 128)]}
     cs.LAYER = {(96, 96): 2, (96, 32): 2, (96, 256): 2, (256, 96): 1}
     cs.ROWS, cs.BWD_ROWS, cs.BWD_RAGGED = (4, 20), (40,), 37
     cs.BANK_ROWS = ((4, 1), (8, 5), (4, 3))
@@ -155,13 +158,23 @@ def small(cs, failed):
     cs.REFLECT_ROWS = (4, 40, 37)
     cs.REGISTRY_LINEAR = (96, 256)
     cs.MAMBA_PROMPTS, cs.MAMBA_TRUE_LENS = (20, 5), [20, 13, 5, 1]
+    cs.FLASH_ROWS = (("qwen2.5-32b prefill", 1, 5, 1, 40, 40, 64, 0, None),
+                     ("ragged, window 1024", 1, 5, 1, 37, 37, 64, 0, 16),
+                     ("cached-prefix chunk", 1, 5, 1, 8, 40, 64, 32, None),
+                     ("smollm-360m prefill", 4, 3, 1, 8, 8, 32, 0, None),
+                     ("smollm-360m decode", 4, 3, 1, 1, 12, 32, 11, None),
+                     ("qwen2.5-32b decode", 1, 5, 1, 1, 41, 128, 40, None),
+                     ("fully masked rows", 1, 4, 2, 64, 32, 64, 40, 16))
+    cs.QWEN_P = 20
+    cs.QWEN_LINEARS = {"qwen2.5-32b": [(80, 80), (80, 16), (80, 216),
+                                       (216, 80)]}
     cs.GEN = 4
     cs.timed_ms = lambda torch, fns: (fns[0](), 0.0)[1]
     cs.phase_device_and_build = lambda torch, build: "cpu rehearsal"
     cs.trace_steps = lambda torch, run, steps: (run(), {
         "profiled_wall_ms": 1.0, "device_busy_ms": 0.0, "busiest_ms": [],
         "top_level_ops": {"aten": 0}, "top_level_cpu_us": {"aten": 0.0},
-        "top_level_cpu_ms": 0.0})[1]
+        "top_level_cpu_ms": 0.0, "processing_s": 0.0})[1]
 
 
 def main(parts):
@@ -175,7 +188,9 @@ def main(parts):
     small(cs, failed)
     for part in parts:
         name, _, method = part.partition(":")
-        if name == "rows":
+        if name == "gemmrows":
+            print(len(cs.phase_kernels(torch, ops, ref)), "rows")
+        elif name == "rows":
             print(len(cs.method_kernel_rows(torch, ops, ref)), "rows")
         elif name == "serve":
             cs.phase_serve_method(torch, execute, ops, serve, api, 7,
@@ -216,6 +231,10 @@ def main(parts):
                                              ether_reflect_bwd)), "rows")
         elif name == "registry":
             cs.phase_registry(torch, execute, ops)
+        elif name == "flashrows":
+            print(len(cs.flash_kernel_rows(torch, ops, ref)), "rows")
+        elif name == "qwen":
+            cs.phase_serve_qwen(torch, execute, ops, serve, api)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
