@@ -11,7 +11,12 @@
    (Llama-2-7B's for the standalone reflections, WIDE_LINEARS), n ∈ {8,
    32} blocks, bf16 and float32, and times the
    kernel, its plain version and ``torch.matmul`` on the same product
-   (CUDA events, warmed up, weights rotated past the 50 MB L2).  The
+   (CUDA events, warmed up, weights rotated past the 50 MB L2); each
+   ``householder_gemm`` row prints the route it took (``wgmma``,
+   ``wgmma_decode`` or ``simt``), and the host cost of a decode step's
+   calls (µs a call through ``ops.householder_gemm`` and
+   ``execute.dispatch``, HOST_CALLS calls each, cycling through the
+   step's adapted linears; ``host_cost``) is printed.  The
    ETHER+ kernels (``etherplus_gemm`` one- and two-sided, the left and
    right ``etherplus_merge`` kernels) run on adapters whose v is drawn
    apart from u, from their own generator, so the ETHER rows see the
@@ -22,6 +27,9 @@
    every adapted linear ran the CUDA kernels, every layer's attention of
    every prefill and decode step the flash kernel (``flash_attention.cuda``;
    so do phases 5, 7, 9, 11 and 12), and nothing ran the plain versions,
+   every prefill's ``householder_gemm`` on the ``wgmma`` route and every
+   decode step's on ``wgmma_decode`` (``ops.routes()``; phases 15 and 17
+   likewise, phase 4's train steps all on ``wgmma``),
    holds merged against unmerged and the kernels' path against
    the plain path, and prints prefill ms, decode ms per token and peak
    memory.
@@ -371,6 +379,12 @@ FLASH_ROWS = (("qwen2.5-32b prefill", 2, 40, 8, 2048, 2048, 128, 0, None),
 # in another order); bf16: relative Frobenius norm, one rounding of an
 # f32 result on each side
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the host cost of a decode step's householder_gemm calls: smollm-360m's
+# adapted linears in a step's order, B rows, bf16, n = N_BLOCKS (see
+# host_cost); at least HOST_CALLS calls through the wrapper and as many
+# through execute.dispatch, in whole steps, host clock
+# (tools/host_cost.py runs the same measurement on two trees in turns)
+HOST_CALLS = 5000
 # phase 17: qwen2.5-32b full() at full width, depth cut to QWEN_LAYERS of
 # its 64 layers (8 layers are 7.8 GB of bf16 weights beside the 3.1 GB
 # embedding and untied head; merge_params adds a second 7.8 GB; 64 would
@@ -421,6 +435,33 @@ def compare(got, want, dtype: str, what: str = "kernel"):
     check(rel <= TOL[dtype], f"{what} disagrees with its plain version: "
           f"{rel:.3e} > {TOL[dtype]:g}")
     return err, rel
+
+
+def routed(ops) -> str:
+    """The routes householder_gemm's launches took since the last reset."""
+    return ",".join(k.split(".", 1)[1] for k, v in ops.routes().items()
+                    if v) or "none"
+
+
+def served_routes(ops, per_forward, forwards, prefill_rows, decode_rows):
+    """householder_gemm's launches by route in a served bf16 run
+    (``serve.generate``: two prefills of ``prefill_rows`` rows, then
+    ``forwards`` − 2 decode steps of ``decode_rows``), ``per_forward``
+    adapted linears a forward, every width a multiple of 8: at most
+    DECODE_ROWS rows on ``wgmma_decode``, more on ``wgmma``, none on
+    ``simt``."""
+    from repro_torch.kernels import householder_gemm as hh
+    want = dict.fromkeys(ops.routes(), 0)
+    for rows, calls in ((prefill_rows, 2), (decode_rows, forwards - 2)):
+        name = "wgmma_decode" if rows <= hh.DECODE_ROWS else "wgmma"
+        want[f"householder_gemm.{name}"] += calls * per_forward
+    return want
+
+
+def check_routes(r, want, what):
+    print(f"[{what}] householder_gemm routes: {r['routes']}")
+    check(r["routes"] == want, f"{what}: householder_gemm launched on "
+          f"routes {r['routes']}, want {want}")
 
 
 def launched(result):
@@ -513,16 +554,18 @@ def phase_kernels(torch, ops, ref):
                     for t in ts:
                         x = torch.randn(t, d, generator=gen,
                                         device="cuda").to(dt)
+                        ops.reset_launches()
                         err, rel = compare(ops.householder_gemm(x, ws[0], u),
                                            ref.ref_householder_gemm(
                                                x, ws[0], u), dtype)
+                        route = routed(ops)
                         b_ms, b_by = bound(
                             (t * d + d * f + t * f) * es + 4 * d,
                             2 * t * d * f + 4 * t * d, dtype)
                         rows.append(dict(
                             kernel="householder_gemm", arch=arch, dtype=dtype,
-                            t=t, d=d, f=f, n=n, max_abs_err=err, rel_err=rel,
-                            tol=TOL[dtype],
+                            t=t, d=d, f=f, n=n, route=route,
+                            max_abs_err=err, rel_err=rel, tol=TOL[dtype],
                             ms=timed_ms(torch, [
                                 lambda w=w: ops.householder_gemm(x, w, u)
                                 for w in ws]),
@@ -533,7 +576,8 @@ def phase_kernels(torch, ops, ref):
                                 lambda w=w: torch.matmul(x, w) for w in ws]),
                             bound_ms=b_ms, bound_by=b_by))
                         print("  householder_gemm {arch:11s} {dtype:8s} "
-                              "d={d:5d} f={f:5d} n={n:2d} T={t:4d}  err "
+                              "d={d:5d} f={f:5d} n={n:2d} T={t:4d} "
+                              "{route:12s}  err "
                               "{rel_err:.2e} (tol {tol:g})  {ms:.4f} ms  "
                               "plain {plain_ms:.4f} ms  matmul "
                               "{matmul_ms:.4f} ms  bound {bound_ms:.4f} ms "
@@ -541,6 +585,73 @@ def phase_kernels(torch, ops, ref):
                 del ws
     torch.cuda.synchronize()
     return rows
+
+
+def host_cost(torch, ops, execute):
+    """Phase 2, host: µs a decode step's ``householder_gemm`` call costs
+    the host through ``ops.householder_gemm`` and ``execute.dispatch``.
+    The calls cycle through one step's traffic: ARCH's 7 adapted linears
+    a layer (q, k, v, o, gate, up, down) over all its layers, each weight
+    with its own u, and each layer's four inputs (q/k/v's, o's, gate/up's,
+    down's) at addresses of their own, so every call's operands sit where
+    a decode step's do; whole steps of calls, at least HOST_CALLS, after
+    two steps' warm-up.  Each step's calls are timed from a synchronize to
+    the return of its last call, so the host's time is read, not the
+    device's: a step's launches fit in the launch queue, where a long loop
+    would wait on a slower kernel.  Where the tree's binding counts the
+    wgmma routes' tensor-map encodes (``householder_gemm.map_counts``),
+    those of the timed calls are recorded too: 0 when the map cache holds
+    a step's maps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import householder_gemm as hh
+    cfg = get_config(ARCH, "full")
+    d, hd = cfg.d_model, cfg.head_dim or cfg.d_model // cfg.n_heads
+    q, kv, ff = cfg.n_heads * hd, cfg.n_kv * hd, cfg.d_ff
+    # (input, d, f) of each adapted linear of a layer, in a step's order
+    layer = ((0, d, q), (0, d, kv), (0, d, kv), (1, q, d), (2, d, ff),
+             (2, d, ff), (3, ff, d))
+    print(f"== phase 2: host cost of a decode step's householder_gemm "
+          f"calls ({ARCH}: {len(layer)} x {cfg.n_layers} linears, T={B}, "
+          f"n={N_BLOCKS}, bf16)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    calls = []
+    for _ in range(cfg.n_layers):
+        xs = [randn(B, w).bfloat16() for w in (d, q, d, ff)]
+        calls += [(xs[i], (randn(k, f) / k ** .5).bfloat16(),
+                   randn(N_BLOCKS, k // N_BLOCKS)) for i, k, f in layer]
+    counts = getattr(hh, "map_counts", None)
+    steps = -(-HOST_CALLS // len(calls))
+    out = {"arch": ARCH, "linears": len(calls), "t": B, "n": N_BLOCKS,
+           "calls": steps * len(calls)}
+    for name, fn in (
+            ("ops", ops.householder_gemm),
+            ("dispatch", lambda x, w, u: execute.dispatch(
+                "householder_gemm", "cuda", x, w, u))):
+        for _ in range(2):
+            for call in calls:
+                fn(*call)
+        before = counts() if counts else None
+        host_s = 0.0
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for call in calls:
+                fn(*call)
+            host_s += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = host_s / out["calls"] * 1e6
+        out[f"{name}_map_encodes"] = (counts()["encodes"] - before["encodes"]
+                                      if counts else None)
+    print(f"host cost: ops.householder_gemm {out['ops_us']:.2f} us a call, "
+          f"execute.dispatch {out['dispatch_us']:.2f} us a call "
+          f"({out['calls']} calls each over {len(calls)} linears; tensor "
+          f"maps encoded in them: {out['ops_map_encodes']}, "
+          f"{out['dispatch_map_encodes']})", flush=True)
+    return out
 
 
 def etherplus_kernel_rows(torch, ops, ref, kepm):
@@ -1810,6 +1921,7 @@ def counted(torch, execute, ops, run):
     torch.cuda.reset_peak_memory_stats()
     r = run()
     r["counters"], r["launches"] = execute.counters(), ops.launches()
+    r["routes"] = ops.routes()
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
 
@@ -1925,6 +2037,38 @@ def trace_decode(torch, api, steps, params, adapters, tokens, cfg, peft,
     return trace_steps(torch, decode, steps)
 
 
+def decode_map_encodes(torch, serve, api, steps, **kw):
+    """The tensor maps the wgmma routes encode on the host (their map
+    cache's misses) in the prefill and then in each of ``steps`` greedy
+    decode steps of the model ``serve.build(**kw)`` makes: [prefill,
+    step 1, ..., step ``steps``]."""
+    from repro_torch.kernels import householder_gemm as hh
+    m = serve.build(**kw)
+    params, adapters, cfg, peft = (m[k] for k in
+                                   ("params", "adapters", "cfg", "peft"))
+    seen = hh.map_counts()["encodes"]
+    per = []
+
+    def encoded():
+        nonlocal seen
+        now = hh.map_counts()["encodes"]
+        per.append(now - seen)
+        seen = now
+
+    cache, logits = api.prefill(params, adapters, {"tokens": m["tokens"]},
+                                cfg, peft)
+    cache = api.pad_cache(cache, cfg, m["tokens"].shape[1] + steps + 1)
+    encoded()
+    for _ in range(steps):
+        logits, cache = api.decode_step(
+            params, adapters, cache, logits[:, -1].argmax(dim=-1,
+                                                          keepdim=True),
+            cfg, peft)
+        encoded()
+    torch.cuda.synchronize()
+    return per
+
+
 def with_attention(want, cfg, forwards):
     """``want`` (dispatch counters, kernel launches) of a dense decoder's
     serving run with its attention added: every layer of every forward
@@ -1992,6 +2136,8 @@ def phase_serve(torch, execute, ops, serve, api):
                 {"ether_merge.cuda": per_forward},
                 {**none, "ether_merge": per_forward}), cfg, mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
+    check_routes(un, served_routes(ops, per_forward, un["forwards"], B * P,
+                                   B), "unmerged")
     merged_err = frob(mg["logits"], un["logits"])
     check(merged_err <= SERVE_TOL, f"merged vs unmerged logits "
           f"{merged_err:.3e} > {SERVE_TOL:g}")
@@ -2017,17 +2163,30 @@ def phase_serve(torch, execute, ops, serve, api):
                                           **kw)
         print_trace(name, t, r["per_token_s"] * 1e3)
 
+    # the wgmma routes' tensor-map cache on the decode path, outside the
+    # counted runs: a step's weights and (from the caching allocator) its
+    # activations come back at the same addresses, so once the first step
+    # has encoded its maps the cache should hold them
+    encodes = decode_map_encodes(torch, serve, api, GEN, **kw)
+    print(f"tensor maps encoded on the host: prefill {encodes[0]}, decode "
+          f"steps 1-{GEN} {encodes[1:]} (two lookups a linear, "
+          f"{2 * per_forward} a step)", flush=True)
+    check(not any(encodes[GEN // 2 + 1:]), f"decode steps "
+          f"{GEN // 2 + 1}-{GEN} still encode tensor maps: the map cache "
+          f"does not hold a step's maps")
+
     w_bytes = 2 * cfg.n_layers * sum(m * d * f for (d, f), m in LAYER.items())
     print(f"decode-step bound from reading the adapted weights: "
           f"{w_bytes / 1e6:.0f} MB / 3.35 TB/s = "
           f"{w_bytes / HBM_BYTES_S * 1e3:.3f} ms")
     return dict(merged_vs_unmerged=merged_err, kernels_vs_plain=plain_err,
                 token_agreement=agree(mg["tokens"], un["tokens"]),
-                weights_bytes=w_bytes,
+                weights_bytes=w_bytes, decode_map_encodes=encodes,
                 **{f"{name}_{k}": r[k] for name, r in
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
-                             "forwards", "merge_s", "counters", "launches")},
+                             "forwards", "merge_s", "counters", "launches",
+                             "routes")},
                 traces=traces)
 
 
@@ -2279,6 +2438,8 @@ def phase_serve_mamba(torch, execute, ops, serve, api):
                            {**none, "ether_merge": 2 * n,
                             "ssd_chunk": scans})}
         check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
+        check_routes(un, served_routes(ops, 2 * n, un["forwards"], B * plen,
+                                       B), f"unmerged P={plen}")
         check(all(r["counters"].get("ssd_chunked.cuda", 0) > 0
                   and r["launches"]["ssd_chunk"] > 0 for r in (un, mg)),
               "a Mamba-2 serving path launched no SSD kernel")
@@ -2321,7 +2482,8 @@ def phase_serve_mamba(torch, execute, ops, serve, api):
             **{f"{name}_{k}": r[k] for name, r in
                (("unmerged", un), ("merged", mg))
                for k in ("prefill_s", "per_token_s", "peak_gb", "forwards",
-                         "merge_s", "counters", "launches")},
+                         "merge_s", "counters", "launches",
+                         "routes")},
             traces=traces)
 
     # the same model in float32, outside the counted runs: the kernels'
@@ -2426,6 +2588,8 @@ def phase_serve_qwen(torch, execute, ops, serve, api):
                 {**none, "ether_merge": per_forward}), cfg, mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want,
                  batch=QWEN_B)
+    check_routes(un, served_routes(ops, per_forward, un["forwards"],
+                                   QWEN_B * QWEN_P, QWEN_B), "unmerged")
 
     # outside the counted runs: the plain path, the frozen model, and the
     # untied head against torch.matmul of the final hidden state
@@ -2483,7 +2647,8 @@ def phase_serve_qwen(torch, execute, ops, serve, api):
                 **{f"{name}_{k}": r[k] for name, r in
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
-                             "forwards", "merge_s", "counters", "launches")},
+                             "forwards", "merge_s", "counters", "launches",
+                             "routes")},
                 traces=traces)
 
 
@@ -2897,6 +3062,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
         tr.fit(stream, steps=steps)
         fit_s = time.perf_counter() - t0
         counters, launches = execute.counters(), ops.launches()
+        routes = ops.routes()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(tr.state[k])
                  for k in ("adapters", "opt_state", "step")}
@@ -2912,6 +3078,12 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
               f"{want[0]} / {want[1]} (forward + remat recompute + backward "
               f"of {7 * cfg.n_layers} linears a step, no plain version; "
               f"attention on the plain route under autograd)")
+        if launches["householder_gemm"]:
+            # B·S rows, bf16: every forward on the wgmma route
+            check_routes(dict(routes=routes), {
+                **dict.fromkeys(routes, 0),
+                "householder_gemm.wgmma": launches["householder_gemm"]},
+                "kernels")
         losses = [m["loss"] for m in log]
         check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -3041,7 +3213,8 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 update_rel=upd_rel, from_b_nonzero=b0,
                 grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
-                counters=counters, launches=launches, trace=trace)
+                counters=counters, launches=launches, routes=routes,
+                trace=trace)
 
 
 def phase_blockgemm(torch, execute, ops, method, weight):
@@ -3545,6 +3718,7 @@ def main() -> int:
     rows += timed("2 reflect rows",
                   lambda: reflect_kernel_rows(torch, ops, ref, ker, kerb))
     rows += timed("2 flash rows", lambda: flash_kernel_rows(torch, ops, ref))
+    host = timed("2 host cost", lambda: host_cost(torch, ops, execute))
     served = timed("3", lambda: phase_serve(torch, execute, ops, serve, api))
     trained = timed("4", lambda: phase_train(torch, execute, ops, 4, "ether"))
     ep_served = timed("5", lambda: phase_serve_method(
@@ -3789,6 +3963,27 @@ def main() -> int:
                                       "ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by")}
                    for r in flash]})
+    # householder_gemm's routes (csrc/householder_gemm.cu): each path's
+    # launches by route, the rows of qwen2.5-32b's gate/up at its prefill
+    # and decode beside the decode layer, and a decode call's host cost
+    from repro_torch.kernels import householder_gemm as hh
+    hh_entry = next(k for k in kernels if k["name"] == "householder_gemm")
+    hh_entry["routes"] = list(hh.ROUTES)
+    hh_entry["routes_by_path"] = {
+        "ether serve": served["unmerged_routes"],
+        "ether train": trained["routes"],
+        **{f"mamba2 serve P={plen}": r["unmerged_routes"]
+           for plen, r in mamba["prompts"].items()},
+        "qwen2.5-32b serve": qwen["unmerged_routes"]}
+    for key, t in (("prefill", QWEN_B * QWEN_P), ("qwen_decode", QWEN_B)):
+        row = next(r for r in rows if r["kernel"] == "householder_gemm"
+                   and r["arch"] == QWEN_ARCH and r["dtype"] == "bfloat16"
+                   and (r["d"], r["f"]) == QWEN_LINEARS[QWEN_ARCH][2]
+                   and r["t"] == t)
+        hh_entry[key] = {k: row[k] for k in (
+            "t", "d", "f", "n", "route", "ms", "plain_ms", "matmul_ms",
+            "bound_ms", "bound_by", "max_abs_err")}
+    hh_entry["host_us"] = host
     check(len(kernels) == 27, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
     print(f"chip_smoke: phases 1-17 took {total_s:.1f} s (" + ", ".join(
@@ -3808,7 +4003,7 @@ def main() -> int:
                       for m, r in blockgemm.items()},
                    **{f"{m}_bank_train": r for m, r in trained_bank.items()},
                    "mamba2_serve": mamba, "registry": registry,
-                   "qwen2p5_32b_serve": qwen,
+                   "qwen2p5_32b_serve": qwen, "host_cost": host,
                    "kernels": kernels, "phase_seconds": seconds,
                    "seconds": total_s}, fh, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,14 @@ which maps ``(op, backend)`` to an implementation:
     :class:`BackendError`; it never computes the plain version instead.
 
 ``auto``
-    ``cuda`` for CUDA tensors, ``torch`` for the rest.  There is no
-    shape-based choice: the kernels take every shape.
+    ``cuda`` for CUDA tensors, ``torch`` for the rest; on CUDA tensors an
+    op with a ``supports_rule`` takes ``cuda`` only where its rule accepts
+    the operands, as the JAX registry's ``auto`` consults its rules
+    (src/repro/core/execute.py:77-106).  The one rule is
+    ``flash_attention``'s (its kernel takes head widths 32, 64 and 128);
+    every other kernel takes every shape.  An explicit ``cuda`` asks for
+    the kernel whatever the rule says, and its wrapper raises
+    :class:`repro_torch.kernels.ops.KernelInputError` on what it refuses.
 
 ``counters()`` counts the calls each ``op.backend`` pair ran, so a run
 can show which implementation it went through (``counters("bwd")`` the
@@ -141,20 +147,49 @@ _REGISTRY: dict[tuple[str, str], Callable[..., Any]] = {
     ("flash_attention", "cuda"): ops.flash_attention,
 }
 _COUNTERS: dict[str, int] = {}
+# op -> the predicate ``auto`` consults before it picks the op's kernel
+_SUPPORTS: dict[str, Callable[..., bool]] = {}
 
 
 class BackendError(RuntimeError):
     """The requested backend cannot run on these operands."""
 
 
-def selected_backend(op: str, backend: str, first) -> str:
-    """Resolve ``backend`` for an op whose first operand is ``first``."""
+def supports_rule(op: str):
+    """Decorator: register the predicate on an op's operands that ``auto``
+    consults before it picks the op's kernel."""
+    def deco(fn):
+        _SUPPORTS[op] = fn
+        return fn
+    return deco
+
+
+def supports(op: str, *args, **kwargs) -> bool:
+    """True where ``op``'s kernel takes these operands: its rule's answer,
+    and True for an op without a rule (its kernel takes every shape)."""
+    rule = _SUPPORTS.get(op)
+    return rule is None or bool(rule(*args, **kwargs))
+
+
+@supports_rule("flash_attention")
+def _flash_attention_supported(q, k, v, *, window=None, q_offset=0,
+                               **_) -> bool:
+    """Where the kernel's own check (``ops._flash_refusal``) takes the
+    operands: head widths 32, 64 and 128, among its other conditions."""
+    return ops._flash_refusal(q, k, v, window, q_offset) is None
+
+
+def selected_backend(op: str, backend: str, first, *rest, **kwargs) -> str:
+    """Resolve ``backend`` for an op whose operands are ``first``,
+    ``*rest`` and ``**kwargs`` (``auto`` reads them only for an op with a
+    rule)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     on_cuda = first.device.type == "cuda"
     if backend == "auto":
-        return "cuda" if on_cuda else "torch"
+        return ("cuda" if on_cuda and supports(op, first, *rest, **kwargs)
+                else "torch")
     if backend == "cuda" and not on_cuda:
         raise BackendError(
             f"backend 'cuda' runs {op!r} only on CUDA tensors, got "
@@ -182,7 +217,7 @@ def dispatch(op: str, backend: str, *args, **kwargs):
     """Run ``op`` on the resolved backend and count the call; under
     autograd a forward op runs through its Function (``FUNCTIONS``),
     which counts the call once."""
-    be = selected_backend(op, backend, args[0])
+    be = selected_backend(op, backend, *args, **kwargs)
     if _needs_grad(args, kwargs) and not is_bwd_op(op):
         fn = FUNCTIONS.get(op)
         if fn is not None:

@@ -3,10 +3,32 @@
 The CUDA counterpart of ``householder_gemm_pallas``
 (src/repro/kernels/householder_gemm.py:51).  The kernel source and its
 design note are in ``csrc/householder_gemm.cu``; the plain version,
-which the CPU takes and ``chip_smoke.py`` holds the kernel against, is
+which the CPU takes and ``chip_smoke.py`` holds every route against, is
 :func:`repro_torch.kernels.ref.ref_householder_gemm`.  Callers go
 through :func:`repro_torch.kernels.ops.householder_gemm`, which checks
-the inputs and counts launches.
+the inputs and counts launches (``ops.launches()``) and routes
+(``ops.routes()``).
+
+Three routes (:func:`route`), each a projection prologue and one GEMM
+launch, W read once:
+
+``wgmma``
+    bf16 with more than ``DECODE_ROWS`` rows: TMA-fed wgmma on 128×128
+    tiles, y = x·W − 2·P·U in f32 with U = ÛᵀW summed from the W tiles
+    the GEMM brings into shared memory, rounded once.
+``wgmma_decode``
+    the same kernel and the same sums on 64-column tiles whose stages
+    hold at most ``DECODE_ROWS`` rows of x (decode steps), where reading
+    W bounds it: narrower tiles put twice the blocks on W, and a deeper
+    ring keeps more of it in flight.
+``simt``
+    the shared register-tiled f32 SIMT GEMM: float32, more than
+    ``WGMMA_MAX_BLOCKS`` reflection blocks, widths that are not multiples
+    of 8, or a view of x, w or u that is not 16-byte aligned.
+
+The two wgmma routes sum every output in the same order (set by d
+alone), so a row's result does not depend on how many rows share its
+call; the SIMT route sums in another order.
 """
 
 from __future__ import annotations
@@ -18,27 +40,59 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "wgmma_decode", "simt")
+# the most rows the decode route takes (its stages hold 16 rows of x)
+DECODE_ROWS = 16
+# the most reflection blocks the wgmma routes take (U's partials, 4·n
+# columns of f32 a tile column, live in shared memory)
+WGMMA_MAX_BLOCKS = 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# x, w, u, p, unorm, y, M, K, N, n, db, route code, stream
+_ARGTYPES = (_P,) * 6 + (_I,) * 6 + (_P,)
+_WGMMA_CODE = {"wgmma": 2, "wgmma_decode": 3}
+
+
+def route(dtype: torch.dtype, t: int, d: int, f: int, n: int,
+          aligned: bool) -> str:
+    """The route of a call on x (t, d) and w (d, f) of ``dtype`` with n
+    reflection blocks; ``aligned``: x, w and u start on 16 bytes."""
+    if (dtype != torch.bfloat16 or n > WGMMA_MAX_BLOCKS or d % 8 or f % 8
+            or not aligned):
+        return "simt"
+    return "wgmma_decode" if t <= DECODE_ROWS else "wgmma"
+
+
+def map_counts() -> dict[str, int]:
+    """The wgmma routes' tensor-map cache since the library was loaded:
+    ``lookups`` (two a call) and ``encodes`` (its misses, each a
+    ``cuTensorMapEncodeTiled`` on the host).  Builds the library if no
+    call has yet."""
+    counts = (ctypes.c_longlong * 2)()
+    build.function("householder_gemm", "hh_map_counts",
+                   (ctypes.POINTER(ctypes.c_longlong),))(counts)
+    return {"lookups": counts[0], "encodes": counts[1]}
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor):
     """Launch on CUDA tensors already checked by the wrapper: x (T, d),
     w (d, f), u (n, db) f32, all contiguous on one device.  Returns
-    (cudaError_t, y)."""
+    (cudaError_t, y, the route taken)."""
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
             return launch(x, w, u)
     t, d = x.shape
     f = w.shape[1]
     n, db = u.shape
+    xp, wp, up = x.data_ptr(), w.data_ptr(), u.data_ptr()
+    on = route(x.dtype, t, d, f, n, not (xp | wp | up) & 15)
     fn = build.function("householder_gemm", "hh_gemm", _ARGTYPES)
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)
     # f32 scratch: p (t, n) block projections, then unorm (n,) norms
     scratch = torch.empty(((t + 1) * n,), dtype=torch.float32,
                           device=x.device)
     p = scratch.data_ptr()
-    err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), p, p + 4 * t * n,
-             y.data_ptr(), t, d, f, n, db, DTYPE_CODE[x.dtype],
-             torch.cuda.current_stream().cuda_stream)
-    return err, y
+    code = _WGMMA_CODE.get(on)
+    err = fn(xp, wp, up, p, p + 4 * t * n, y.data_ptr(), t, d, f,
+              n, db, DTYPE_CODE[x.dtype] if code is None else code,
+              torch.cuda.current_stream().cuda_stream)
+    return err, y, on

@@ -33,10 +33,11 @@ the SSD kernel once a call; the registry's standalone reflections
 ``ether_reflect_batched_bwd`` launch their one kernel each, the
 backwards' fixed-order ĝ sums and norm chain included; ``flash_attention``
 launches its kernel once a call), so a run can show that its path went
-through the kernels.  The rank-r and per-feature cotangents of
-DeLoRA and HyperAdapt (and their scatter-add over a bank's ids) are a few
-thin PyTorch ops beside the kernels, as the JAX package leaves them to
-XLA.
+through the kernels; ``routes()`` splits ``householder_gemm``'s launches
+by the route each took (``wgmma``, ``wgmma_decode`` or ``simt``).  The
+rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
+scatter-add over a bank's ids) are a few thin PyTorch ops beside the
+kernels, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "ether_reflect": 0, "ether_reflect_batched": 0,
              "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0,
              "flash_attention": 0}
+# householder_gemm's launches by route (``householder_gemm.ROUTES``)
+_ROUTES = dict.fromkeys(_hh.ROUTES, 0)
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -94,9 +97,18 @@ def launches() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def routes() -> dict[str, int]:
+    """``householder_gemm``'s launches per route since the last reset, as
+    ``householder_gemm.<route>``; they add up to its entry in
+    :func:`launches`."""
+    return {f"householder_gemm.{r}": v for r, v in _ROUTES.items()}
+
+
 def reset_launches() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    """Set every launch and route count to 0."""
+    for counts in (_LAUNCHES, _ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _refuse(op: str, main: torch.Tensor, main_d: int, **tensors) -> None:
@@ -186,7 +198,9 @@ def _launched(op: str, err: int) -> None:
 def householder_gemm(x: torch.Tensor, w: torch.Tensor,
                      u: torch.Tensor) -> torch.Tensor:
     """reflect(x) @ w; x: (..., d); w: (d, f); u: (n, db) f32, n·db = d.
-    Leading dims of x are flattened into the kernel's row axis."""
+    Leading dims of x are flattened into the kernel's row axis.  On the
+    card it launches the route :func:`householder_gemm.route` picks
+    (``wgmma``, ``wgmma_decode`` or ``simt``), counted in :func:`routes`."""
     if not _ok(x, x.shape[-1] if x.dim() else -1, w, u):
         _refuse("householder_gemm", x, x.shape[-1] if x.dim() else -1,
                 x=x, w=w, u=u)
@@ -195,8 +209,9 @@ def householder_gemm(x: torch.Tensor, w: torch.Tensor,
     x2 = x.view(-1, d)
     if x.device.type == "cpu":
         return ref.ref_householder_gemm(x2, w, u).view(*lead, f)
-    err, y = _hh.launch(x2, w, u)
+    err, y, on = _hh.launch(x2, w, u)
     _launched("householder_gemm", err)
+    _ROUTES[on] += 1
     return y.view(*lead, f)
 
 
@@ -1055,14 +1070,15 @@ def ether_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
 _I32 = 2 ** 31 - 1
 
 
-def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: Optional[int], q_offset: int) -> None:
-    """``flash_attention``'s check: q (B, H, S, D), k and v (B, Hkv, T, D)
-    of one dtype, float32 or bfloat16, H % Hkv == 0, D in
-    ``flash_attention.HEAD_DIMS``, S, T ≥ 1, all contiguous on one device
-    (16-byte aligned on the card); window None or an int, q_offset an int,
-    both in int32 range.  Raises KernelInputError naming the first check
-    the operands fail."""
+def _flash_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int], q_offset: int) -> Optional[str]:
+    """Why ``flash_attention`` refuses these operands, or None where it
+    takes them: q (B, H, S, D), k and v (B, Hkv, T, D) of one dtype,
+    float32 or bfloat16, H % Hkv == 0, D in ``flash_attention.HEAD_DIMS``,
+    S, T ≥ 1, all contiguous on one device (16-byte aligned on the card);
+    window None or an int, q_offset an int, both in int32 range.  The
+    first check the operands fail is named.  ``execute``'s ``auto`` rule
+    for the op asks the same question."""
     named = {"q": q, "k": k, "v": v}
     shaped = q.dim() == 4 and k.dim() == 4
     B, H, S, D = q.shape if q.dim() == 4 else (-1,) * 4
@@ -1092,9 +1108,18 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          for t in named.values()):
         why = "operands must be 16-byte aligned on the card"
     else:
+        why = None
+    return why
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int], q_offset: int) -> None:
+    """Raise KernelInputError where :func:`_flash_refusal` refuses."""
+    why = _flash_refusal(q, k, v, window, q_offset)
+    if why is None:
         return
     desc = ", ".join(f"{k} {tuple(t.shape)} {t.dtype} on {t.device}"
-                     for k, t in named.items())
+                     for k, t in (("q", q), ("k", k), ("v", v)))
     raise KernelInputError(f"flash_attention refuses {desc}, window "
                            f"{window!r}, q_offset {q_offset!r}: {why}")
 

@@ -15,7 +15,7 @@ as it would on the card.  No time printed here is a device time.
 PART picks phases instead of the whole script: ``gemmrows`` (phase 2's
 householder_gemm and ether_merge rows), ``rows`` (phase 2's DeLoRA and
 HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
-``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
+``serve`` (phase 3's serving), ``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
 training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
 serving of ether, etherplus, delora or hyperadapt), ``mergerows``
 (phase 2's merge backward rows), ``weight:<method>`` (phase 13's
@@ -27,7 +27,8 @@ standalone reflection rows), ``registry`` (phase 16: every forward op
 dispatched under autograd; here the ``cuda`` backend is let through on
 CPU tensors, so its wrappers take their plain versions), ``flashrows``
 (phase 2's flash attention rows), ``qwen`` (phase 17's qwen2.5-32b
-serving, at the smoke config).
+serving, at the smoke config), ``host`` (phase 2's host cost of a
+decode step's ``householder_gemm`` calls).
 """
 
 import os
@@ -136,8 +137,8 @@ def fake_card():
     # phase 16 dispatches on "cuda" by name: let it through on the host
     from repro_torch.core import execute
     select = execute.selected_backend
-    execute.selected_backend = lambda op, backend, first: (
-        backend if backend == "cuda" else select(op, backend, first))
+    execute.selected_backend = lambda op, backend, *args, **kw: (
+        backend if backend == "cuda" else select(op, backend, *args, **kw))
 
 
 def small(cs, failed):
@@ -166,6 +167,9 @@ def small(cs, failed):
                      ("qwen2.5-32b decode", 1, 5, 1, 1, 41, 128, 40, None),
                      ("fully masked rows", 1, 4, 2, 64, 32, 64, 40, 16))
     cs.QWEN_P = 20
+    cs.HOST_CALLS = 20
+    from repro_torch.kernels import householder_gemm
+    householder_gemm.map_counts = lambda: {"lookups": 0, "encodes": 0}
     cs.QWEN_LINEARS = {"qwen2.5-32b": [(80, 80), (80, 16), (80, 216),
                                        (216, 80)]}
     cs.GEN = 4
@@ -192,6 +196,8 @@ def main(parts):
             print(len(cs.phase_kernels(torch, ops, ref)), "rows")
         elif name == "rows":
             print(len(cs.method_kernel_rows(torch, ops, ref)), "rows")
+        elif name == "serve" and not method:
+            cs.phase_serve(torch, execute, ops, serve, api)
         elif name == "serve":
             cs.phase_serve_method(torch, execute, ops, serve, api, 7,
                                   method)
@@ -235,6 +241,8 @@ def main(parts):
             print(len(cs.flash_kernel_rows(torch, ops, ref)), "rows")
         elif name == "qwen":
             cs.phase_serve_qwen(torch, execute, ops, serve, api)
+        elif name == "host":
+            cs.host_cost(torch, ops, execute)
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:
