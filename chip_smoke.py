@@ -29,7 +29,11 @@
    so do phases 5, 7, 9, 11 and 12), and nothing ran the plain versions,
    every prefill's ``householder_gemm`` on the ``wgmma`` route and every
    decode step's on ``wgmma_decode`` (``ops.routes()``; phases 15 and 17
-   likewise, phase 4's train steps all on ``wgmma``),
+   likewise, phase 4's train steps all on ``wgmma``), every prefill's
+   attention on the flash kernel's ``wgmma`` route and every decode
+   step's on ``decode`` (``ops.routes("flash_attention")``; phases 5, 7,
+   9, 11, 12 and 17 likewise), no flash tensor map looked up in a decode
+   step,
    holds merged against unmerged and the kernels' path against
    the plain path, and prints prefill ms, decode ms per token and peak
    memory.
@@ -194,9 +198,10 @@ smollm-360m's input widths (T ∈ REFLECT_ROWS, n ∈ {8, 32}), Llama-2-7B's
 reflect_kernel_rows).  The flash kernel ``flash_attention`` is held to
 FLASH_TOL against its plain version at FLASH_ROWS (qwen2.5-32b's prefill
 layer, a ragged S = T = 2000 under a window, a cached-prefix chunk, two
-decode steps, rows with no valid key: exact zeros), bf16 and f32, and
-timed beside its plain version and ``scaled_dot_product_attention`` (see
-flash_kernel_rows).
+decode steps, rows with no valid key: exact zeros, a row for each of its
+routes and a KV head beside one filled with inf), bf16 and f32, each
+row's route printed, and timed beside its plain version and
+``scaled_dot_product_attention`` (see flash_kernel_rows).
 
 Float32 matmuls run in full f32 (TF32 off) throughout, as the kernels
 compute; ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts so that
@@ -367,14 +372,26 @@ QWEN_LINEARS = {"qwen2.5-32b": [(5120, 5120), (5120, 1024), (5120, 27648),
 # causal: qwen2.5-32b's prefill layer (phase 17's main path), a ragged
 # prompt under a window, a cached-prefix chunk, smollm-360m's prefill
 # (phases 3-12) and decode steps, qwen2.5-32b's decode step, and rows
-# that see no key (window 16 past the last key)
+# that see no key (window 16 past the last key); then a row for each
+# route of flash_attention.route (bf16 takes `wgmma` where a KV group
+# brings more than 64 rows at D 64 or 128, `decode` at most 64 rows in
+# either dtype, `simt` the rest): a ragged D = 64 prefill (`wgmma` in
+# bf16), four query rows a head under a window over a long cache
+# (`decode`, 16 splits), a D = 32 prefill (`simt`); and POISONED_ROW,
+# whose KV head 1 is filled with inf: KV head 0's query heads, held to
+# the plain version, must not read it at their ragged T = 200 edge
 FLASH_ROWS = (("qwen2.5-32b prefill", 2, 40, 8, 2048, 2048, 128, 0, None),
               ("ragged, window 1024", 2, 40, 8, 2000, 2000, 128, 0, 1024),
               ("cached-prefix chunk", 2, 40, 8, 128, 2048, 128, 1920, None),
               ("smollm-360m prefill", 4, 15, 5, 32, 32, 64, 0, None),
               ("smollm-360m decode", 4, 15, 5, 1, 48, 64, 47, None),
               ("qwen2.5-32b decode", 2, 40, 8, 1, 2064, 128, 2048, None),
-              ("fully masked rows", 1, 4, 2, 256, 128, 64, 136, 16))
+              ("fully masked rows", 1, 4, 2, 256, 128, 64, 136, 16),
+              ("ragged D=64 prefill", 2, 15, 5, 1000, 1000, 64, 0, None),
+              ("4 rows, window 1024", 2, 16, 4, 4, 4096, 128, 4000, 1024),
+              ("D=32 prefill", 2, 8, 2, 512, 512, 32, 0, None),
+              ("poisoned neighbour", 1, 8, 2, 200, 200, 128, 0, None))
+POISONED_ROW = "poisoned neighbour"
 # f32: normalised max error (the same f32 math, sums over up to 2048 keys
 # in another order); bf16: relative Frobenius norm, one rounding of an
 # f32 result on each side
@@ -437,9 +454,9 @@ def compare(got, want, dtype: str, what: str = "kernel"):
     return err, rel
 
 
-def routed(ops) -> str:
-    """The routes householder_gemm's launches took since the last reset."""
-    return ",".join(k.split(".", 1)[1] for k, v in ops.routes().items()
+def routed(ops, op: str = "householder_gemm") -> str:
+    """The routes ``op``'s launches took since the last reset."""
+    return ",".join(k.split(".", 1)[1] for k, v in ops.routes(op).items()
                     if v) or "none"
 
 
@@ -1627,6 +1644,15 @@ def flash_pairs(s, t, q_offset, window):
     return pairs
 
 
+def flash_keys(s, t, q_offset, window):
+    """The keys some query row of that attention can see (the rows i at
+    ``q_offset`` + i see [qpos − ``window`` + 1, qpos], so together
+    [q_offset − window + 1, q_offset + S)): the K and V rows it must
+    read."""
+    lo = 0 if window is None else max(0, q_offset - window + 1)
+    return max(0, min(t, q_offset + s) - lo)
+
+
 def flash_mask(torch, s, t, q_offset, window):
     """The (S, T) boolean mask of those pairs (True: attend), on the card."""
     qpos = q_offset + torch.arange(s, device="cuda")[:, None]
@@ -1647,11 +1673,12 @@ def flash_kernel_rows(torch, ops, ref):
     ``scaled_dot_product_attention`` on the same q, k, v (``enable_gqa``;
     an explicit boolean mask unless the queries start at 0 on a square,
     windowless causal mask), a yardstick nothing in the port calls.  The
-    bound: q, k, v read once and the output written once, and the
-    4·D FLOP of QKᵀ and PV for each attended pair (flash_pairs) at the
-    dtype's peak."""
+    bound: q and the K and V rows some query can see (flash_keys) read
+    once and the output written once, and the 4·D FLOP of QKᵀ and PV for
+    each attended pair (flash_pairs) at the dtype's peak."""
     print("== phase 2: the flash attention kernel against its plain version",
           flush=True)
+    from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(16)
     rows = []
@@ -1663,8 +1690,23 @@ def flash_kernel_rows(torch, ops, ref):
             k = torch.randn(b, hkv, t, d, generator=gen, device="cuda").to(dt)
             v = torch.randn(b, hkv, t, d, generator=gen, device="cuda").to(dt)
             kw = dict(causal=True, window=win, q_offset=off)
+            if name == POISONED_ROW:
+                k[:, 1], v[:, 1] = float("inf"), float("inf")
+            ops.reset_launches()
             got = ops.flash_attention(q, k, v, **kw)
-            want = ref.ref_flash_attention(q, k, v, **kw)
+            on = routed(ops, "flash_attention")
+            want_on = fa.route(dt, d, s * (h // hkv))
+            check(on == want_on, f"flash_attention {name} {dtype} launched "
+                  f"on route {on}, want {want_on}")
+            if name == POISONED_ROW:
+                # KV head 0's query heads, against the plain version on
+                # KV head 0 alone
+                rep = h // hkv
+                got = got[:, :rep]
+                want = ref.ref_flash_attention(q[:, :rep], k[:, :1],
+                                               v[:, :1], **kw)
+            else:
+                want = ref.ref_flash_attention(q, k, v, **kw)
             err = (got.float() - want.float()).abs().max().item()
             if dtype == "float32":
                 rel = err / want.float().abs().max().item()
@@ -1693,11 +1735,12 @@ def flash_kernel_rows(torch, ops, ref):
                 library_ms = None
             pairs = flash_pairs(s, t, off, win)
             flops = 4 * d * pairs * b * h
-            nbytes = es * (2 * b * h * s * d + 2 * b * hkv * t * d)
+            keys = flash_keys(s, t, off, win)
+            nbytes = es * (2 * b * h * s * d + 2 * b * hkv * keys * d)
             b_ms, b_by = bound(nbytes, flops, dtype)
             rows.append(dict(
                 kernel="flash_attention", arch=name, dtype=dtype, b=b, h=h,
-                hkv=hkv, s=s, t=t, d=d, q_offset=off, window=win,
+                hkv=hkv, s=s, t=t, d=d, q_offset=off, window=win, route=on,
                 empty_rows=n_empty, max_abs_err=err, rel_err=rel,
                 tol=FLASH_TOL[dtype],
                 ms=timed_ms(torch, [lambda: ops.flash_attention(q, k, v,
@@ -1708,6 +1751,7 @@ def flash_kernel_rows(torch, ops, ref):
                 bound_by=b_by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
             print("  flash_attention  {arch:20s} {dtype:8s} B={b} H={h}/{hkv} "
                   "S={s} T={t} D={d} q_offset={q_offset} window={window}  "
+                  "route {route:6s}  "
                   "err {rel_err:.2e} (tol {tol:g})  {ms:.4f} ms  plain "
                   "{plain_ms:.4f} ms  sdpa {lib}  bound {bound_ms:.4f} ms "
                   "({bound_by}: {gflop:.2f} GFLOP, {mbytes:.1f} MB)".format(
@@ -1922,12 +1966,17 @@ def counted(torch, execute, ops, run):
     r = run()
     r["counters"], r["launches"] = execute.counters(), ops.launches()
     r["routes"] = ops.routes()
+    r["flash_routes"] = ops.routes("flash_attention")
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
 
 
 # the device's own work in a Chrome trace, and the host's events
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the kernels of csrc/flash_attention.cu, by their names in a trace: the
+# routes `wgmma`, `decode` (and its combine of the splits) and `simt`
+FLASH_KERNELS = ("::wg::wgmma_kernel<", "::dec::decode_kernel<",
+                 "::dec::combine_kernel<", "::flash_kernel<")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 
 
@@ -1955,6 +2004,8 @@ def trace_tables(events, steps):
         top[kind].append(e["dur"])
     return {"device_busy_ms": sum(dev.values()),
             "busiest_ms": sorted(dev.items(), key=lambda r: -r[1])[:6],
+            "flash_ms": sum(ms for name, ms in dev.items()
+                            if any(k in name for k in FLASH_KERNELS)),
             "top_level_ops": {k: len(v) / steps for k, v in top.items()},
             "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
                                  for k, v in top.items()},
@@ -2004,7 +2055,8 @@ def print_trace(name, t, unprofiled_ms):
           f"of the profiled wall")
     print("    busiest device work: " + ", ".join(
         f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"])
-        + f"; the trace's processing took {t['processing_s']:.1f} s")
+        + f"; the flash kernel's {t['flash_ms']:.3f} ms; the trace's "
+        f"processing took {t['processing_s']:.1f} s")
 
 
 def profile_decode(torch, serve, api, steps, **kw):
@@ -2038,10 +2090,10 @@ def trace_decode(torch, api, steps, params, adapters, tokens, cfg, peft,
 
 
 def decode_map_encodes(torch, serve, api, steps, **kw):
-    """The tensor maps the wgmma routes encode on the host (their map
-    cache's misses) in the prefill and then in each of ``steps`` greedy
-    decode steps of the model ``serve.build(**kw)`` makes: [prefill,
-    step 1, ..., step ``steps``]."""
+    """The tensor maps householder_gemm's wgmma routes encode on the host
+    (their map cache's misses) in the prefill and then in each of
+    ``steps`` greedy decode steps of the model ``serve.build(**kw)``
+    makes, [prefill, step 1, ..., step ``steps``]."""
     from repro_torch.kernels import householder_gemm as hh
     m = serve.build(**kw)
     params, adapters, cfg, peft = (m[k] for k in
@@ -2078,9 +2130,35 @@ def with_attention(want, cfg, forwards):
             {**want[1], "flash_attention": n})
 
 
-def check_served(torch, cfg, runs, want, batch=B):
+def served_flash_routes(torch, cfg, forwards, prompt_len, attends):
+    """flash_attention's launches by route in a served bf16 run
+    (``serve.generate``: two prefills of ``prompt_len`` tokens, then
+    ``forwards`` − 2 decode steps), one call a layer a forward where the
+    model ``attends``: the prefills on the route of a KV group's
+    prompt_len · H/Hkv rows (``wgmma`` at smollm-360m's 32 · 3 and
+    qwen2.5-32b's 2048 · 5), every decode step on ``decode``."""
+    from repro_torch.kernels import flash_attention as fa
+    want = {f"flash_attention.{r}": 0 for r in fa.ROUTES}
+    if attends:
+        rows = prompt_len * (cfg.n_heads // cfg.n_kv)
+        first = fa.route(torch.bfloat16, cfg.hd, rows)
+        want[f"flash_attention.{first}"] += 2 * cfg.n_layers
+        want["flash_attention.decode"] += (forwards - 2) * cfg.n_layers
+    return want
+
+
+def check_flash_routes(torch, cfg, r, prompt_len, attends, what):
+    want = served_flash_routes(torch, cfg, r["forwards"], prompt_len,
+                               attends)
+    print(f"[{what}] flash_attention routes: {r['flash_routes']}")
+    check(r["flash_routes"] == want, f"{what}: flash_attention launched on "
+          f"routes {r['flash_routes']}, want {want}")
+
+
+def check_served(torch, cfg, runs, want, batch=B, prompt_len=P):
     """Hold each served path's counts to ``want[name]`` (dispatch
-    counters, kernel launches) and its outputs to their shapes (``batch``
+    counters, kernel launches) and its attention's routes
+    (served_flash_routes), and its outputs to their shapes (``batch``
     rows); print its times."""
     for name, r in runs.items():
         print(f"[{name}] dispatch counters: {r['counters']}  kernel "
@@ -2089,6 +2167,8 @@ def check_served(torch, cfg, runs, want, batch=B):
               f"{name} path ran {r['counters']} / launched "
               f"{r['launches']}, want {want[name][0]} / {want[name][1]} "
               f"({r['forwards']} forwards, no plain version)")
+        check_flash_routes(torch, cfg, r, prompt_len,
+                           want[name][1].get("flash_attention", 0) > 0, name)
         check(tuple(r["logits"].shape) == (batch, 1, cfg.vocab)
               and r["logits"].dtype == torch.float32
               and bool(torch.isfinite(r["logits"]).all()),
@@ -2186,7 +2266,7 @@ def phase_serve(torch, execute, ops, serve, api):
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches",
-                             "routes")},
+                             "routes", "flash_routes")},
                 traces=traces)
 
 
@@ -2587,7 +2667,7 @@ def phase_serve_qwen(torch, execute, ops, serve, api):
                 {"ether_merge.cuda": per_forward},
                 {**none, "ether_merge": per_forward}), cfg, mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want,
-                 batch=QWEN_B)
+                 batch=QWEN_B, prompt_len=QWEN_P)
     check_routes(un, served_routes(ops, per_forward, un["forwards"],
                                    QWEN_B * QWEN_P, QWEN_B), "unmerged")
 
@@ -2648,7 +2728,7 @@ def phase_serve_qwen(torch, execute, ops, serve, api):
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches",
-                             "routes")},
+                             "routes", "flash_routes")},
                 traces=traces)
 
 
@@ -2854,6 +2934,7 @@ def phase_baselines(torch, execute, ops, serve):
                   f"{method} {name} ran {r['counters']} / launched "
                   f"{r['launches']}; it has no kernel but the attention's, "
                   f"want {want}")
+            check_flash_routes(torch, cfg, r, P, True, f"{method} {name}")
             check(bool(torch.isfinite(r["logits"]).all()),
                   f"{method} {name} logits are not finite")
             res[f"{name}_per_token_s"] = r["per_token_s"]
@@ -3959,10 +4040,27 @@ def main() -> int:
                   "over Hkv=8, S=T=2048, D=128, causal, bf16",
         "by_row": [{k: r[k] for k in ("arch", "dtype", "b", "h", "hkv", "s",
                                       "t", "d", "q_offset", "window",
-                                      "empty_rows", "max_abs_err", "rel_err",
-                                      "ms", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by")}
+                                      "route", "empty_rows", "max_abs_err",
+                                      "rel_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
                    for r in flash]})
+    # flash_attention's routes (csrc/flash_attention.cu): each serving
+    # path's launches by route, and the rows of its prefill and decode
+    from repro_torch.kernels import flash_attention as fa
+    fa_entry = kernels[-1]
+    fa_entry["routes"] = list(fa.ROUTES)
+    fa_entry["route_of_main_row"] = main_row["route"]
+    fa_entry["routes_by_path"] = {
+        "ether serve": served["unmerged_flash_routes"],
+        "ether merge": served["merged_flash_routes"],
+        "qwen2.5-32b serve": qwen["unmerged_flash_routes"],
+        "qwen2.5-32b merge": qwen["merged_flash_routes"]}
+    fa_entry["qwen_decode"] = {k: row[k] for row in flash
+                               if row["dtype"] == "bfloat16"
+                               and row["arch"] == "qwen2.5-32b decode"
+                               for k in ("route", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
     # householder_gemm's routes (csrc/householder_gemm.cu): each path's
     # launches by route, the rows of qwen2.5-32b's gate/up at its prefill
     # and decode beside the decode layer, and a decode call's host cost

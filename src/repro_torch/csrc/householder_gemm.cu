@@ -99,12 +99,12 @@
 #include <cuda.h>
 #include <stdint.h>
 
-#include <mutex>
-
+#include "hopper.cuh"
 #include "reflect_common.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace reflect;
 using bf16 = __nv_bfloat16;
 
@@ -132,7 +132,6 @@ constexpr int kQuarters = 4;     // U's partials: 16 of a K step's 64 rows
 constexpr int kMaxRowTiles = 4;  // row tiles a block takes, at most
 constexpr int kSMs = 132, kWaves = 4;
 constexpr int kMaxBlocks = 32;   // the largest n it takes
-constexpr int kMaxDevices = 64;
 
 // TILE = 128: the `wgmma` route; TILE = 64: `wgmma_decode`.  Both keep
 // a ring of kStages stages.
@@ -171,156 +170,6 @@ __host__ __device__ constexpr int smem_bytes(int n) {
              (k_sub<TILE>() * ((a_rows<TILE>() + TILE) * 128 + 4 * kBK) +
               16) +
          kQuarters * n * TILE * 4 + 1024;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2-D box of `map` at (c0 innermost, c1) into shared memory at `dst`,
-// its bytes counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor under the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d (64×TILE f32, the warpgroup's fragment) += A (64×16, K-major) ·
-// B (16×TILE, N-major: transpose bit set).
-template <int TILE>
-struct Wgmma;
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 1;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global `src` into shared memory at `dst`, counted on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // y = x·W − 2·P·U, rounded once to bf16.  x by tma_x (dims {K, M}, box
@@ -567,8 +416,8 @@ __global__ void __launch_bounds__(kThreads<TILE>(), 1)
           // A: 16 k (32 bytes) further along each 128-byte row, 8-row
           // groups 1024 bytes apart.  B: 16 k rows (2048 bytes) further,
           // 8-row groups 1024 bytes apart, the next 64-column box kBox on.
-          Wgmma<TILE>::mma(acc, sw128_desc(a + ks * 32, 16, 1024),
-                           sw128_desc(b + ks * 2048, kBox, 1024));
+          WgmmaSS<TILE, 1>::mma(acc, sw128_desc(a + ks * 32, 16, 1024),
+                                sw128_desc(b + ks * 2048, kBox, 1024), 1);
         }
       }
       wgmma_commit();
@@ -617,98 +466,8 @@ __global__ void __launch_bounds__(kThreads<TILE>(), 1)
   }
 }
 
-// cuTensorMapEncodeTiled is a driver call: taken through the runtime's
-// entry-point query, so the library links against the runtime alone.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// A row-major bf16 (outer × inner) matrix as a TMA map with box
-// (box_inner × box_outer), 128-byte swizzle, zeros past its edges.
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-            uint64_t inner, uint64_t outer, uint32_t box_inner,
-            uint32_t box_outer) {
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// encode's map through a cache of the maps made last, keyed by address,
-// shape and box: a map holds nothing else (no contents), so an entry never
-// goes stale.  A decode step's weights (224 at smollm-360m), and from
-// PyTorch's caching allocator most of its activations, come back at the
-// same addresses, so it encodes few maps: kWays-way sets, so that keys
-// that share a set do not evict each other every step (a direct-mapped
-// table re-encoded maps on every decode step).
-struct MapSlot {
-  CUtensorMap map;
-  const void* ptr;
-  uint64_t inner, outer;
-  uint32_t box_inner, box_outer;
-};
-constexpr int kMapSetsLog2 = 10, kWays = 4;
-MapSlot map_slots[1 << kMapSetsLog2][kWays];
-int map_next[1 << kMapSetsLog2];   // the way a miss in the set refills
-std::mutex map_lock;
-long long map_lookups = 0, map_encodes = 0;   // read by hh_map_counts
-
-bool cached_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                uint64_t inner, uint64_t outer, uint32_t box_inner,
-                uint32_t box_outer) {
-  const uint64_t h =
-      ((reinterpret_cast<uintptr_t>(ptr) >> 8) * 0x9E3779B97F4A7C15ull) ^
-      ((inner << 20 | outer) * 0xC2B2AE3D27D4EB4Full) ^ box_outer;
-  const int set = static_cast<int>(h >> (64 - kMapSetsLog2));
-  std::lock_guard<std::mutex> hold(map_lock);
-  ++map_lookups;
-  for (MapSlot& slot : map_slots[set]) {
-    if (slot.ptr == ptr && slot.inner == inner && slot.outer == outer &&
-        slot.box_inner == box_inner && slot.box_outer == box_outer) {
-      *map = slot.map;
-      return true;
-    }
-  }
-  MapSlot& slot = map_slots[set][map_next[set]];
-  map_next[set] = (map_next[set] + 1) % kWays;
-  ++map_encodes;
-  if (!encode(enc, &slot.map, ptr, inner, outer, box_inner, box_outer)) {
-    slot.ptr = nullptr;
-    return false;
-  }
-  slot.ptr = ptr;
-  slot.inner = inner;
-  slot.outer = outer;
-  slot.box_inner = box_inner;
-  slot.box_outer = box_outer;
-  *map = slot.map;
-  return true;
-}
+// the wgmma routes' tensor maps, read by hh_map_counts
+MapCache map_cache;
 
 // The GEMM of one wgmma route, after the prologue.
 template <int TILE>
@@ -719,24 +478,19 @@ cudaError_t launch_wgmma(EncodeTiled enc, const void* x, const void* w,
   const int x_rows = TILE == 128 ? 128 : (M + 7) / 8 * 8;
   if (x_rows > a_rows<TILE>()) return cudaErrorInvalidValue;
   CUtensorMap tma_x, tma_w;
-  if (!cached_map(enc, &tma_x, x, K, M, kBK, x_rows) ||
-      !cached_map(enc, &tma_w, w, N, K, 64, kBK))
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(M)};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(K)};
+  const uint32_t x_box[2] = {kBK, static_cast<uint32_t>(x_rows)};
+  const uint32_t w_box[2] = {64, kBK};
+  if (!map_cache.get(enc, &tma_x, x, 2, x_dims, x_box) ||
+      !map_cache.get(enc, &tma_w, w, 2, w_dims, w_box))
     return cudaErrorNotSupported;
-  // beyond 48 KB a block must ask for its shared memory, once for each
-  // device: a runtime call a launch would add one to every linear of a
-  // host-bound decode step
   static bool sized[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = reserve_smem(wgmma_kernel<TILE>,
+                                       smem_bytes<TILE>(kMaxBlocks), sized);
   if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!sized[device]) {
-    err = cudaFuncSetAttribute(wgmma_kernel<TILE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes<TILE>(kMaxBlocks));
-    if (err != cudaSuccess) return err;
-    sized[device] = true;
-  }
   // row tiles a block: as many as keep kWaves waves of blocks on the
   // card, up to kMaxRowTiles (each forms U once, in its first)
   const int tiles_m = (M + TILE - 1) / TILE, tiles_n = (N + TILE - 1) / TILE;
@@ -798,8 +552,6 @@ extern "C" int hh_gemm(const void* x, const void* w, const void* u, void* p,
 // The tensor-map cache's lookups and encodes (its misses) since the
 // library was loaded, into counts[0] and counts[1].
 extern "C" int hh_map_counts(long long* counts) {
-  std::lock_guard<std::mutex> hold(map_lock);
-  counts[0] = map_lookups;
-  counts[1] = map_encodes;
+  map_cache.counts(counts);
   return 0;
 }

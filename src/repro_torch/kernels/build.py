@@ -106,3 +106,14 @@ def function(name: str, symbol: str, argtypes: tuple):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def map_counts(name: str, symbol: str) -> dict[str, int]:
+    """The tensor-map cache (``csrc/hopper.cuh``'s MapCache) of library
+    ``name`` since it was loaded, read through its C function ``symbol``:
+    ``lookups`` and ``encodes`` (its misses, each a
+    ``cuTensorMapEncodeTiled`` on the host).  Builds the library if no
+    call has yet."""
+    counts = (ctypes.c_longlong * 2)()
+    function(name, symbol, (ctypes.POINTER(ctypes.c_longlong),))(counts)
+    return {"lookups": counts[0], "encodes": counts[1]}

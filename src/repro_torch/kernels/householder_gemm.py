@@ -63,14 +63,9 @@ def route(dtype: torch.dtype, t: int, d: int, f: int, n: int,
 
 
 def map_counts() -> dict[str, int]:
-    """The wgmma routes' tensor-map cache since the library was loaded:
-    ``lookups`` (two a call) and ``encodes`` (its misses, each a
-    ``cuTensorMapEncodeTiled`` on the host).  Builds the library if no
-    call has yet."""
-    counts = (ctypes.c_longlong * 2)()
-    build.function("householder_gemm", "hh_map_counts",
-                   (ctypes.POINTER(ctypes.c_longlong),))(counts)
-    return {"lookups": counts[0], "encodes": counts[1]}
+    """The wgmma routes' tensor-map cache (:func:`build.map_counts`): two
+    lookups a call."""
+    return build.map_counts("householder_gemm", "hh_map_counts")
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor):

@@ -32,9 +32,12 @@ the SSD kernel once a call; the registry's standalone reflections
 ``ether_reflect``, ``ether_reflect_batched``, ``ether_reflect_bwd`` and
 ``ether_reflect_batched_bwd`` launch their one kernel each, the
 backwards' fixed-order ĝ sums and norm chain included; ``flash_attention``
-launches its kernel once a call), so a run can show that its path went
+counts one launch a call, on any route, its decode route's combine of
+the splits included), so a run can show that its path went
 through the kernels; ``routes()`` splits ``householder_gemm``'s launches
-by the route each took (``wgmma``, ``wgmma_decode`` or ``simt``).  The
+by the route each took (``wgmma``, ``wgmma_decode`` or ``simt``), and
+``routes("flash_attention")`` the flash kernel's (``wgmma``, ``decode``
+or ``simt``).  The
 rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
 scatter-add over a bank's ids) are a few thin PyTorch ops beside the
 kernels, as the JAX package leaves them to XLA.
@@ -78,8 +81,10 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "ether_reflect": 0, "ether_reflect_batched": 0,
              "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0,
              "flash_attention": 0}
-# householder_gemm's launches by route (``householder_gemm.ROUTES``)
-_ROUTES = dict.fromkeys(_hh.ROUTES, 0)
+# launches by route of the kernels that have routes
+# (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``)
+_ROUTES = {"householder_gemm": dict.fromkeys(_hh.ROUTES, 0),
+           "flash_attention": dict.fromkeys(_fa.ROUTES, 0)}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -97,16 +102,16 @@ def launches() -> dict[str, int]:
     return dict(_LAUNCHES)
 
 
-def routes() -> dict[str, int]:
-    """``householder_gemm``'s launches per route since the last reset, as
-    ``householder_gemm.<route>``; they add up to its entry in
-    :func:`launches`."""
-    return {f"householder_gemm.{r}": v for r, v in _ROUTES.items()}
+def routes(op: str = "householder_gemm") -> dict[str, int]:
+    """``op``'s launches per route since the last reset, as
+    ``<op>.<route>``; they add up to its entry in :func:`launches`.  ``op``
+    is ``householder_gemm`` or ``flash_attention``."""
+    return {f"{op}.{r}": v for r, v in _ROUTES[op].items()}
 
 
 def reset_launches() -> None:
     """Set every launch and route count to 0."""
-    for counts in (_LAUNCHES, _ROUTES):
+    for counts in (_LAUNCHES, *_ROUTES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -211,7 +216,7 @@ def householder_gemm(x: torch.Tensor, w: torch.Tensor,
         return ref.ref_householder_gemm(x2, w, u).view(*lead, f)
     err, y, on = _hh.launch(x2, w, u)
     _launched("householder_gemm", err)
-    _ROUTES[on] += 1
+    _ROUTES["householder_gemm"][on] += 1
     return y.view(*lead, f)
 
 
@@ -1137,12 +1142,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     shapes not tileable by 128, which drops ``q_offset``, has none (see
     :func:`repro_torch.kernels.ref.ref_flash_attention`).  ``q_chunk``
     bounds the plain version's live scores on the CPU; the kernel walks
-    its own tiles of 64 query rows."""
+    its own tiles.  On the card it launches the route
+    :func:`flash_attention.route` picks (``wgmma``, ``decode`` or
+    ``simt``), counted in ``routes("flash_attention")``."""
     _check_flash(q, k, v, window, q_offset)
     if q.device.type == "cpu":
         return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, q_chunk=q_chunk)
-    err, out = _fa.launch(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset)
+    err, out, on = _fa.launch(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     _launched("flash_attention", err)
+    _ROUTES["flash_attention"][on] += 1
     return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the phase-2 kernel rows of two ``chip_smoke.py`` runs.
 
-    python3 tools/compare_chip_smoke.py BASE.json NEW.json
+    python3 tools/compare_chip_smoke.py BASE.json NEW.json [--changed K ...]
 
 BASE and NEW are the ``chiprun_out/chip_smoke.json`` of two runs, for
 example the parent commit and a change run one after the other in one
@@ -12,7 +12,10 @@ kernel (the backward compositions ``delora_gemm_bwd`` and
 matched, whether every matched row's error against the plain version is
 bitwise the same in both runs, and the new/base ratio of the kernel's
 time (median, min, max).  A kernel in only one of the runs is listed as
-such.  Exits non-zero if a kernel's errors differ.
+such.  Exits non-zero if a kernel's errors differ, unless the kernel is
+named after ``--changed`` (one the change redesigned, whose errors are
+expected to move): its rows are then printed one by one, with each
+row's base and new ms and the speed-up base/new.
 """
 
 import json
@@ -37,6 +40,10 @@ def rows(path):
 
 
 def main(argv):
+    changed = set()
+    if "--changed" in argv:
+        at = argv.index("--changed")
+        argv, changed = argv[:at], set(argv[at + 1:])
     base, new = rows(argv[0]), rows(argv[1])
     by_kernel = {}
     for key in sorted(base.keys() & new.keys(), key=str):
@@ -45,12 +52,18 @@ def main(argv):
     for kernel, pairs in by_kernel.items():
         same = all(a["max_abs_err"] == b["max_abs_err"]
                    and a["rel_err"] == b["rel_err"] for a, b in pairs)
-        differ |= not same
+        differ |= not same and kernel not in changed
         ratio = [b["ms"] / a["ms"] for a, b in pairs]
         print(f"{kernel:22s} {len(pairs):3d} rows  errors "
               f"{'bitwise equal' if same else 'DIFFER'}  time new/base "
               f"median {statistics.median(ratio):.3f} (min {min(ratio):.3f}, "
               f"max {max(ratio):.3f})")
+        if kernel in changed:
+            for a, b in pairs:
+                print(f"    {b.get('arch')!s:22s} {b['dtype']:8s} "
+                      f"{b.get('route', '')!s:7s} base {a['ms']:.4f} ms  "
+                      f"new {b['ms']:.4f} ms  x{a['ms'] / b['ms']:.2f}  "
+                      f"err {a['rel_err']:.2e} -> {b['rel_err']:.2e}")
     for name, run in (("base", base), ("new", new)):
         only = sorted({k[0] for k in run} - set(by_kernel))
         if only:

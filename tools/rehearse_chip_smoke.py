@@ -165,7 +165,11 @@ def small(cs, failed):
                      ("smollm-360m prefill", 4, 3, 1, 8, 8, 32, 0, None),
                      ("smollm-360m decode", 4, 3, 1, 1, 12, 32, 11, None),
                      ("qwen2.5-32b decode", 1, 5, 1, 1, 41, 128, 40, None),
-                     ("fully masked rows", 1, 4, 2, 64, 32, 64, 40, 16))
+                     ("fully masked rows", 1, 4, 2, 64, 32, 64, 40, 16),
+                     ("ragged D=64 prefill", 2, 15, 5, 50, 50, 64, 0, None),
+                     ("4 rows, window 1024", 1, 8, 2, 4, 200, 128, 190, 16),
+                     ("D=32 prefill", 1, 4, 2, 40, 40, 32, 0, None),
+                     ("poisoned neighbour", 1, 8, 2, 20, 20, 128, 0, None))
     cs.QWEN_P = 20
     cs.HOST_CALLS = 20
     from repro_torch.kernels import householder_gemm
@@ -177,6 +181,7 @@ def small(cs, failed):
     cs.phase_device_and_build = lambda torch, build: "cpu rehearsal"
     cs.trace_steps = lambda torch, run, steps: (run(), {
         "profiled_wall_ms": 1.0, "device_busy_ms": 0.0, "busiest_ms": [],
+        "flash_ms": 0.0,
         "top_level_ops": {"aten": 0}, "top_level_cpu_us": {"aten": 0.0},
         "top_level_cpu_ms": 0.0, "processing_s": 0.0})[1]
 

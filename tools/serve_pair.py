@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one serving run of two source trees in turn, on one card.
 
-    python3 tools/serve_pair.py BASE_SRC NEW_SRC [--rounds R] [-- SERVE_ARGS]
+    python3 tools/serve_pair.py BASE_SRC NEW_SRC [--rounds R] [--layers N]
+        [-- SERVE_ARGS]
 
 BASE_SRC and NEW_SRC are the ``src`` directories of two checkouts (for
 example the parent commit unpacked with ``git archive`` and this tree).
@@ -16,7 +17,16 @@ default SERVE_ARGS are ``chip_smoke.py`` phase 3's unmerged run
 ms per token as the CLI reports them (host clock, after a warm-up
 prefill and step), the card's name and power limit, and last a JSON
 line with every run's numbers and each tree's median and range of the
-decode ms per token.  Exits non-zero if a run fails.
+decode ms per token.  ``--layers N`` cuts the model's depth to its first
+N layers (as ``chip_smoke.py`` phase 17 serves qwen2.5-32b at 8 of its
+64), by running each tree's CLI with that tree's ``get_config`` wrapped;
+for example phase 17's serve, unmerged, with 32 new tokens:
+
+    python3 tools/serve_pair.py BASE_SRC NEW_SRC --rounds 3 --layers 8 -- \\
+        --arch qwen2.5-32b --variant full --batch 2 --prompt-len 2048 \\
+        --n-blocks 8 --gen 32
+
+Exits non-zero if a run fails.
 """
 
 import argparse
@@ -29,6 +39,15 @@ import sys
 
 DEFAULT = ["--arch", "smollm-360m", "--variant", "full", "--batch", "4",
            "--prompt-len", "32", "--n-blocks", "8", "--gen", "64"]
+# the CLI of the tree on PYTHONPATH, its configs cut to argv[1] layers
+CUT = r"""
+import dataclasses, sys
+from repro_torch.launch import serve
+get = serve.get_config
+serve.get_config = lambda *a: dataclasses.replace(
+    get(*a), n_layers=min(int(sys.argv[1]), get(*a).n_layers))
+serve.main(sys.argv[2:])
+"""
 TIMES = re.compile(r"prefill: ([0-9.]+) ms\s+decode: ([0-9.]+) ms/token")
 
 
@@ -42,10 +61,12 @@ def card() -> str:
         return "unknown"
 
 
-def run(src: str, serve_args: list) -> tuple:
+def run(src: str, serve_args: list, layers=None) -> tuple:
     env = {**os.environ, "PYTHONPATH": os.path.abspath(src)}
+    cmd = (["-m", "repro_torch.launch.serve"] if layers is None
+           else ["-c", CUT, str(layers)])
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *serve_args],
+        [sys.executable, *cmd, *serve_args],
         capture_output=True, text=True, env=env, timeout=1800)
     found = TIMES.search(out.stdout)
     if out.returncode or not found:
@@ -59,22 +80,30 @@ def main(argv) -> int:
     ap.add_argument("base")
     ap.add_argument("new")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("serve_args", nargs="*")
-    args = ap.parse_args(argv)
-    serve_args = args.serve_args or DEFAULT
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the model's first LAYERS layers only")
+    # SERVE_ARGS after "--", split off here: argparse before Python 3.12.7
+    # refuses them once an option has followed the positionals
+    cut = argv.index("--") if "--" in argv else len(argv)
+    args = ap.parse_args(argv[:cut])
+    serve_args = argv[cut + 1:] or DEFAULT
     print(f"card: {card()}", flush=True)
-    print(f"serve {' '.join(serve_args)}", flush=True)
+    print(f"serve {' '.join(serve_args)}"
+          + ("" if args.layers is None else f" (first {args.layers} layers)"),
+          flush=True)
     runs = []
     for _ in range(args.rounds):
         for name in ("base", "new", "new", "base"):
-            prefill, decode = run(getattr(args, name), serve_args)
+            prefill, decode = run(getattr(args, name), serve_args,
+                                  args.layers)
             runs.append({"tree": name, "prefill_ms": prefill,
                          "decode_ms_per_token": decode})
             print(f"{name:4s}  prefill {prefill} ms  decode {decode} "
                   f"ms/token", flush=True)
     decode = {name: [r["decode_ms_per_token"] for r in runs
                      if r["tree"] == name] for name in ("base", "new")}
-    print(json.dumps({"serve_args": serve_args, "runs": runs,
+    print(json.dumps({"serve_args": serve_args, "layers": args.layers,
+                      "runs": runs,
                       "decode_ms_per_token": {
                           name: {"median": statistics.median(v),
                                  "min": min(v), "max": max(v)}
