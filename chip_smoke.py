@@ -49,7 +49,10 @@
    run to the end again, bitwise equal to the uninterrupted run under
    ``torch.use_deterministic_algorithms(True)``.  Prints step ms,
    tokens/s, peak memory and, from a torch.profiler trace of the step,
-   the device's busy time and the host's top-level ops.
+   the device's busy time, the dXr backward's kernels and the host's
+   top-level ops; every bf16 ``reflect_gemm_dx`` launch on the ``wgmma``
+   route (``ops.routes("reflect_gemm_dx")``; phase 6 likewise, and phase
+   14's ``householder_gemm_batched_bwd``).
 5. Serve ETHER+: phase 3's model and requests with two-sided ETHER+
    (n_blocks 8), its v1/v2 drawn apart from u1/u2 from a seed (the
    method's init has H⁺ = I), through ``serve.generate`` unmerged and
@@ -166,8 +169,12 @@ Phase 2 also holds ``reflect_gemm_dx`` (dx and du) and ``reflect_gemm_dw``
 against their plain versions at T ∈ {1024, 2048} (and a ragged 1000),
 rank 1 and, with ETHER+'s v, rank 2, and ``etherplus_reflect_bwd`` on the
 output side, and times them beside ``torch.matmul`` of the GEMM inside
-each.  For DeLoRA and HyperAdapt it holds ``delora_gemm`` (r ∈ {8, 64})
-and ``hyperadapt_gemm`` at the forward rows, ``delora_merge`` and
+each; each ``reflect_gemm_dx`` and ``householder_gemm_batched_bwd`` row
+records its route (``wgmma`` or ``simt``, the route rule's) and the wgmma
+route's epilogue (``fused`` or ``scratch``), and both are also held and
+timed, bf16, at Llama-2-7B's linears with T = 4,096 (see wide_bwd_rows).
+For DeLoRA and HyperAdapt it holds ``delora_gemm`` (r ∈ {8, 64}) and
+``hyperadapt_gemm`` at the forward rows, ``delora_merge`` and
 ``hyperadapt_merge`` on the weights, and the backward compositions
 ``delora_gemm_bwd`` and ``hyperadapt_gemm_bwd`` at the backward rows, on
 operands off the methods' identity init, to METHOD_TOL; ``delora_merge``
@@ -256,6 +263,16 @@ BWD_ROWS = (1024, 2048)
 BWD_RAGGED = 1000
 # du: relative Frobenius, the same f32 math in another sum order
 DU_TOL = 1e-4
+# phase 2's dXr backwards at Llama-2-7B's linears (WIDE_LINEARS), bf16,
+# n = TRAIN_BLOCKS: T = B·S rows, the bank's as B sequences of S.  d = 4096
+# fuses the reflection backward into the GEMM (db 128), d = 11008 takes the
+# scratch epilogue (db 344)
+WIDE_BWD_BANK = (32, 128)
+# the dXr backwards' kernels in a trace: the wgmma route's GEMM, the ĝ
+# sums (du_kernel is etherplus_reflect_bwd's too) and the SIMT route's or
+# scratch epilogue's reflection backward
+DXR_KERNELS = ("dxr::", "du_kernel", "seq_ghat_kernel", "bank_chain_kernel",
+               "reflect_bwd_kernel")
 TRAIN_B, TRAIN_S, TRAIN_BLOCKS, TRAIN_STEPS, TRAIN_CKPT = 8, 128, 32, 8, 4
 TRAIN_LR, TRAIN_WARMUP = 2e-3, 2
 # phase 2's standalone reflections (the registry's ether_reflect and its
@@ -479,6 +496,35 @@ def check_routes(r, want, what):
     print(f"[{what}] householder_gemm routes: {r['routes']}")
     check(r["routes"] == want, f"{what}: householder_gemm launched on "
           f"routes {r['routes']}, want {want}")
+
+
+def check_dx_route(ops, op, dt, d, f, n):
+    """The route of the one ``op`` (``reflect_gemm_dx`` or
+    ``householder_gemm_batched_bwd``) launch since the last reset, which
+    must be the route rule's for these aligned operands of dtype ``dt``."""
+    from repro_torch.kernels import reflect_gemm_dx as kdx
+    got = routed(ops, op)
+    want = kdx.route(dt, 0, d, f, n, d // n, True)
+    check(got == want, f"{op} at {dt} d={d} f={f} n={n} launched on route "
+          f"{got}, want {want}")
+    return got
+
+
+def dx_epilogue(route, n, d):
+    """The wgmma route's epilogue at n blocks of d / n (``fused`` or
+    ``scratch``); the SIMT route's is the scratch one."""
+    from repro_torch.kernels import reflect_gemm_dx as kdx
+    return kdx.epilogue(n, d // n) if route == "wgmma" else "scratch"
+
+
+def check_dx_routes(routes, launches, op, what):
+    """A bf16 train path's ``op`` launches (every shape of it aligned, d
+    and f multiples of 8), all on the ``wgmma`` route; printed."""
+    print(f"[{what}] {op} routes: {routes}")
+    check(routes == {**dict.fromkeys(routes, 0),
+                     f"{op}.wgmma": launches[op]},
+          f"{what}: {op} launched on routes {routes}, want all "
+          f"{launches[op]} on wgmma")
 
 
 def launched(result):
@@ -812,6 +858,7 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb):
             check(ops.launches()["reflect_gemm_dx"] == 1
                   and ops.launches()["reflect_gemm_dw"] == 1,
                   f"householder_gemm_bwd launched {ops.launches()}")
+            route = check_dx_route(ops, "reflect_gemm_dx", dt, d, f, n)
             pdx, pdu = ref.ref_reflect_gemm_dx(x, w, u, g)
             pdw = ref.ref_reflect_gemm_dw(x, u, g, dt)
             err = {k: ((a.float() - b.float()).abs().max().item(),
@@ -832,7 +879,8 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb):
             common = dict(arch=arch, dtype=dtype, t=t, d=d, f=f, n=n,
                           tol=TOL[dtype], rank=1)
             rows.append(dict(
-                kernel="reflect_gemm_dx", **common, max_abs_err=max(
+                kernel="reflect_gemm_dx", **common, route=route,
+                epilogue=dx_epilogue(route, n, d), max_abs_err=max(
                     err["dx"][0], (du - pdu).abs().max().item()),
                 rel_err=err["dx"][1], du_rel_frob=du_rel,
                 ms=timed_ms(torch, [lambda: kdx.launch(x, w, u, g)]),
@@ -860,6 +908,8 @@ def bwd_kernel_rows(torch, ops, ref, kdx, kdw, krb):
                          if r["matmul_ms"] else "")
                       + "bound {bound_ms:.4f} ms ({bound_by})".format(**r)
                       + (f"  du {r['du_rel_frob']:.2e}" if "du_rel_frob" in r
+                         else "")
+                      + (f"  {r['route']} ({r['epilogue']})" if "route" in r
                          else ""), flush=True)
             del w, x, g, dx, dw, pdx, pdw
     torch.cuda.synchronize()
@@ -883,6 +933,7 @@ def rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen, n_out, x, w, g, u,
     check(ops.launches()["reflect_gemm_dx"] == 1
           and ops.launches()["reflect_gemm_dw"] == 1,
           f"rank-2 backward launched {ops.launches()}")
+    route = check_dx_route(ops, "reflect_gemm_dx", dt, d, f, u.shape[0])
     y0 = ref.ref_etherplus_gemm(x, w, u, v)
     rdx, rdu, rdv = launched(krb.launch(y0, u2, v2, g))
     torch.cuda.synchronize()
@@ -910,7 +961,8 @@ def rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen, n_out, x, w, g, u,
                  2 * t * d * f + 8 * t * d, dtype)
     rb_b = bound(3 * t * f * es + 16 * f, 20 * t * f, dtype)
     return [
-        dict(common, kernel="reflect_gemm_dx",
+        dict(common, kernel="reflect_gemm_dx", route=route,
+             epilogue=dx_epilogue(route, u.shape[0], d),
              max_abs_err=max(e["dx"][0], (du - pdu).abs().max().item(),
                              (dv - pdv).abs().max().item()),
              rel_err=e["dx"][1], du_rel_frob=max(fr["du"], fr["dv"]),
@@ -934,6 +986,91 @@ def rank2_bwd_rows(torch, ops, ref, kdx, kdw, krb, gen, n_out, x, w, g, u,
              plain_ms=timed_ms(torch, [
                  lambda: ref.ref_etherplus_reflect_bwd(y0, u2, v2, g)]),
              matmul_ms=None, bound_ms=rb_b[0], bound_by=rb_b[1])]
+
+
+def wide_bwd_rows(torch, ops, ref, kdx, kb):
+    """Phase 2, the dXr backwards at Llama-2-7B's linears (WIDE_LINEARS),
+    bf16 only, n = TRAIN_BLOCKS, T = B·S of WIDE_BWD_BANK rows: where the
+    tensor cores, not the host, set the pace.  reflect_gemm_dx (rank 1)
+    and householder_gemm_batched_bwd (WIDE_BWD_BANK sequences of a
+    BANK_TENANTS-tenant bank, ids BANK_IDS repeated) through their
+    wrappers against their plain versions (dx to TOL, du to DU_TOL), each
+    row's route and epilogue printed, each timed through its launcher
+    beside its plain version and torch.matmul(g, w.T)."""
+    print("== phase 2: the dXr backwards at Llama-2-7B's linears",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dtype, dt, es, n = "bfloat16", torch.bfloat16, 2, TRAIN_BLOCKS
+    b, s = WIDE_BWD_BANK
+    t = b * s
+    ids = torch.tensor((BANK_IDS * b)[:b], dtype=torch.int32, device="cuda")
+    named = len(set(BANK_IDS))
+    rows = []
+    for arch, shapes in WIDE_LINEARS.items():
+        for d, f in shapes:
+            w = (torch.randn(d, f, generator=gen, device="cuda")
+                 / d ** .5).to(dt)
+            x = torch.randn(t, d, generator=gen, device="cuda").to(dt)
+            g = torch.randn(t, f, generator=gen, device="cuda").to(dt)
+            u = torch.randn(n, d // n, generator=gen, device="cuda")
+            ub = torch.randn(BANK_TENANTS, n, d // n, generator=gen,
+                             device="cuda")
+            xb, gb = x.view(b, s, d), g.view(b, s, f)
+            mm = timed_ms(torch, [lambda: torch.matmul(g, w.T)])
+            for kernel in ("reflect_gemm_dx", "householder_gemm_batched_bwd"):
+                ops.reset_launches()
+                if kernel == "reflect_gemm_dx":
+                    dx, _, du = ops.householder_gemm_bwd(x, w, u, g,
+                                                         need_dw=False)
+                    pdx, pdu = ref.ref_reflect_gemm_dx(x, w, u, g)
+                    run = (lambda: kdx.launch(x, w, u, g))
+                    plain = (lambda: ref.ref_reflect_gemm_dx(x, w, u, g))
+                    extra = 8 * d
+                    keys = dict(rank=1)
+                else:
+                    dx, _, du = ops.householder_gemm_batched_bwd(
+                        xb, w, ub, ids, gb, need_dw=False)
+                    pdx, pgh = ref.ref_householder_gemm_batched_bwd(
+                        xb, w, ub, ids, gb)
+                    pdu = ref.bank_grad(ub, ids, pgh)
+                    run = (lambda: kb.householder_gemm_batched_bwd(
+                        xb, w, ub, ids, gb))
+                    plain = (lambda: ref.ref_householder_gemm_batched_grads(
+                        xb, w, ub, ids, gb, need_dw=False))
+                    extra = 4 * b + 4 * d * named + 4 * BANK_TENANTS * d
+                    keys = dict(b=b, s=s, tenants=BANK_TENANTS)
+                torch.cuda.synchronize()
+                route = check_dx_route(ops, kernel, dt, d, f, n)
+                err = (dx.float() - pdx.float()).abs().max().item()
+                rel = err / pdx.float().abs().max().item()
+                du_rel = frob(du, pdu)
+                check(rel <= TOL[dtype] and du_rel <= DU_TOL,
+                      f"{kernel} disagrees with its plain version at "
+                      f"{arch} d={d} f={f} T={t}: dx {rel:.3e} (tol "
+                      f"{TOL[dtype]:g}), du {du_rel:.3e} (tol {DU_TOL:g})")
+                b_ms, b_by = bound((2 * t * d + d * f + t * f) * es + extra,
+                                   2 * t * d * f + 8 * t * d, dtype)
+                rows.append(dict(
+                    kernel=kernel, arch=arch, dtype=dtype, t=t, d=d, f=f,
+                    n=n, **keys, route=route,
+                    epilogue=dx_epilogue(route, n, d),
+                    max_abs_err=max(err, (du - pdu).abs().max().item()),
+                    rel_err=rel, tol=TOL[dtype], du_rel_frob=du_rel,
+                    ms=timed_ms(torch, [run]),
+                    plain_ms=timed_ms(torch, [plain]), matmul_ms=mm,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                r = rows[-1]
+                print(f"  {kernel:29s} {arch} T={t} d={d:5d} f={f:5d} n={n} "
+                      f"{route} ({r['epilogue']})  err {rel:.2e}  du "
+                      f"{du_rel:.2e}  {r['ms']:.4f} ms  plain "
+                      f"{r['plain_ms']:.4f} ms  matmul {mm:.4f} ms "
+                      f"(x{r['ms'] / max(mm, 1e-9):.2f})  bound {b_ms:.4f} "
+                      f"ms ({b_by}, {100 * b_ms / max(r['ms'], 1e-9):.1f}% "
+                      f"of it)", flush=True)
+                del dx, du, pdx, pdu
+            del w, x, g, xb, gb
+    torch.cuda.synchronize()
+    return rows
 
 
 def method_kernel_rows(torch, ops, ref):
@@ -1271,8 +1408,9 @@ def bank_bwd_rows(torch, ops, ref, kb):
         print("  {kernel:29s} {dtype:8s} B={b:2d} S={s:3d} d={d:4d} f={f:4d} "
               "n={n!s:4s} err {rel_err:.2e} (tol {tol:g})  du {du_rel_frob:.2e}"
               "  {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul {matmul_ms:.4f} "
-              "ms  bound {bound_ms:.4f} ms ({bound_by})".format(**row),
-              flush=True)
+              "ms  bound {bound_ms:.4f} ms ({bound_by})".format(**row)
+              + (f"  {row['route']} ({row['epilogue']})" if "route" in row
+                 else ""), flush=True)
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -1317,6 +1455,8 @@ def bank_bwd_rows(torch, ops, ref, kb):
                                   etherplus_reflect_batched_bwd=2)
                     check(ops.launches() == want_l, "bank backward wrappers "
                           f"launched {ops.launches()}")
+                    route = check_dx_route(
+                        ops, "householder_gemm_batched_bwd", dt, d, f, n)
                     _, gh, _ = launched(kb.householder_gemm_batched_bwd(
                         x, w, u, ids, g))
                     pdx, pgh = ref.ref_householder_gemm_batched_bwd(
@@ -1359,7 +1499,9 @@ def bank_bwd_rows(torch, ops, ref, kb):
                                  + 8 * a_n * (d + f), 20 * m * (d + f),
                                  dtype)
                     add(dict(common, kernel="householder_gemm_batched_bwd",
-                             n=n, max_abs_err=max(
+                             n=n, route=route,
+                             epilogue=dx_epilogue(route, n, d),
+                             max_abs_err=max(
                                  e_dx[0], (du - ref.bank_grad(u, ids, pgh))
                                  .abs().max().item()),
                              rel_err=e_dx[1], tol=TOL[dtype],
@@ -2006,6 +2148,8 @@ def trace_tables(events, steps):
             "busiest_ms": sorted(dev.items(), key=lambda r: -r[1])[:6],
             "flash_ms": sum(ms for name, ms in dev.items()
                             if any(k in name for k in FLASH_KERNELS)),
+            "dxr_ms": {k: sum(ms for name, ms in dev.items() if k in name)
+                       for k in DXR_KERNELS},
             "top_level_ops": {k: len(v) / steps for k, v in top.items()},
             "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
                                  for k, v in top.items()},
@@ -2057,6 +2201,10 @@ def print_trace(name, t, unprofiled_ms):
         f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"])
         + f"; the flash kernel's {t['flash_ms']:.3f} ms; the trace's "
         f"processing took {t['processing_s']:.1f} s")
+    if any(t["dxr_ms"].values()):
+        print("    the dXr backwards' kernels a step: " + ", ".join(
+            f"{k.rstrip(':')} {ms:.3f} ms" for k, ms in t["dxr_ms"].items())
+            + f"; {sum(t['dxr_ms'].values()):.3f} ms in all", flush=True)
 
 
 def profile_decode(torch, serve, api, steps, **kw):
@@ -3144,6 +3292,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
         fit_s = time.perf_counter() - t0
         counters, launches = execute.counters(), ops.launches()
         routes = ops.routes()
+        dx_routes = ops.routes("reflect_gemm_dx")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(tr.state[k])
                  for k in ("adapters", "opt_state", "step")}
@@ -3165,6 +3314,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 **dict.fromkeys(routes, 0),
                 "householder_gemm.wgmma": launches["householder_gemm"]},
                 "kernels")
+        check_dx_routes(dx_routes, launches, "reflect_gemm_dx", "kernels")
         losses = [m["loss"] for m in log]
         check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -3295,7 +3445,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
                 counters=counters, launches=launches, routes=routes,
-                trace=trace)
+                dx_routes=dx_routes, trace=trace)
 
 
 def phase_blockgemm(torch, execute, ops, method, weight):
@@ -3471,6 +3621,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
         state, losses, norms, step_ms = run(
             "auto", st.make_bank_state(params, bank, opt), 0, n_steps, mgr)
         counters, launches = execute.counters(), ops.launches()
+        dx_routes = ops.routes("householder_gemm_batched_bwd")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
         final_step = state["step"].clone()
@@ -3483,6 +3634,8 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
               f"of {7 * cfg.n_layers} linears a step through the bank "
               f"kernels, no plain version, no dW; attention on the plain "
               f"route under autograd)")
+        check_dx_routes(dx_routes, launches, "householder_gemm_batched_bwd",
+                        "kernels")
         check(all(map(math.isfinite, losses + norms)),
               f"bank train losses {losses} / grad norms {norms} not finite")
         steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
@@ -3591,7 +3744,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
                 bank_bytes=bank.size_bytes(), build_s=build_s,
                 loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
                 update_rel=upd_rel, counters=counters, launches=launches,
-                trace=trace)
+                dx_routes=dx_routes, trace=trace)
 
 
 def print_modes(weight, activation, card):
@@ -3795,6 +3948,8 @@ def main() -> int:
                   lambda: merge_bwd_rows(torch, ops, ref, kmb))
     rows += timed("2 bank backward rows",
                   lambda: bank_bwd_rows(torch, ops, ref, kb))
+    rows += timed("2 wide backward rows",
+                  lambda: wide_bwd_rows(torch, ops, ref, kdx, kb))
     rows += timed("2 ssd rows", lambda: ssd_kernel_rows(torch, ops, ref))
     rows += timed("2 reflect rows",
                   lambda: reflect_kernel_rows(torch, ops, ref, ker, kerb))
@@ -4082,6 +4237,45 @@ def main() -> int:
             "t", "d", "f", "n", "route", "ms", "plain_ms", "matmul_ms",
             "bound_ms", "bound_by", "max_abs_err")}
     hh_entry["host_us"] = host
+    # the dXr backwards' routes (csrc/dxr_wgmma.cuh): each train path's
+    # launches by route, and the Llama-2-7B rows, where the tensor cores
+    # set the pace
+    for name, by_path in (
+            ("reflect_gemm_dx", {"ether train": trained["dx_routes"],
+                                 "etherplus train": ep_trained["dx_routes"]}),
+            ("householder_gemm_batched_bwd",
+             {"ether bank train": trained_bank["ether"]["dx_routes"]})):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["wgmma_core"] = "src/repro_torch/csrc/dxr_wgmma.cuh"
+        entry["routes"] = list(kdx.ROUTES)
+        entry["routes_by_path"] = by_path
+        entry["wide"] = [{k: r[k] for k in (
+            "arch", "t", "d", "f", "n", "route", "epilogue", "ms", "plain_ms",
+            "matmul_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for r in rows if r["kernel"] == name and r["arch"] in WIDE_LINEARS]
+    # rows 5, 6 and 10-13 at phase 2's train-size rows (T = 2048; a
+    # bank's B·S = 16·128): the forwards of the bank, ETHER+, DeLoRA and
+    # HyperAdapt train paths, beside torch.matmul
+    for name, n, match in (
+            ("householder_gemm_batched", N_BLOCKS, {}),
+            ("etherplus_gemm", TRAIN_BLOCKS, {"two_sided": True}),
+            ("delora_gemm", None, {"r": METHOD_RANK}),
+            ("delora_gemm_batched", None, {"r": METHOD_RANK}),
+            ("hyperadapt_gemm", None, {}),
+            ("hyperadapt_gemm_batched", None, {})):
+        bank_b, bank_s = max(BANK_ROWS, key=lambda bs: bs[0] * bs[1])
+        t = bank_b * bank_s if "batched" in name else max(ROWS)
+        summary = layer_summary(rows, name, n, t, **match)
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["train_size"] = {
+            "shapes": f"sum over the 7 linears of one smollm-360m layer, "
+                      f"T={t}"
+                      + (f", B={bank_b} S={bank_s}" if "batched" in name
+                         else "")
+                      + ("" if n is None else f", n={n}") + ", bf16",
+            **{k: summary[k] for k in ("ms", "plain_ms", "matmul_ms",
+                                       "bound_ms", "bound_by",
+                                       "max_abs_err")}}
     check(len(kernels) == 27, f"the kernels line lists {len(kernels)}")
     total_s = time.perf_counter() - t0
     print(f"chip_smoke: phases 1-17 took {total_s:.1f} s (" + ", ".join(

@@ -21,12 +21,12 @@
 // reflect_gemm_dx with G in place of dXr, so it runs reflect_common.cuh's
 // reflect_bwd_kernel (one warp per (32-row tile, block): warp sums for
 // the four projections, dx written, the tile's ĝ_u and ĝ_v partials kept
-// in shared memory) and du_kernel once per direction, which sums the
-// partials in a fixed order and applies the norm chain.  No float
-// atomics, so a train step gives the same bits every run.
+// in shared memory) and du_kernel for both directions in one launch,
+// which sums the partials in a fixed order and applies the norm chain.
+// No float atomics, so a train step gives the same bits every run.
 //
 // C interface, bound with ctypes: etherplus_reflect_bwd(...) launches the
-// three kernels on the given stream, allocates nothing and returns
+// two kernels on the given stream, allocates nothing and returns
 // cudaGetLastError().
 
 #include "reflect_common.cuh"

@@ -1,6 +1,6 @@
 // Device and host helpers shared by the port's Hopper kernels
-// (householder_gemm.cu's wgmma routes and flash_attention.cu's wgmma
-// route): shared-memory addresses, mbarriers, TMA tensor loads and 1-D
+// (householder_gemm.cu's wgmma routes, flash_attention.cu's wgmma route
+// and dxr_wgmma.cuh's dXr GEMM): shared-memory addresses, mbarriers, TMA tensor loads and 1-D
 // bulk copies, wgmma shared-memory descriptors under the 128-byte swizzle,
 // the wgmma products (both operands from shared memory, or A from
 // registers) with their fence, commit and wait, and the host side of TMA:
@@ -121,6 +121,26 @@ template <int N, int TransB>
 struct WgmmaSS;
 template <int N, int TransB>
 struct WgmmaRS;
+
+template <int TransB>
+struct WgmmaSS<32, TransB> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
+        "%17, p, 1, 1, 0, %19; \n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
+  }
+};
 
 template <int TransB>
 struct WgmmaSS<64, TransB> {

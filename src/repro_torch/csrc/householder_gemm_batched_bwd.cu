@@ -26,26 +26,36 @@
 // tensor cores; the bytes it must move (x, W, G, dx, the bank rows of
 // the tenants named) about 11 MB, 3 µs.  Operations bound.
 //
-// What the design does about that — a simple kernel that is right first:
-//  * dXr does not depend on the tenant, so it runs on the shared SIMT GEMM
-//    of reflect_common.cuh with W read transposed in place, W read once
-//    for the whole batch, into an (M, K) f32 scratch.
-//  * The reflection epilogue is reflect_bwd_kernel under BANK: one warp
-//    per (row tile, block), each tile inside one sequence (⌈S/32⌉ tiles a
-//    sequence, the last ragged: S = 1, 16, 100 alike), its hyperplanes
-//    the sequence's tenant's.  Each tile writes its own ĝ partial.
-//  * seq_ghat_kernel sums each sequence's partials in order (ĝ_seq), and
-//    bank_chain_kernel sums, per (tenant, block), the ĝ_seq of the
-//    sequences its id names in order b = 0, 1, ... and applies the norm
-//    chain; a tenant no id names gets an exact zero.  No float atomics:
-//    the same inputs give the same bits every run, which the bitwise
-//    restore of a train run needs.  The ids are read on the device only.
-//  * SIMT f32, no tensor cores, as every GEMM of the port so far.
+// dXr does not depend on the tenant, so the two routes are
+// reflect_gemm_dx's (kernels/batched.py, `route`; counted by
+// ops.routes("householder_gemm_batched_bwd")):
+//  * wgmma (bf16, K and N multiples of 8, x, W, G and the bank 16-byte
+//    aligned): dxr_wgmma.cuh's TMA-fed wgmma GEMM.  Where a block fits a
+//    tile (db ≤ 160) the reflection backward runs in its epilogue: each
+//    sequence has ⌈S/128⌉ row tiles of its own (the last ragged: S = 1,
+//    100 and 128 alike), a tile's hyperplanes are its sequence's
+//    tenant's, read on the device, and each tile writes one ĝ partial a
+//    column.  Wider blocks take the same GEMM into an (M, K) f32 scratch
+//    and the epilogue below.
+//  * simt (float32, other widths, a misaligned view): the shared SIMT f32
+//    GEMM of reflect_common.cuh into the scratch, W read transposed in
+//    place.
+//  * The scratch epilogue is reflect_bwd_kernel under BANK: one warp per
+//    (32-row tile, block), each tile inside one sequence, its hyperplanes
+//    the sequence's tenant's; each tile writes its own ĝ partial.
+//  * On every route seq_ghat_kernel sums each sequence's partials in order
+//    (ĝ_seq), and bank_chain_kernel sums, per (tenant, block), the ĝ_seq
+//    of the sequences its id names in order b = 0, 1, ... and applies the
+//    norm chain; a tenant no id names gets an exact zero.  No float
+//    atomics: the same inputs give the same bits every run, which the
+//    bitwise restore of a train run needs.  The ids are read on the
+//    device only.
 //
 // C interface, bound with ctypes: hh_gemm_batched_bwd(...) launches the
-// four kernels on the given stream, allocates nothing and returns
-// cudaGetLastError().
+// route it is given on the given stream, allocates nothing and returns a
+// cudaError_t.
 
+#include "dxr_wgmma.cuh"
 #include "reflect_common.cuh"
 
 namespace {
@@ -69,30 +79,73 @@ int run(const void* x, const void* w, const void* u, const void* g,
       db, tn, s));
 }
 
-}  // namespace
-
-// Row tiles of one sequence of `seq` rows: `part` holds B times this many
-// (n, db) partials.
-extern "C" int hh_gemm_batched_bwd_row_tiles(int seq) {
-  return row_tiles(seq);
+// The wgmma route: the fused epilogue when nb > 0, else dXr to scratch
+// and reflect_bwd_kernel under BANK.
+int run_wgmma(const void* x, const void* w, const void* u, const void* g,
+              const Tenants& tn, void* dxr, void* part, void* ghat, void* dx,
+              void* du, int M, int K, int N, int n, int db, int nb,
+              cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (nb == 0) {
+    const dxr::Args a{static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
+                      static_cast<float*>(dxr), nullptr, nullptr, M, K, N, n,
+                      db, 0, M, (M + dxr::kRows - 1) / dxr::kRows, Tenants{}};
+    cudaError_t err = dxr::launch_tiles<false, false, false, 128>(g, w, a, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_reflect_bwd_bank<bf16, float, false>(
+        a.x, a.dxr, static_cast<const float*>(u), nullptr,
+        static_cast<bf16*>(dx), static_cast<float*>(part),
+        static_cast<float*>(ghat), static_cast<float*>(du), nullptr, M, K, n,
+        db, tn, s));
+  }
+  const int seq_tiles = (tn.seq + dxr::kRows - 1) / dxr::kRows;
+  const dxr::Args a{static_cast<const bf16*>(x),
+                    static_cast<const float*>(u),
+                    nullptr,
+                    static_cast<bf16*>(dx),
+                    nullptr,
+                    static_cast<float*>(part),
+                    nullptr,
+                    M, K, N, n, db, nb, tn.seq, seq_tiles, tn};
+  cudaError_t err = dxr::launch<false, true>(g, w, a, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_bank_sums(
+      a.part_u, static_cast<float*>(ghat), a.u, nullptr,
+      static_cast<float*>(du), nullptr, M / tn.seq, n, db, seq_tiles, 1, tn,
+      s));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, W, G and dx alike).  ids: B = M /
-// seq ids, int64 when ids64, else int32; tenants = A.  dxr is (M, K) f32
-// scratch, part (B·hh_gemm_batched_bwd_row_tiles(seq), n, db) f32
-// scratch, both written before they are read; ghat (B, n, db) f32 and du
-// (A, n, db) f32 are outputs.
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, W, G and dx alike); route: 0 =
+// simt, 1 = wgmma (bf16, K and N multiples of 8, x, W, u and G 16-byte
+// aligned), whose column tiles hold nb whole blocks (nb·db ≤ 160), or
+// nb = 0 for the scratch epilogue.  ids: B = M / seq ids, int64 when
+// ids64, else int32; tenants = A.  dxr is (M, K) f32 scratch (unread by
+// the fused epilogue, which may pass null), part
+// (dxr::part_rows(M, seq, nb > 0), K) f32 scratch, both
+// written before they are read; ghat (B, n, db) f32 and du (A, n, db) f32
+// are outputs.
 extern "C" int hh_gemm_batched_bwd(const void* x, const void* w,
                                    const void* u, const void* g,
                                    const void* ids, int ids64, int seq,
                                    int tenants, void* dxr, void* part,
                                    void* ghat, void* dx, void* du, int M,
                                    int K, int N, int n, int db, int dtype,
-                                   void* stream) {
+                                   int route, int nb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq < 1 || tenants < 1 || M % seq)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tenants tn{ids, ids64, seq, tenants};
+  if (route == 1) {
+    const void* ptrs[4] = {x, w, u, g};
+    if (!dxr::takes(dtype, K, N, n, db, nb, ptrs, 4) ||
+        (nb == 0 && dxr == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return run_wgmma(x, w, u, g, tn, dxr, part, ghat, dx, du, M, K, N, n, db,
+                     nb, s);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return run<float>(x, w, u, g, tn, dxr, part, ghat, dx, du, M, K, N, n,
                       db, s);

@@ -708,17 +708,22 @@ cudaError_t launch_reflect_bwd_tiles(const TX* x, const TG* g, const float* u,
   return cudaGetLastError();
 }
 
-// One warp per block i: ĝ = Σ_r part[r, i] in order r = 0, 1, ..., then
-// du = norm_chain(u_i, ĝ).
-__global__ void du_kernel(const float* __restrict__ part,
+// One warp per block i of each direction (blockIdx.y: 0 for u, 1 for v,
+// so that both directions of ETHER+'s H⁺ take one launch): ĝ = Σ_r
+// part[r, i] in order r = 0, 1, ..., then du = norm_chain(u_i, ĝ).
+__global__ void du_kernel(const float* __restrict__ part_u,
                           const float* __restrict__ u, float* __restrict__ du,
+                          const float* __restrict__ part_v,
+                          const float* __restrict__ v, float* __restrict__ dv,
                           int n, int db, int n_tiles) {
   const int warps = blockDim.x / 32;
   const int i = blockIdx.x * warps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (i >= n) return;
-  const float* ui = u + static_cast<long long>(i) * db;
-  float* di = du + static_cast<long long>(i) * db;
+  const bool second = blockIdx.y == 1;
+  const float* part = second ? part_v : part_u;
+  const float* ui = (second ? v : u) + static_cast<long long>(i) * db;
+  float* di = (second ? dv : du) + static_cast<long long>(i) * db;
   const long long stride = static_cast<long long>(n) * db;
   float ss = 0.f, dot = 0.f;
   for (int j = lane; j < db; j += 32) {
@@ -735,8 +740,19 @@ __global__ void du_kernel(const float* __restrict__ part,
   for (int j = lane; j < db; j += 32) di[j] = di[j] / s - dot * ui[j] / (rn * s * s);
 }
 
-// dx, and du (dv) from the partials: reflect_bwd_kernel, then du_kernel
-// once per direction.  part_u (part_v) hold row_tiles(M)·n·db floats.
+// du (and with RANK2 dv) from part_u (part_v), n_tiles partials each:
+// du_kernel, one launch.
+template <bool RANK2>
+cudaError_t launch_du(const float* part_u, const float* u, float* du,
+                      const float* part_v, const float* v, float* dv, int n,
+                      int db, int n_tiles, cudaStream_t s) {
+  du_kernel<<<dim3((n + 3) / 4, RANK2 ? 2 : 1), 128, 0, s>>>(
+      part_u, u, du, part_v, v, dv, n, db, n_tiles);
+  return cudaGetLastError();
+}
+
+// dx, and du (dv) from the partials: reflect_bwd_kernel, then launch_du.
+// part_u (part_v) hold row_tiles(M)·n·db floats.
 template <typename TX, typename TG, bool RANK2>
 cudaError_t launch_reflect_bwd(const TX* x, const TG* g, const float* u,
                                const float* v, TX* dx, float* part_u,
@@ -747,11 +763,7 @@ cudaError_t launch_reflect_bwd(const TX* x, const TG* g, const float* u,
       x, g, u, v, dx, part_u, part_v, M, K, n, db, n_tiles, n_tiles,
       Tenants{}, s);
   if (err != cudaSuccess) return err;
-  du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_u, u, du, n, db, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !RANK2) return err;
-  du_kernel<<<(n + 3) / 4, 128, 0, s>>>(part_v, v, dv, n, db, n_tiles);
-  return cudaGetLastError();
+  return launch_du<RANK2>(part_u, u, du, part_v, v, dv, n, db, n_tiles, s);
 }
 
 // The bank's ĝ per sequence: one warp per (direction, sequence b, block
@@ -824,9 +836,31 @@ __global__ void bank_chain_kernel(const float* __restrict__ ghat,
   for (int j = lane; j < db; j += 32) di[j] = di[j] / s - dot * ui[j] / (rn * s * s);
 }
 
+// The bank's sums after the row tiles' ĝ partials (`seq_tiles` a
+// sequence): seq_ghat_kernel (ĝ_seq, each direction), then
+// bank_chain_kernel (du_bank [, dv_bank]).  part holds `dirs` directions
+// of (B·seq_tiles, n, db), ghat `dirs` of (B, n, db).
+inline cudaError_t launch_bank_sums(const float* part, float* ghat,
+                                    const float* u, const float* v,
+                                    float* du, float* dv, int B, int n,
+                                    int db, int seq_tiles, int dirs,
+                                    const Tenants& tn, cudaStream_t s) {
+  constexpr int kThreads = 256, kWarps = kThreads / 32;
+  const long long seq_units = static_cast<long long>(dirs) * B * n;
+  seq_ghat_kernel<<<static_cast<unsigned>((seq_units + kWarps - 1) / kWarps),
+                    kThreads, 0, s>>>(part, ghat, B, n, db, seq_tiles, dirs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long bank_units = static_cast<long long>(dirs) * tn.count * n;
+  bank_chain_kernel<<<static_cast<unsigned>((bank_units + kWarps - 1) /
+                                            kWarps),
+                      kThreads, 0, s>>>(ghat, u, v, du, dv, B, n, db, dirs,
+                                        tn);
+  return cudaGetLastError();
+}
+
 // The bank backward from x and G (M = B·S rows): reflect_bwd_kernel under
-// BANK (dx and the tiles' partials), seq_ghat_kernel (ĝ_seq, each
-// direction) and bank_chain_kernel (du_bank [, dv_bank]).  part holds
+// BANK (dx and the tiles' partials), then launch_bank_sums.  part holds
 // (RANK2 ? 2 : 1)·B·row_tiles(S)·n·db floats, ghat (RANK2 ? 2 : 1)·B·n·db;
 // du, dv are (A, n, db) like the banks.
 template <typename TX, typename TG, bool RANK2>
@@ -835,7 +869,6 @@ cudaError_t launch_reflect_bwd_bank(const TX* x, const TG* g, const float* u,
                                     float* ghat, float* du, float* dv, int M,
                                     int K, int n, int db, const Tenants& tn,
                                     cudaStream_t s) {
-  constexpr int dirs = RANK2 ? 2 : 1;
   const int B = M / tn.seq, seq_tiles = row_tiles(tn.seq);
   const int n_tiles = B * seq_tiles;
   cudaError_t err = launch_reflect_bwd_tiles<TX, TG, RANK2, true>(
@@ -843,18 +876,8 @@ cudaError_t launch_reflect_bwd_bank(const TX* x, const TG* g, const float* u,
       RANK2 ? part + static_cast<long long>(n_tiles) * K : nullptr, M, K, n,
       db, n_tiles, seq_tiles, tn, s);
   if (err != cudaSuccess) return err;
-  constexpr int kThreads = 256, kWarps = kThreads / 32;
-  const long long seq_units = static_cast<long long>(dirs) * B * n;
-  seq_ghat_kernel<<<static_cast<unsigned>((seq_units + kWarps - 1) / kWarps),
-                    kThreads, 0, s>>>(part, ghat, B, n, db, seq_tiles, dirs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long bank_units = static_cast<long long>(dirs) * tn.count * n;
-  bank_chain_kernel<<<static_cast<unsigned>((bank_units + kWarps - 1) /
-                                            kWarps),
-                      kThreads, 0, s>>>(ghat, u, v, du, dv, B, n, db, dirs,
-                                        tn);
-  return cudaGetLastError();
+  return launch_bank_sums(part, ghat, u, v, du, dv, B, n, db, seq_tiles,
+                          RANK2 ? 2 : 1, tn, s);
 }
 
 }  // namespace reflect

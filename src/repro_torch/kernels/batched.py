@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import reflect_gemm_dx as _dx
 from repro_torch.kernels.householder_gemm import DTYPE_CODE
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -44,8 +45,8 @@ _DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
 # x, w, r, c, ids, ids64, seq, tenants, y, M, K, N, w_t, dtype, stream
 _HG = (_P,) * 5 + (_I,) * 3 + (_P,) + (_I,) * 5 + (_P,)
 # x, w, u, g, ids, ids64, seq, tenants, dxr, part, ghat, dx, du, M, K, N, n,
-# db, dtype, stream
-_HB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 6 + (_P,)
+# db, dtype, route, nb, stream
+_HB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 8 + (_P,)
 # x, u, g, ids, ids64, seq, tenants, p, unorm, dw, M, K, N, n, db, dtype,
 # stream
 _HW = (_P,) * 4 + (_I,) * 3 + (_P,) * 3 + (_I,) * 6 + (_P,)
@@ -150,32 +151,53 @@ def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     return err, y
 
 
+def route(dtype: torch.dtype, t: int, d: int, f: int, n: int, db: int,
+          aligned: bool) -> str:
+    """householder_gemm_batched_bwd's route for t = B·S rows: the dXr
+    GEMM does not depend on the tenant, so it is
+    :func:`reflect_gemm_dx.route`'s rule (``wgmma`` or ``simt``) and
+    core; a fused tile's hyperplanes are its sequence's tenant's."""
+    return _dx.route(dtype, t, d, f, n, db, aligned)
+
+
+def pick_bwd(x: torch.Tensor, w: torch.Tensor, u_bank: torch.Tensor,
+             g: torch.Tensor) -> str:
+    """The route of householder_gemm_batched_bwd on these operands."""
+    b, s, d = x.shape
+    _, n, db = u_bank.shape
+    return route(x.dtype, b * s, d, w.shape[1], n, db,
+                 _dx.aligned(x, w, g, u_bank))
+
+
 @_on_device
 def householder_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
                                  u_bank: torch.Tensor, ids: torch.Tensor,
-                                 g: torch.Tensor):
+                                 g: torch.Tensor, on=None):
     """(dx, ĝ_seq, du_bank) of R_{ids[b]}(x[b])·w under g (B, S, f): x
-    (B, S, d), w (d, f), u_bank (A, n, db) f32; ĝ_seq (B, n, db) f32."""
+    (B, S, d), w (d, f), u_bank (A, n, db) f32; ĝ_seq (B, n, db) f32.
+    On route ``on`` (:func:`pick_bwd`'s when None)."""
     b, s, d = x.shape
     f = w.shape[1]
     _, n, db = u_bank.shape
     m = b * s
-    tiles = b * build.function("householder_gemm_batched_bwd",
-                               "hh_gemm_batched_bwd_row_tiles", (_I,))(s)
+    on = pick_bwd(x, w, u_bank, g) if on is None else on
+    nb = _dx.blocks_per_tile(n, db) if on == "wgmma" else 0
     fn = build.function("householder_gemm_batched_bwd", "hh_gemm_batched_bwd",
                         _HB)
     dx = torch.empty_like(x)
-    ghat = torch.empty((b, n, db), dtype=torch.float32, device=x.device)
     du = torch.empty_like(u_bank)
-    # f32 scratch: dXr (m, d), then the row tiles' ĝ partials (tiles, d)
-    scratch = torch.empty(((m + tiles) * d,), dtype=torch.float32,
-                          device=x.device)
-    dxr = scratch.data_ptr()
+    # f32: ĝ_seq (b, n, db), then the row tiles' ĝ partials; dXr (m, d)
+    # apart, for the scratch epilogue and the SIMT route only
+    part = u_bank.new_empty((b + _dx.part_rows(m, s, nb > 0), n, db))
+    dxr = None if nb else u_bank.new_empty((m, d))
+    ghat = part.data_ptr()
     err = fn(x.data_ptr(), w.data_ptr(), u_bank.data_ptr(), g.data_ptr(),
-             *_tenants(x, ids, u_bank), dxr, dxr + 4 * m * d,
-             ghat.data_ptr(), dx.data_ptr(), du.data_ptr(), m, d, f, n, db,
-             DTYPE_CODE[x.dtype], _stream())
-    return err, dx, ghat, du
+             *_tenants(x, ids, u_bank),
+             None if dxr is None else dxr.data_ptr(), ghat + 4 * b * d, ghat,
+             dx.data_ptr(), du.data_ptr(), m, d, f, n, db,
+             DTYPE_CODE[x.dtype], _dx.ROUTE_CODE[on], nb,
+             _dx.stream(x.device))
+    return err, dx, part[:b], du
 
 
 @_on_device

@@ -37,7 +37,9 @@ the splits included), so a run can show that its path went
 through the kernels; ``routes()`` splits ``householder_gemm``'s launches
 by the route each took (``wgmma``, ``wgmma_decode`` or ``simt``), and
 ``routes("flash_attention")`` the flash kernel's (``wgmma``, ``decode``
-or ``simt``).  The
+or ``simt``), and ``routes("reflect_gemm_dx")`` and
+``routes("householder_gemm_batched_bwd")`` the dXr backwards' (``wgmma``
+or ``simt``, rank-2 calls included).  The
 rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
 scatter-add over a bank's ids) are a few thin PyTorch ops beside the
 kernels, as the JAX package leaves them to XLA.
@@ -82,9 +84,12 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0,
              "flash_attention": 0}
 # launches by route of the kernels that have routes
-# (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``)
+# (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``, and the dXr
+# backwards' ``reflect_gemm_dx.ROUTES``)
 _ROUTES = {"householder_gemm": dict.fromkeys(_hh.ROUTES, 0),
-           "flash_attention": dict.fromkeys(_fa.ROUTES, 0)}
+           "flash_attention": dict.fromkeys(_fa.ROUTES, 0),
+           "reflect_gemm_dx": dict.fromkeys(_dx.ROUTES, 0),
+           "householder_gemm_batched_bwd": dict.fromkeys(_dx.ROUTES, 0)}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -105,7 +110,8 @@ def launches() -> dict[str, int]:
 def routes(op: str = "householder_gemm") -> dict[str, int]:
     """``op``'s launches per route since the last reset, as
     ``<op>.<route>``; they add up to its entry in :func:`launches`.  ``op``
-    is ``householder_gemm`` or ``flash_attention``."""
+    is ``householder_gemm``, ``flash_attention``, ``reflect_gemm_dx`` or
+    ``householder_gemm_batched_bwd``."""
     return {f"{op}.{r}": v for r, v in _ROUTES[op].items()}
 
 
@@ -243,8 +249,10 @@ def householder_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ref_householder_gemm_bwd(x, w, u, g, need_dw=need_dw)
     x2, g2 = x.view(-1, d), g.view(-1, w.shape[1])
-    err, dx, du = _dx.launch(x2, w, u, g2)
+    on = _dx.pick(x2, w, u, g2)
+    err, dx, du = _dx.launch(x2, w, u, g2, on=on)
     _launched("reflect_gemm_dx", err)
+    _ROUTES["reflect_gemm_dx"][on] += 1
     dw = None
     if need_dw:
         err, dw = _dw.launch(x2, u, g2)
@@ -327,8 +335,10 @@ def etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
         _launched("etherplus_gemm", err)
         err, dy0, du2, dv2 = _rb.launch(y0, u2, v2, g2)
         _launched("etherplus_reflect_bwd", err)
-    err, dx, du1, dv1 = _dx.launch(x2, w, u1, dy0, v1)
+    on = _dx.pick(x2, w, u1, dy0, v1)
+    err, dx, du1, dv1 = _dx.launch(x2, w, u1, dy0, v1, on=on)
     _launched("reflect_gemm_dx", err)
+    _ROUTES["reflect_gemm_dx"][on] += 1
     dw = None
     if need_dw:
         err, dw = _dw.launch(x2, u1, dy0, v1)
@@ -805,8 +815,11 @@ def householder_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ref_householder_gemm_batched_grads(x, w, u_bank, ids, g,
                                                       need_dw=need_dw)
-    err, dx, _, du = _bk.householder_gemm_batched_bwd(x, w, u_bank, ids, g)
+    on = _bk.pick_bwd(x, w, u_bank, g)
+    err, dx, _, du = _bk.householder_gemm_batched_bwd(x, w, u_bank, ids, g,
+                                                       on=on)
     _launched("householder_gemm_batched_bwd", err)
+    _ROUTES["householder_gemm_batched_bwd"][on] += 1
     dw = None
     if need_dw:
         err, dw = _bk.householder_gemm_batched_dw(x, u_bank, ids, g)

@@ -20,6 +20,7 @@ training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
 serving of ether, etherplus, delora or hyperadapt), ``mergerows``
 (phase 2's merge backward rows), ``weight:<method>`` (phase 13's
 weight-mode training, then for ether and etherplus its blockgemm run),
+``bwdrows`` (phase 2's backward rows, Llama-2-7B's among them),
 ``bankbwdrows`` (phase 2's bank backward rows), ``banktrain:<method>``
 (phase 14's training through a bank), ``ssdrows`` (phase 2's SSD rows),
 ``mamba`` (phase 15's Mamba-2 serving), ``reflectrows`` (phase 2's
@@ -102,7 +103,7 @@ def fake_card():
         0, ref.ref_etherplus_merge_left(w, u, v))
     etherplus_merge.launch_right = lambda w, u, v: (
         0, ref.ref_etherplus_merge_right(w, u, v))
-    reflect_gemm_dx.launch = lambda x, w, u, g, v=None: (
+    reflect_gemm_dx.launch = lambda x, w, u, g, v=None, on=None: (
         0, *ref.ref_reflect_gemm_dx(x, w, u, g, v))
     reflect_gemm_dw.launch = lambda x, u, g, v=None: (
         0, ref.ref_reflect_gemm_dw(x, u, g, x.dtype, v))
@@ -114,7 +115,7 @@ def fake_card():
         0, *ref.ref_etherplus_reflect_bwd(w, u, v, g))
     from repro_torch.kernels import batched
 
-    def hh_bwd(x, w, u, ids, g):
+    def hh_bwd(x, w, u, ids, g, on=None):
         dx, gh = ref.ref_householder_gemm_batched_bwd(x, w, u, ids, g)
         return 0, dx, gh, ref.bank_grad(u, ids, gh)
 
@@ -147,6 +148,7 @@ def small(cs, failed):
         "CHECK FAILED:", what[:300])
     cs.LINEARS = {"smollm-360m": [(96, 96), (96, 32), (96, 256), (256, 96)]}
     cs.WIDE_LINEARS = {"llama-2-7b": [(128, 128)]}
+    cs.WIDE_BWD_BANK = (2, 20)
     cs.LAYER = {(96, 96): 2, (96, 32): 2, (96, 256): 2, (256, 96): 1}
     cs.ROWS, cs.BWD_ROWS, cs.BWD_RAGGED = (4, 20), (40,), 37
     cs.BANK_ROWS = ((4, 1), (8, 5), (4, 3))
@@ -183,7 +185,7 @@ def small(cs, failed):
         "profiled_wall_ms": 1.0, "device_busy_ms": 0.0, "busiest_ms": [],
         "flash_ms": 0.0,
         "top_level_ops": {"aten": 0}, "top_level_cpu_us": {"aten": 0.0},
-        "top_level_cpu_ms": 0.0, "processing_s": 0.0})[1]
+        "top_level_cpu_ms": 0.0, "processing_s": 0.0, "dxr_ms": {}})[1]
 
 
 def main(parts):
@@ -223,6 +225,14 @@ def main(parts):
                                cs.moved_off_init(torch, method))
             if method in ("ether", "etherplus"):
                 cs.phase_blockgemm(torch, execute, ops, method, r)
+        elif name == "bwdrows":
+            from repro_torch.kernels import batched, etherplus_reflect_bwd
+            from repro_torch.kernels import reflect_gemm_dw, reflect_gemm_dx
+            print(len(cs.bwd_kernel_rows(torch, ops, ref, reflect_gemm_dx,
+                                         reflect_gemm_dw,
+                                         etherplus_reflect_bwd))
+                  + len(cs.wide_bwd_rows(torch, ops, ref, reflect_gemm_dx,
+                                         batched)), "rows")
         elif name == "bankbwdrows":
             from repro_torch.kernels import batched
             print(len(cs.bank_bwd_rows(torch, ops, ref, batched)), "rows")

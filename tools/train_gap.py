@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """How far ``chip_smoke.py`` phase 4's training on the kernels lands from
-its plain path, on each bf16 ``householder_gemm`` route, over seeds.
+its plain path, on each bf16 ``householder_gemm`` route and each
+``reflect_gemm_dx`` route, over seeds.
 
     python3 tools/train_gap.py [--seeds 0 1 2]
 
@@ -16,15 +17,17 @@ Two parts, on one card:
 2. Phase 4's training (ETHER n = TRAIN_BLOCKS, TRAIN_STEPS AdamW steps
    through the port's ``Trainer`` with the phase's settings), with the
    model, adapters and data drawn from each seed: on the plain path, on
-   the kernels (``auto``: bf16 forwards on ``wgmma``), and on the
-   kernels with the SIMT route forced; each kernel run's largest
-   per-step relative loss and gradient-norm difference and the relative
-   Frobenius norm of its adapter update's difference, against the plain
-   run and against each other.
+   the kernels (``auto``: bf16 forwards and dXr backwards on ``wgmma``),
+   on the kernels with the forward's SIMT route forced, and on the
+   kernels with the backward's SIMT route forced; each kernel run's
+   largest per-step relative loss and gradient-norm difference and the
+   relative Frobenius norm of its adapter update's difference, against
+   the plain run and against the ``auto`` run.
 
-The SIMT route is forced by replacing ``householder_gemm.route`` for the
-run; the backward kernels are the same in both runs.  Prints a line a
-measurement, the card's name and power limit, and last a JSON line.
+A SIMT route is forced by replacing ``householder_gemm.route`` (the
+forward) or ``reflect_gemm_dx.route`` (the backward) for the run.
+Prints a line a measurement, the card's name and power limit, and last a
+JSON line.
 """
 
 import argparse
@@ -47,17 +50,19 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import householder_gemm as hh  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 
 
 @contextmanager
-def simt_forced():
-    """Every ``householder_gemm`` call on the SIMT route."""
-    route = hh.route
-    hh.route = lambda *a: "simt"
+def simt_forced(module=hh):
+    """Every call of ``module``'s kernel (``householder_gemm`` by
+    default, ``reflect_gemm_dx`` for the backward) on the SIMT route."""
+    route = module.route
+    module.route = lambda *a: "simt"
     try:
         yield
     finally:
-        hh.route = route
+        module.route = route
 
 
 def frob(a, b) -> float:
@@ -164,19 +169,30 @@ def main(argv) -> int:
         for seed in args.seeds:
             runs = {"plain": train(seed, "torch", tmp),
                     "wgmma": train(seed, "auto", tmp)}
-            with simt_forced():
+            with simt_forced(hh):
                 runs["simt"] = train(seed, "auto", tmp)
+            ops.reset_launches()
+            with simt_forced(kdx):
+                runs["simt_bwd"] = train(seed, "auto", tmp)
+            simt_bwd_routes = ops.routes("reflect_gemm_dx")
             row = {"seed": seed,
                    "wgmma_vs_plain": gap(runs["wgmma"], runs["plain"]),
                    "simt_vs_plain": gap(runs["simt"], runs["plain"]),
+                   "simt_bwd_vs_plain": gap(runs["simt_bwd"], runs["plain"]),
                    "wgmma_vs_simt": gap(runs["wgmma"], runs["simt"]),
+                   "wgmma_vs_simt_bwd": gap(runs["wgmma"],
+                                            runs["simt_bwd"]),
+                   "simt_bwd_routes": simt_bwd_routes,
                    "losses": {k: [m["loss"] for m in r["log"]]
                               for k, r in runs.items()}}
             print(f"seed {seed}: " + "; ".join(
                 f"{k} loss {row[k]['loss']:.3e} grad_norm "
                 f"{row[k]['grad_norm']:.3e} update {row[k]['update']:.3e}"
                 for k in ("wgmma_vs_plain", "simt_vs_plain",
-                          "wgmma_vs_simt")), flush=True)
+                          "simt_bwd_vs_plain", "wgmma_vs_simt",
+                          "wgmma_vs_simt_bwd"))
+                + f"; forced backward's routes {simt_bwd_routes}",
+                flush=True)
             out["train"].append(row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
