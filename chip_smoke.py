@@ -20,7 +20,10 @@
    ETHER+ kernels (``etherplus_gemm`` one- and two-sided, the left and
    right ``etherplus_merge`` kernels) run on adapters whose v is drawn
    apart from u, from their own generator, so the ETHER rows see the
-   inputs they always did.
+   inputs they always did; each bf16 ``etherplus_gemm`` row and each bf16
+   ``householder_gemm_batched`` row prints its route and epilogue and the
+   ms of each route forced on its launcher (the rows that decided their
+   route rules).
 3. Serve: smollm-360m at full width (32 layers, bf16, random weights from
    a seed) with ETHER n_blocks=8, B=4, P=32, 16 new tokens, through the
    CLI's ``serve`` entry point, unmerged and then merged; asserts that
@@ -56,11 +59,15 @@
 5. Serve ETHER+: phase 3's model and requests with two-sided ETHER+
    (n_blocks 8), its v1/v2 drawn apart from u1/u2 from a seed (the
    method's init has H⁺ = I), through ``serve.generate`` unmerged and
-   after ``merge_params``; the same checks, counts and trace as phase 3.
+   after ``merge_params``; the same checks, counts and trace as phase 3,
+   and every ``etherplus_gemm`` launch on the route its rule gives
+   (``ops.routes("etherplus_gemm")``).
 6. Train ETHER+: phase 4 with two-sided ETHER+ (n_blocks 32), from the
    method's own init, through ``Trainer``; the same checks, with the
    ETHER+ backward's counts (the y0 recompute and
-   ``etherplus_reflect_bwd`` in every adapted linear's backward).
+   ``etherplus_reflect_bwd`` in every adapted linear's backward), every
+   bf16 ``etherplus_gemm`` launch (forward, remat, y0 recompute) on
+   ``wgmma``, and the two forwards' device ms a step in the trace.
 7. Serve DeLoRA: phase 3's model and requests with DeLoRA at rank 8 on
    all seven linears, its b and λ moved off the method's init (b = 0 is
    ΔW = 0) from a seed, through ``serve.generate`` unmerged
@@ -92,7 +99,9 @@
    ``--tenants`` mode's baseline): counts (every adapted linear on its
    bank kernel, twice for two-sided ETHER+; no plain call), bank vs the
    plain path and each row vs single-tenant serving of its tenant on the
-   kernels, held to SERVE_TOL, and every row moved by more than SERVE_TOL
+   kernels, held to SERVE_TOL (the ETHER bank's ``householder_gemm_batched``
+   launches on the route their rule gives), and every row moved by more
+   than SERVE_TOL
    when served by another tenant; prints bank vs merged prefill and
    decode times, the bank's bytes, peak memory and the bank's decode-step
    trace, and, for DeLoRA, the cost of its scale over the whole bank.
@@ -121,8 +130,9 @@
    call, 0 ``householder_gemm_batched_dw``), kernels vs plain path to
    TRAIN_TOL, the tenants no id names unmoved with exactly zero gradient
    rows, a restore from the step-TRAIN_CKPT checkpoint of the bank's
-   state bitwise equal, the step's trace; each step printed beside the
-   method's single-tenant activation step.
+   state bitwise equal, every bf16 ``householder_gemm_batched`` launch on
+   ``wgmma``, the step's trace (with the two forwards' device ms); each
+   step printed beside the method's single-tenant activation step.
 15. Serve Mamba-2: mamba2-1.3b ``full()`` (48 layers, d_model 2048, 64
    heads of 64, state 128, chunk 256, bf16, random weights from a seed)
    with ETHER n_blocks 8 on in_proj and out_proj, B = 4 at P = 600 (three
@@ -322,6 +332,10 @@ BANK_IDS = [5, 17, 5, BANK_TENANTS - 1]
 # phase 2's bank rows: (B, S) of decode, prefill, a long prefill and a
 # ragged S
 BANK_ROWS = ((4, 1), (4, 32), (16, 128), (4, 33))
+# and householder_gemm_batched's wide decode row: B = A sequences of one
+# token, every tenant once (its wgmma route reads W once a sequence, from
+# L2 at these widths, where simt reads it once a batch)
+BANK_WIDE_DECODE = (BANK_TENANTS, 1)
 # phase 2's bank backward rows: (B, S) of decode, the train step and a
 # ragged S (32-row tiles never straddle two sequences), at n ∈ BLOCKS
 BANK_BWD_ROWS = ((4, 1), (TRAIN_B, TRAIN_S), (4, 100))
@@ -490,6 +504,24 @@ def served_routes(ops, per_forward, forwards, prefill_rows, decode_rows):
         name = "wgmma_decode" if rows <= hh.DECODE_ROWS else "wgmma"
         want[f"householder_gemm.{name}"] += calls * per_forward
     return want
+
+
+def served_fwd_routes(ops, op, rule, per_forward, forwards, prefill_rows,
+                      decode_rows):
+    """``op``'s launches by route (``etherplus_gemm`` or
+    ``householder_gemm_batched``) in a served bf16 run of ``forwards``
+    forwards as :func:`served_routes` counts them, ``rule(rows)`` the route
+    of a call on ``rows`` rows (for the bank, rows a sequence)."""
+    want = dict.fromkeys(ops.routes(op), 0)
+    for rows, calls in ((prefill_rows, 2), (decode_rows, forwards - 2)):
+        want[f"{op}.{rule(rows)}"] += calls * per_forward
+    return want
+
+
+def check_fwd_routes(routes, want, op, what):
+    print(f"[{what}] {op} routes: {routes}")
+    check(routes == want, f"{what}: {op} launched on routes {routes}, want "
+          f"{want}")
 
 
 def check_routes(r, want, what):
@@ -723,8 +755,12 @@ def etherplus_kernel_rows(torch, ops, ref, kepm):
     versions, on phase 2's shapes, with v1/v2 drawn apart from u1/u2 (a
     generator of their own).  The merges are held and timed one kernel
     at a time (``kepm``'s launchers; the left one also through the
-    wrapper), the GEMM through its wrapper beside ``torch.matmul``."""
+    wrapper), the GEMM through its wrapper beside ``torch.matmul``, with
+    the route its rule took; in bf16 each route, forced on the launcher,
+    is also held to the plain version and timed (``route_ms``: the T = 4
+    rows decide whether decode-size calls take ``wgmma``)."""
     from repro_torch.core.transforms import resolve_blocks
+    from repro_torch.kernels import etherplus_gemm as kep
     print("== phase 2: ETHER+ kernels against their plain versions",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -790,10 +826,37 @@ def etherplus_kernel_rows(torch, ops, ref, kepm):
                         x = randn(t, d).to(dt)
                         for two in (True, False):
                             out = (u2, v2) if two else (None, None)
+                            want = ref.ref_etherplus_gemm(x, w, u1, v1, *out)
+                            ops.reset_launches()
                             err, rel = compare(
                                 ops.etherplus_gemm(x, w, u1, v1, *out),
-                                ref.ref_etherplus_gemm(x, w, u1, v1, *out),
-                                dtype, "etherplus_gemm")
+                                want, dtype, "etherplus_gemm")
+                            route = routed(ops, "etherplus_gemm")
+                            route_ms, epilogue_ms = {}, {}
+                            for on in kep.ROUTES if dtype == "bfloat16" \
+                                    else ():
+                                compare(launched(kep.launch(
+                                    x, w, u1, v1, *out, on=on))[0], want,
+                                    dtype, f"etherplus_gemm on {on}")
+                                route_ms[on] = timed_ms(torch, [
+                                    lambda w=w, on=on: kep.launch(
+                                        x, w, u1, v1, *out, on=on)
+                                    for w in ws])
+                            # each two-sided wgmma epilogue forced: fused
+                            # where a tile holds a whole output block
+                            for epi in ("fused", "scratch") if two and \
+                                    dtype == "bfloat16" else ():
+                                if epi == "fused" and not kep.tile_blocks(
+                                        n_out, f // n_out):
+                                    continue
+                                compare(launched(kep.launch(
+                                    x, w, u1, v1, *out, on="wgmma",
+                                    epi=epi))[0], want, dtype,
+                                    f"etherplus_gemm, {epi} epilogue")
+                                epilogue_ms[epi] = timed_ms(torch, [
+                                    lambda w=w, epi=epi: kep.launch(
+                                        x, w, u1, v1, *out, on="wgmma",
+                                        epi=epi) for w in ws])
                             b_ms, b_by = bound(
                                 (t * d + d * f + t * f) * es + 8 * d
                                 + (8 * f if two else 0),
@@ -802,6 +865,10 @@ def etherplus_kernel_rows(torch, ops, ref, kepm):
                             rows.append(dict(
                                 common, kernel="etherplus_gemm", t=t,
                                 two_sided=two, max_abs_err=err, rel_err=rel,
+                                route=route, route_ms=route_ms,
+                                epilogue_ms=epilogue_ms,
+                                epilogue=kep.epilogue(
+                                    n_out if two else None, f // n_out),
                                 bound_ms=b_ms, bound_by=b_by,
                                 ms=timed_ms(torch, [
                                     lambda w=w: ops.etherplus_gemm(
@@ -814,11 +881,16 @@ def etherplus_kernel_rows(torch, ops, ref, kepm):
                                     for w in ws])))
                             print("  etherplus_gemm {s:3s}   {arch:11s} "
                                   "{dtype:8s} d={d:5d} f={f:5d} n={n:2d} "
-                                  "T={t:4d}  err {rel_err:.2e} (tol {tol:g})"
+                                  "T={t:4d} {route:5s} {epilogue:7s} err "
+                                  "{rel_err:.2e} (tol {tol:g})"
                                   "  {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                                   "matmul {matmul_ms:.4f} ms  bound "
                                   "{bound_ms:.4f} ms ({bound_by})".format(
-                                      s="2s" if two else "1s", **rows[-1]),
+                                      s="2s" if two else "1s", **rows[-1])
+                                  + "".join(f"  {k} {v:.4f} ms" for k, v in
+                                            route_ms.items())
+                                  + "".join(f"  {k} epilogue {v:.4f} ms"
+                                            for k, v in epilogue_ms.items()),
                                   flush=True)
                 del ws, w
     torch.cuda.synchronize()
@@ -1254,11 +1326,16 @@ def bank_kernel_rows(torch, ops, ref):
     own.  Each through its wrapper against its plain version (TOL), timed
     beside it and, for the three GEMMs, beside ``torch.matmul`` of the
     product inside; the reflection's row carries the matmul between its
-    two calls."""
+    two calls.  householder_gemm_batched's rows carry the route its rule
+    took and, in bf16, each route forced on the launcher, held to the
+    plain version and timed (``route_ms``: the rows decide the S from which
+    the bank takes ``wgmma``)."""
     from repro_torch.core.transforms import resolve_blocks
+    from repro_torch.kernels import batched as kb
     print("== phase 2: bank kernels against their plain versions "
           f"(A={BANK_TENANTS}, ids {BANK_IDS})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
+    wide = torch.Generator(device="cuda").manual_seed(6)
     rows = []
     a_n = BANK_TENANTS
 
@@ -1277,7 +1354,37 @@ def bank_kernel_rows(torch, ops, ref):
         print("  {kernel:25s} {dtype:8s} B={b:2d} S={s:3d} d={d:4d} f={f:4d} "
               "r={r!s:4s} err {rel_err:.2e} (tol {tol:g})  {ms:.4f} ms  "
               "plain {plain_ms:.4f} ms  matmul {matmul_ms:.4f} ms  bound "
-              "{bound_ms:.4f} ms ({bound_by})".format(**row), flush=True)
+              "{bound_ms:.4f} ms ({bound_by})".format(**row)
+              + (f"  route {row['route']}" + "".join(
+                  f"  {k} {v:.4f} ms" for k, v in row["route_ms"].items())
+                 if "route" in row else ""), flush=True)
+
+    def gemm_row(dtype, es, x, w, ws, u, ids, got, common):
+        """householder_gemm_batched's row: ``got`` (the wrapper's output)
+        and each route forced held to the plain version, and timed."""
+        b, s, d = x.shape
+        m, f = b * s, w.shape[1]
+        tenants = len(set(ids.tolist()))   # rows of the bank read
+        want = ref.ref_householder_gemm_batched(x, w, u, ids)
+        route, route_ms = routed(ops, "householder_gemm_batched"), {}
+        for on in kb.GEMM_ROUTES if dtype == "bfloat16" else ():
+            compare(launched(kb.householder_gemm_batched(
+                x, w, u, ids, on=on))[0], want, dtype,
+                f"householder_gemm_batched on {on}")
+            route_ms[on] = timed_ms(torch, [
+                lambda w=w, on=on: kb.householder_gemm_batched(
+                    x, w, u, ids, on=on) for w in ws])
+        add("householder_gemm_batched", dtype, got, want, n=N_BLOCKS,
+            r=None, route=route, route_ms=route_ms, **common,
+            ms=timed_ms(torch, [
+                lambda w=w: ops.householder_gemm_batched(x, w, u, ids)
+                for w in ws]),
+            plain_ms=timed_ms(torch, [
+                lambda w=w: ref.ref_householder_gemm_batched(
+                    x, w, u, ids) for w in ws]),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                (m * d + d * f + m * f) * es + 4 * b + 4 * d * tenants,
+                2 * m * d * f + 4 * m * d, dtype))))
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -1311,18 +1418,7 @@ def bank_kernel_rows(torch, ops, ref):
                 got = ops.householder_gemm_batched(x, w, u, ids)
                 check(ops.launches()["householder_gemm_batched"] == 1,
                       f"householder_gemm_batched launched {ops.launches()}")
-                add("householder_gemm_batched", dtype, got,
-                    ref.ref_householder_gemm_batched(x, w, u, ids), n=N_BLOCKS,
-                    r=None, **common,
-                    ms=timed_ms(torch, [
-                        lambda w=w: ops.householder_gemm_batched(x, w, u, ids)
-                        for w in ws]),
-                    plain_ms=timed_ms(torch, [
-                        lambda w=w: ref.ref_householder_gemm_batched(
-                            x, w, u, ids) for w in ws]),
-                    **dict(zip(("bound_ms", "bound_by"), bound(
-                        io + 4 * d * tenants,
-                        2 * m * d * f + 4 * m * d, dtype))))
+                gemm_row(dtype, es, x, w, ws, u, ids, got, common)
                 got = torch.cat([
                     ops.etherplus_reflect_batched(x, u, v, ids).flatten(),
                     ops.etherplus_reflect_batched(y0, u2, v2, ids).flatten()])
@@ -1369,6 +1465,20 @@ def bank_kernel_rows(torch, ops, ref):
                     **dict(zip(("bound_ms", "bound_by"), bound(
                         io + 4 * (d + f) * tenants,
                         2 * m * d * f + m * (d + f), dtype))))
+            if dtype == "bfloat16":
+                # the wide decode row, from a generator of its own (the
+                # other rows' inputs stay as they were)
+                b, s = BANK_WIDE_DECODE
+                x = torch.randn(b, s, d, generator=wide, device="cuda").to(dt)
+                ids = torch.arange(b, dtype=torch.int32, device="cuda") % a_n
+                ops.reset_launches()
+                got = ops.householder_gemm_batched(x, w, u, ids)
+                check(ops.launches()["householder_gemm_batched"] == 1,
+                      f"householder_gemm_batched launched {ops.launches()}")
+                gemm_row(dtype, es, x, w, ws, u, ids, got, dict(
+                    b=b, s=s, t=b * s, d=d, f=f, matmul_ms=timed_ms(
+                        torch, [lambda w=w: torch.matmul(x, w)
+                                for w in ws])))
             del ws, w
     torch.cuda.synchronize()
     return rows
@@ -2109,6 +2219,8 @@ def counted(torch, execute, ops, run):
     r["counters"], r["launches"] = execute.counters(), ops.launches()
     r["routes"] = ops.routes()
     r["flash_routes"] = ops.routes("flash_attention")
+    r["ep_routes"] = ops.routes("etherplus_gemm")
+    r["bank_routes"] = ops.routes("householder_gemm_batched")
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
 
@@ -2120,6 +2232,20 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 FLASH_KERNELS = ("::wg::wgmma_kernel<", "::dec::decode_kernel<",
                  "::dec::combine_kernel<", "::flash_kernel<")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+# the device work of the bf16 forwards of ETHER+ (etherplus_gemm) and of
+# the ETHER bank (householder_gemm_batched) on their wgmma routes in a
+# trace, by kernel name: each name holds every string of one of its op's
+# tuples.  Their prologues (proj_kernel: ETHER+'s rank 2, the bank's under
+# BANK; the weight gradients that share them launch 0 times, as PEFT
+# freezes W), the wgmma core (hh_wgmma.cuh: rank 2, or rank 1 under BANK)
+# and ETHER+'s scratch epilogue (rank2_rows_kernel on an f32 y0)
+FWD_KERNELS = {
+    "etherplus_gemm": (("proj_kernel<__nv_bfloat16, true",),
+                       ("hhw::", "wgmma_kernel<128, 2,"),
+                       ("rank2_rows_kernel<float, __nv_bfloat16",)),
+    "householder_gemm_batched": (
+        ("proj_kernel<__nv_bfloat16, false, true>",),
+        ("hhw::", "wgmma_kernel<128, 1, true,"))}
 
 
 def trace_tables(events, steps):
@@ -2150,6 +2276,10 @@ def trace_tables(events, steps):
                             if any(k in name for k in FLASH_KERNELS)),
             "dxr_ms": {k: sum(ms for name, ms in dev.items() if k in name)
                        for k in DXR_KERNELS},
+            "fwd_ms": {op: sum(ms for name, ms in dev.items()
+                               if any(all(k in name for k in keys)
+                                      for keys in pats))
+                       for op, pats in FWD_KERNELS.items()},
             "top_level_ops": {k: len(v) / steps for k, v in top.items()},
             "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
                                  for k, v in top.items()},
@@ -2201,6 +2331,10 @@ def print_trace(name, t, unprofiled_ms):
         f"{k[:48]} {ms:.3f} ms" for k, ms in t["busiest_ms"])
         + f"; the flash kernel's {t['flash_ms']:.3f} ms; the trace's "
         f"processing took {t['processing_s']:.1f} s")
+    if any(t["fwd_ms"].values()):
+        print("    the forwards' kernels a step: " + ", ".join(
+            f"{op} {ms:.3f} ms" for op, ms in t["fwd_ms"].items()),
+            flush=True)
     if any(t["dxr_ms"].values()):
         print("    the dXr backwards' kernels a step: " + ", ".join(
             f"{k.rstrip(':')} {ms:.3f} ms" for k, ms in t["dxr_ms"].items())
@@ -2492,6 +2626,14 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
                 {**none, **dict.fromkeys(merges, per_forward)}), cfg,
                 mg["forwards"])}
     check_served(torch, cfg, {"unmerged": un, "merged": mg}, want)
+    if method == "etherplus":
+        # every shape aligned, d and f multiples of 8: the rule by rows
+        from repro_torch.kernels import etherplus_gemm as kep
+        check_fwd_routes(un["ep_routes"], served_fwd_routes(
+            ops, "etherplus_gemm",
+            lambda rows: kep.route(torch.bfloat16, 960, 960, N_BLOCKS, True),
+            per_forward, un["forwards"], B * P, B), "etherplus_gemm",
+            "unmerged")
 
     # outside the counted runs: the frozen model, and the plain versions
     base = serve.generate(params, None, tokens, cfg, None, 4)
@@ -2526,7 +2668,8 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
                 **{f"{name}_{k}": r[k] for name, r in
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
-                             "forwards", "merge_s", "counters", "launches")},
+                             "forwards", "merge_s", "counters", "launches",
+                             "ep_routes")},
                 traces=traces)
 
 
@@ -2960,6 +3103,14 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                 {**none, **dict.fromkeys(merges, 7 * cfg.n_layers)}), cfg,
                 mg["forwards"])}
     check_served(torch, cfg, {"bank": bk, "merged t=0": mg}, want)
+    if method == "ether":
+        from repro_torch.kernels import batched as kb
+        check_fwd_routes(bk["bank_routes"], served_fwd_routes(
+            ops, "householder_gemm_batched",
+            lambda s: kb.gemm_route(torch.bfloat16, 960, 960, N_BLOCKS,
+                                    True),
+            per_forward, bk["forwards"], P, 1), "householder_gemm_batched",
+            "bank")
 
     # outside the counted runs: the plain path on the card, each distinct
     # tenant served alone on the single-tenant kernels, and every row
@@ -3029,7 +3180,8 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                 **{f"{name}_{k}": r[k] for name, r in
                    (("bank", bk), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
-                             "forwards", "merge_s", "counters", "launches")},
+                             "forwards", "merge_s", "counters", "launches",
+                             "bank_routes")},
                 trace=trace)
 
 
@@ -3293,6 +3445,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
         counters, launches = execute.counters(), ops.launches()
         routes = ops.routes()
         dx_routes = ops.routes("reflect_gemm_dx")
+        ep_routes = ops.routes("etherplus_gemm")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(tr.state[k])
                  for k in ("adapters", "opt_state", "step")}
@@ -3315,6 +3468,10 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 "householder_gemm.wgmma": launches["householder_gemm"]},
                 "kernels")
         check_dx_routes(dx_routes, launches, "reflect_gemm_dx", "kernels")
+        if launches["etherplus_gemm"]:
+            # B·S rows, bf16: the forward, its remat recompute and the
+            # backward's y0 recompute all on the wgmma route
+            check_dx_routes(ep_routes, launches, "etherplus_gemm", "kernels")
         losses = [m["loss"] for m in log]
         check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -3445,7 +3602,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
                 counters=counters, launches=launches, routes=routes,
-                dx_routes=dx_routes, trace=trace)
+                dx_routes=dx_routes, ep_routes=ep_routes, trace=trace)
 
 
 def phase_blockgemm(torch, execute, ops, method, weight):
@@ -3622,6 +3779,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
             "auto", st.make_bank_state(params, bank, opt), 0, n_steps, mgr)
         counters, launches = execute.counters(), ops.launches()
         dx_routes = ops.routes("householder_gemm_batched_bwd")
+        bank_routes = ops.routes("householder_gemm_batched")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
         final_step = state["step"].clone()
@@ -3636,6 +3794,11 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
               f"route under autograd)")
         check_dx_routes(dx_routes, launches, "householder_gemm_batched_bwd",
                         "kernels")
+        if launches["householder_gemm_batched"]:
+            # S = TRAIN_S rows a sequence, bf16: the forward and its remat
+            # recompute all on the wgmma route
+            check_dx_routes(bank_routes, launches, "householder_gemm_batched",
+                            "kernels")
         check(all(map(math.isfinite, losses + norms)),
               f"bank train losses {losses} / grad norms {norms} not finite")
         steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
@@ -3744,7 +3907,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
                 bank_bytes=bank.size_bytes(), build_s=build_s,
                 loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
                 update_rel=upd_rel, counters=counters, launches=launches,
-                dx_routes=dx_routes, trace=trace)
+                dx_routes=dx_routes, bank_routes=bank_routes, trace=trace)
 
 
 def print_modes(weight, activation, card):
@@ -4253,6 +4416,27 @@ def main() -> int:
             "arch", "t", "d", "f", "n", "route", "epilogue", "ms", "plain_ms",
             "matmul_ms", "bound_ms", "bound_by", "max_abs_err")}
             for r in rows if r["kernel"] == name and r["arch"] in WIDE_LINEARS]
+    # the forwards of ETHER+ and of the ETHER bank on the wgmma core of
+    # csrc/hh_wgmma.cuh: each path's launches by route, and every bf16
+    # phase-2 row's route, epilogue and each forced route's ms
+    from repro_torch.kernels import etherplus_gemm as kep
+    for name, routes, by_path in (
+            ("etherplus_gemm", kep.ROUTES,
+             {"etherplus serve": ep_served["unmerged_ep_routes"],
+              "etherplus train": ep_trained["ep_routes"]}),
+            ("householder_gemm_batched", kb.GEMM_ROUTES,
+             {"ether bank serve": served_bank["ether"]["bank_bank_routes"],
+              "ether bank train": trained_bank["ether"]["bank_routes"]})):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["wgmma_core"] = "src/repro_torch/csrc/hh_wgmma.cuh"
+        entry["routes"] = list(routes)
+        entry["routes_by_path"] = by_path
+        entry["by_row"] = [
+            {k: r.get(k) for k in ("t", "b", "s", "d", "f", "n", "two_sided",
+                                   "route", "epilogue", "route_ms",
+                                   "epilogue_ms", "ms",
+                                   "matmul_ms", "bound_ms")}
+            for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
     # rows 5, 6 and 10-13 at phase 2's train-size rows (T = 2048; a
     # bank's B·S = 16·128): the forwards of the bank, ETHER+, DeLoRA and
     # HyperAdapt train paths, beside torch.matmul

@@ -20,36 +20,55 @@
 // and in training (1024×960×2560 is 5.0 GFLOP, 5 µs).  The rank-2 update
 // adds O(M·K + M·N) work, nothing next to the GEMM.
 //
-// What the design does about that — a simple kernel that is right first:
-//  * The input side reuses householder_gemm's design: a prologue reads x
-//    once and writes both block projections (ûᵀx, v̂ᵀx) and both norms,
-//    and the shared GEMM of reflect_common.cuh applies x − p·û + q·v̂ to
-//    each x element as it stages the A tile (kRank2K), for any db.
-//  * The Pallas kernel reflects its f32 accumulator tile on the output
-//    blocks, which needs each F tile to hold whole blocks (Tf % db_out ==
-//    0).  At smollm-360m's widths db_out is 40, 120 or 320 (n = 8) and 10,
-//    30 or 80 (n = 32), which no Hopper tile holds.  So, as reflect_gemm_dx
-//    does, the two-sided GEMM writes its f32 result to an (M, N) scratch,
-//    and rank2_rows_kernel (one warp per (row, output block)) applies H̃⁺
-//    and rounds once.  The one-sided kernel writes y straight from the
-//    GEMM.  Fusing the epilogue into the GEMM is later work (ROADMAP.md).
-//  * The GEMM is SIMT f32 (no tensor cores); wgmma is the next step.
+// Routes, chosen on the host (kernels/etherplus_gemm.py, `route`) and
+// counted by ops.routes("etherplus_gemm").  Every call first runs the
+// projection prologue of reflect_common.cuh: it reads x once and writes
+// both block projections (P = ûᵀx, Q = v̂ᵀx per block) and both norms.
+//  * wgmma (bf16, n ≤ 32, K and N multiples of 8, x, W, u1 and v1 16-byte
+//    aligned): hh_wgmma.cuh's core at rank 2, H⁺(x)·W = x·W − P·U + Q·V
+//    by TMA-fed wgmma, U = ÛᵀW and V = V̂ᵀW summed together by the U
+//    warpgroups from the W tiles in shared memory, every order of
+//    summation set by K alone.  One-sided (and the backward's y0
+//    recompute): 128×128 tiles, y rounded once.  Two-sided, the epilogue
+//    the host picks (`epilogue`):
+//    - fused, where the whole output blocks of a 128-column tile fill at
+//      least 3/4 of it (smollm-360m's db_out 30 and 10 at n = 32, 120 and
+//      40 at n = 8: 120 columns): column tiles holding whole output blocks
+//      (kernels/etherplus_gemm.py, column_tiles: each tile starting on a
+//      multiple of 8 columns, since a TMA box must start on 16 bytes: a
+//      tile at column 119 made the card raise an illegal instruction) and
+//      H̃⁺ on the f32 accumulators in the GEMM's epilogue: y0 never
+//      reaches device memory.
+//    - scratch, the rest (db_out 80 at n = 32, 320 at n = 8, both on
+//      f = 2560): the GEMM writes y0 in f32 to an (M, N) scratch and
+//      rank2_rows_kernel (one warp a (row, output block)) applies H̃⁺ and
+//      rounds once.  At db_out 80 a fused 128-column tile holds one
+//      block, 5/8 of it, and ran slower on the card than this epilogue;
+//      so did 160-column tiles of two blocks (hh_wgmma.cuh: too few
+//      registers).
+//  * simt (float32, whose tolerance TF32 would miss; n > 32; widths not
+//    multiples of 8; a misaligned view): the shared GEMM of
+//    reflect_common.cuh applies x − p·û + q·v̂ to each x element as it
+//    stages the A tile (kRank2K), for any db; two-sided it writes y0 to
+//    the f32 scratch for rank2_rows_kernel.  No tensor cores.
 //
 // C interface, bound with ctypes: etherplus_gemm(...) launches the
-// prologue, the GEMM and (two-sided) the epilogue on the given stream,
-// allocates nothing and returns cudaGetLastError().
+// prologue, the GEMM and (two-sided, scratch) the epilogue on the given
+// stream, allocates nothing and returns a cudaError_t.
 
+#include "hh_wgmma.cuh"
 #include "reflect_common.cuh"
 
 namespace {
 
 using namespace reflect;
+using bf16 = __nv_bfloat16;
 
 template <typename T>
-int run(const void* x, const void* w, const void* u1, const void* v1,
-        const void* u2, const void* v2, void* scratch, void* yacc, void* y,
-        int M, int K, int N, int n, int db, int n_out, int db_out,
-        cudaStream_t s) {
+int run_simt(const void* x, const void* w, const void* u1, const void* v1,
+             const void* u2, const void* v2, void* scratch, void* yacc,
+             void* y, int M, int K, int N, int n, int db, int n_out,
+             int db_out, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const Proj pr = carve(static_cast<const float*>(u1),
@@ -70,22 +89,76 @@ int run(const void* x, const void* w, const void* u1, const void* v1,
       static_cast<T*>(y), M, n_out, db_out, s));
 }
 
+// The wgmma route: nb > 0 takes the fused epilogue on 128-column tiles of
+// nb whole output blocks (each tile's first column a multiple of 8 unless
+// one tile holds every block), nb = 0 two-sided the scratch one.
+int run_wgmma(const void* x, const void* w, const void* u1, const void* v1,
+              const void* u2, const void* v2, void* scratch, void* yacc,
+              void* y, int M, int K, int N, int n, int db, int n_out,
+              int db_out, int nb, cudaStream_t s) {
+  const void* ptrs[4] = {x, w, u1, v1};
+  if (!hhw::takes(K, N, n, ptrs, 4) || nb < 0 || nb > hhw::kMaxOut ||
+      (nb && (!u2 || nb > n_out ||
+              static_cast<long long>(nb) * db_out > 128 ||
+              (nb < n_out && nb * db_out % 8))) ||
+      (u2 && !nb && !yacc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Proj pr = carve(static_cast<const float*>(u1),
+                        static_cast<const float*>(v1),
+                        static_cast<float*>(scratch), M, n, db);
+  cudaError_t err = launch_proj<bf16, true>(static_cast<const bf16*>(x), pr,
+                                            M, K, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hhw::Args a{};
+  a.u = pr.u, a.v = pr.v, a.p = pr.p, a.q = pr.q;
+  a.unorm = pr.unorm, a.vnorm = pr.vnorm;
+  a.u2 = static_cast<const float*>(u2);
+  a.v2 = static_cast<const float*>(v2);
+  a.y = static_cast<bf16*>(y);
+  a.yacc = static_cast<float*>(yacc);
+  a.M = M, a.K = K, a.N = N, a.n = n, a.db = db;
+  a.nb = nb, a.db_out = db_out, a.n_out = n_out;
+  if (!u2) return static_cast<int>(hhw::launch<128, 2, false, hhw::kNone>(
+               x, w, a, s));
+  if (nb == 0) {
+    err = hhw::launch<128, 2, false, hhw::kScratch>(x, w, a, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_rank2_rows<float, bf16>(
+        a.yacc, a.u2, a.v2, a.y, M, n_out, db_out, s));
+  }
+  return static_cast<int>(hhw::launch<128, 2, false, hhw::kFused>(x, w, a,
+                                                                  s));
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, W and y alike).  u2 and v2 are
-// null one-sided.  scratch is f32 of 2·(M + 1)·n floats, yacc (M, N) f32
-// (two-sided only, else null), both written before they are read.
+// dtype: 0 = float32, 1 = bfloat16 (x, W and y alike); route: 0 = SIMT,
+// 1 = wgmma (bf16 only).  u2 and v2 are null one-sided.  nb: the wgmma route's
+// whole output blocks a column tile (its fused epilogue), 0 for the
+// scratch one.  scratch is f32 of 2·(M + 1)·n floats, yacc (M, N) f32
+// (two-sided SIMT and the scratch epilogue, else null), both written
+// before they are read.
 extern "C" int etherplus_gemm(const void* x, const void* w, const void* u1,
                               const void* v1, const void* u2, const void* v2,
                               void* scratch, void* yacc, void* y, int M, int K,
                               int N, int n, int db, int n_out, int db_out,
-                              int dtype, void* stream) {
+                              int dtype, int route, int nb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(x, w, u1, v1, u2, v2, scratch, yacc, y, M, K, N, n, db,
-                      n_out, db_out, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, w, u1, v1, u2, v2, scratch, yacc, y, M, K, N,
-                              n, db, n_out, db_out, s);
+  if (route == 1 && dtype == 1)
+    return run_wgmma(x, w, u1, v1, u2, v2, scratch, yacc, y, M, K, N, n, db,
+                     n_out, db_out, nb, s);
+  if (route == 0 && dtype == 0)
+    return run_simt<float>(x, w, u1, v1, u2, v2, scratch, yacc, y, M, K, N,
+                           n, db, n_out, db_out, s);
+  if (route == 0 && dtype == 1)
+    return run_simt<bf16>(x, w, u1, v1, u2, v2, scratch, yacc, y, M, K, N, n,
+                          db, n_out, db_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-map cache's lookups and encodes (its misses) since the
+// library was loaded, into counts[0] and counts[1].
+extern "C" int ep_map_counts(long long* counts) {
+  hhw::map_cache().counts(counts);
+  return 0;
 }

@@ -31,12 +31,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import householder_gemm as hh
 from repro_torch.kernels import reflect_gemm_dx as _dx
 from repro_torch.kernels.householder_gemm import DTYPE_CODE
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, u, ids, ids64, seq, tenants, p, unorm, y, M, K, N, n, db, dtype, stream
-_HH = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# x, w, u, ids, ids64, seq, tenants, p, unorm, y, M, K, N, n, db, dtype,
+# route, stream
+_HH = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 7 + (_P,)
+# householder_gemm_batched's routes (:func:`gemm_route`) and the wgmma
+# route's rows a tile
+GEMM_ROUTES = ("wgmma", "simt")
+TILE_ROWS = 128
 # x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, stream
 _EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
 # x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, w_t, dtype,
@@ -76,14 +82,47 @@ def _on_device(fn):
     return launch
 
 
+def row_tiles(b: int, s: int) -> list[tuple[int, int]]:
+    """(first row, rows) of the wgmma route's row tiles on b sequences of
+    s rows: ``TILE_ROWS``-row tiles of each sequence's own, the last one
+    ragged, so that no tile straddles two sequences (the kernel's
+    ``tile_rows``)."""
+    return [(i * s + r, min(TILE_ROWS, s - r)) for i in range(b)
+            for r in range(0, s, TILE_ROWS)]
+
+
+def gemm_route(dtype: torch.dtype, d: int, f: int, n: int,
+               aligned: bool) -> str:
+    """householder_gemm_batched's route for x (·, ·, d) and w (d, f) of
+    ``dtype`` and n blocks; ``aligned``: x, w and the bank start on 16
+    bytes.  ``wgmma`` where the wgmma core takes the call
+    (:func:`householder_gemm.wgmma_takes`), a row tile a sequence's 128
+    rows, whatever the rows a sequence: phase 2's BANK_ROWS found it
+    faster than ``simt`` on the card at S = 1, 32 and 33 too, where its
+    tiles hold 1 to 33 rows, and its BANK_WIDE_DECODE row (B = 64, S = 1,
+    every tenant once, W read once a sequence) no slower (PERF.md §6);
+    else ``simt``."""
+    return "wgmma" if hh.wgmma_takes(dtype, d, f, n, aligned) else "simt"
+
+
+def pick_gemm(x: torch.Tensor, w: torch.Tensor, u_bank: torch.Tensor) -> str:
+    """The route of householder_gemm_batched on these operands."""
+    return gemm_route(x.dtype, x.shape[2], w.shape[1], u_bank.shape[1],
+                      _dx.aligned(x, w, u_bank))
+
+
 @_on_device
 def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
-                             u_bank: torch.Tensor, ids: torch.Tensor):
-    """R_{ids[b]}(x[b]) · w: x (B, S, d), w (d, f), u_bank (A, n, db) f32."""
+                             u_bank: torch.Tensor, ids: torch.Tensor,
+                             on=None):
+    """R_{ids[b]}(x[b]) · w: x (B, S, d), w (d, f), u_bank (A, n, db) f32,
+    on route ``on`` (:func:`pick_gemm`'s when None).  Returns (cudaError_t,
+    y, the route taken)."""
     b, s, d = x.shape
     f = w.shape[1]
     _, n, db = u_bank.shape
     m = b * s
+    on = pick_gemm(x, w, u_bank) if on is None else on
     fn = build.function("householder_gemm_batched", "hh_gemm_batched", _HH)
     y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
     # f32 scratch: p (m, n) block projections, then unorm (m, n) row norms
@@ -91,8 +130,9 @@ def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     p = scratch.data_ptr()
     err = fn(x.data_ptr(), w.data_ptr(), u_bank.data_ptr(),
              *_tenants(x, ids, u_bank), p, p + 4 * m * n, y.data_ptr(), m, d,
-             f, n, db, DTYPE_CODE[x.dtype], _stream())
-    return err, y
+             f, n, db, DTYPE_CODE[x.dtype], int(on == "wgmma"),
+             _dx.stream(x.device))
+    return err, y, on
 
 
 @_on_device

@@ -52,12 +52,20 @@ _ARGTYPES = (_P,) * 6 + (_I,) * 6 + (_P,)
 _WGMMA_CODE = {"wgmma": 2, "wgmma_decode": 3}
 
 
+def wgmma_takes(dtype: torch.dtype, d: int, f: int, n: int,
+                aligned: bool) -> bool:
+    """Whether the wgmma core (``csrc/hh_wgmma.cuh``, which rows 1, 5 and
+    6 share) takes x (·, d) and w (d, f) of ``dtype`` with n reflection
+    blocks; ``aligned``: the operands it loads start on 16 bytes."""
+    return (dtype == torch.bfloat16 and n <= WGMMA_MAX_BLOCKS
+            and not d % 8 and not f % 8 and aligned)
+
+
 def route(dtype: torch.dtype, t: int, d: int, f: int, n: int,
           aligned: bool) -> str:
     """The route of a call on x (t, d) and w (d, f) of ``dtype`` with n
     reflection blocks; ``aligned``: x, w and u start on 16 bytes."""
-    if (dtype != torch.bfloat16 or n > WGMMA_MAX_BLOCKS or d % 8 or f % 8
-            or not aligned):
+    if not wgmma_takes(dtype, d, f, n, aligned):
         return "simt"
     return "wgmma_decode" if t <= DECODE_ROWS else "wgmma"
 

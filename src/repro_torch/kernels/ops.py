@@ -39,7 +39,9 @@ by the route each took (``wgmma``, ``wgmma_decode`` or ``simt``), and
 ``routes("flash_attention")`` the flash kernel's (``wgmma``, ``decode``
 or ``simt``), and ``routes("reflect_gemm_dx")`` and
 ``routes("householder_gemm_batched_bwd")`` the dXr backwards' (``wgmma``
-or ``simt``, rank-2 calls included).  The
+or ``simt``, rank-2 calls included), ``routes("etherplus_gemm")`` and
+``routes("householder_gemm_batched")`` the forwards of ETHER+ and of the
+bank (``wgmma`` or ``simt``; the backward's y0 recompute included).  The
 rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
 scatter-add over a bank's ids) are a few thin PyTorch ops beside the
 kernels, as the JAX package leaves them to XLA.
@@ -84,12 +86,15 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "ether_reflect_bwd": 0, "ether_reflect_batched_bwd": 0,
              "flash_attention": 0}
 # launches by route of the kernels that have routes
-# (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``, and the dXr
-# backwards' ``reflect_gemm_dx.ROUTES``)
+# (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``, the dXr
+# backwards' ``reflect_gemm_dx.ROUTES``, ``etherplus_gemm.ROUTES`` and the
+# bank forward's ``batched.GEMM_ROUTES``)
 _ROUTES = {"householder_gemm": dict.fromkeys(_hh.ROUTES, 0),
            "flash_attention": dict.fromkeys(_fa.ROUTES, 0),
            "reflect_gemm_dx": dict.fromkeys(_dx.ROUTES, 0),
-           "householder_gemm_batched_bwd": dict.fromkeys(_dx.ROUTES, 0)}
+           "householder_gemm_batched_bwd": dict.fromkeys(_dx.ROUTES, 0),
+           "etherplus_gemm": dict.fromkeys(_ep.ROUTES, 0),
+           "householder_gemm_batched": dict.fromkeys(_bk.GEMM_ROUTES, 0)}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -110,8 +115,9 @@ def launches() -> dict[str, int]:
 def routes(op: str = "householder_gemm") -> dict[str, int]:
     """``op``'s launches per route since the last reset, as
     ``<op>.<route>``; they add up to its entry in :func:`launches`.  ``op``
-    is ``householder_gemm``, ``flash_attention``, ``reflect_gemm_dx`` or
-    ``householder_gemm_batched_bwd``."""
+    is ``householder_gemm``, ``flash_attention``, ``reflect_gemm_dx``,
+    ``householder_gemm_batched_bwd``, ``etherplus_gemm`` or
+    ``householder_gemm_batched``."""
     return {f"{op}.{r}": v for r, v in _ROUTES[op].items()}
 
 
@@ -266,7 +272,9 @@ def etherplus_gemm(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
     """(H⁺x) @ w, and with u2/v2 the two-sided H̃⁺ on the output blocks;
     x: (..., d); w: (d, f); u1/v1: (n, db) f32, n·db = d; u2/v2:
     (n_out, db_out) f32, n_out·db_out = f.  Leading dims of x are
-    flattened into the kernel's row axis."""
+    flattened into the kernel's row axis.  On the card it launches the
+    route :func:`etherplus_gemm.route` picks (``wgmma`` or ``simt``),
+    counted in ``routes("etherplus_gemm")``."""
     d = x.shape[-1] if x.dim() else -1
     if not (_ok(x, d, w, u1) and _twin_ok(u1, v1)
             and _side_ok(u2, v2, w.shape[1])
@@ -278,8 +286,9 @@ def etherplus_gemm(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
     x2 = x.view(-1, d)
     if x.device.type == "cpu":
         return ref.ref_etherplus_gemm(x2, w, u1, v1, u2, v2).view(*lead, f)
-    err, y = _ep.launch(x2, w, u1, v1, u2, v2)
+    err, y, on = _ep.launch(x2, w, u1, v1, u2, v2)
     _launched("etherplus_gemm", err)
+    _ROUTES["etherplus_gemm"][on] += 1
     return y.view(*lead, f)
 
 
@@ -331,8 +340,9 @@ def etherplus_gemm_bwd(x: torch.Tensor, w: torch.Tensor, u1: torch.Tensor,
     if u2 is None:
         dy0, du2, dv2 = g2, None, None
     else:
-        err, y0 = _ep.launch(x2, w, u1, v1)
+        err, y0, on = _ep.launch(x2, w, u1, v1)
         _launched("etherplus_gemm", err)
+        _ROUTES["etherplus_gemm"][on] += 1
         err, dy0, du2, dv2 = _rb.launch(y0, u2, v2, g2)
         _launched("etherplus_reflect_bwd", err)
     on = _dx.pick(x2, w, u1, dy0, v1)
@@ -723,14 +733,17 @@ def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                              u_bank: torch.Tensor,
                              ids: torch.Tensor) -> torch.Tensor:
     """reflect_{ids[b]}(x[b]) @ w; x: (B, S, d); w: (d, f); u_bank:
-    (A, n, db) f32 with n·db = d; ids: (B,) int32 or int64."""
+    (A, n, db) f32 with n·db = d; ids: (B,) int32 or int64.  On the card
+    it launches the route :func:`batched.gemm_route` picks (``wgmma`` or
+    ``simt``), counted in ``routes("householder_gemm_batched")``."""
     d = x.shape[-1] if x.dim() else -1
     _check_bank("householder_gemm_batched", x, w, ids,
                 {"u_bank": (u_bank, _planes(u_bank, d), _F32)})
     if x.device.type == "cpu":
         return ref.ref_householder_gemm_batched(x, w, u_bank, ids)
-    err, y = _bk.householder_gemm_batched(x, w, u_bank, ids)
+    err, y, on = _bk.householder_gemm_batched(x, w, u_bank, ids)
     _launched("householder_gemm_batched", err)
+    _ROUTES["householder_gemm_batched"][on] += 1
     return y
 
 

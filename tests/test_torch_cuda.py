@@ -48,6 +48,11 @@ BWD_SHAPES = [(1000, 960, 2560, 32), (1000, 2560, 960, 32),
 # du, relative Frobenius: the same f32 math on the same inputs in both
 # dtypes (ĝ sums over T in another order)
 DU_TOL = 1e-4
+# bf16 ETHER+ du2/dv2: how much farther from the float64 composition than
+# the plain composition's they may lie (both round y0 to bf16, each in its
+# own order of summation; see test_etherplus_backward_kernels_match_plain_
+# versions)
+EP_Y0_SLACK = 1.25
 
 
 @pytest.fixture
@@ -65,6 +70,36 @@ def _inputs(device, t, d, f, n, dtype):
     w = torch.from_numpy(rng.standard_normal((d, f), np.float32) / d ** .5)
     u = torch.from_numpy(rng.standard_normal((n, d // n), np.float32))
     return x.to(device, dtype), w.to(device, dtype), u.to(device)
+
+
+def _ep_out_grads_f64(x, w, u1, v1, u2, v2, g):
+    """(du2, dv2) of the two-sided ETHER+ linear in float64, y0 = (H⁺x)·W
+    unrounded: the reference that neither path's bf16 y0 rounds."""
+    def unit(a):
+        return a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+                    + ref.EPS)
+
+    def rank2(xx, u, v):
+        n, db = u.shape
+        xb = xx.reshape(xx.shape[0], n, db)
+        uh, vh = unit(u), unit(v)
+        return (xb - torch.einsum("tnb,nb->tn", xb, uh)[..., None] * uh
+                + torch.einsum("tnb,nb->tn", xb, vh)[..., None] * vh
+                ).reshape(xx.shape)
+
+    x, w, u1, v1, u2, v2, g = (a.double() for a in (x, w, u1, v1, u2, v2, g))
+    y0 = rank2(x, u1, v1) @ w
+    n, db = u2.shape
+    yb, gb = y0.reshape(-1, n, db), g.reshape(-1, n, db)
+    grads = []
+    for a, c in ((u2, -1.0), (v2, 1.0)):
+        ah = unit(a)
+        ghat = c * (torch.einsum("tn,tnb->nb",
+                                 torch.einsum("tnb,nb->tn", yb, ah), gb)
+                    + torch.einsum("tn,tnb->nb",
+                                   torch.einsum("tnb,nb->tn", gb, ah), yb))
+        grads.append(ref.norm_chain(a, ghat))
+    return grads
 
 
 def _max_err(a, b):
@@ -266,11 +301,32 @@ def test_etherplus_backward_kernels_match_plain_versions(cuda_device, t, d,
                                        etherplus_reflect_bwd=1,
                                        reflect_gemm_dx=1, reflect_gemm_dw=1)
     want = ref.ref_etherplus_gemm_bwd(x, w, u1, v1, u2, v2, g)
+    # du2 and dv2 sum over y0, which both paths recompute and round to
+    # bf16 in sums of their own order: in bf16 they are held against the
+    # float64 composition, as close to it as the plain composition (within
+    # EP_Y0_SLACK of its distance) plus DU_TOL, and the recomputed y0
+    # (the forward's one-sided call, which the backward makes) within one
+    # bf16 rounding of the plain version's in every output, give or take
+    # 2^-16 of the largest (the f32 sums' own error where an output nearly
+    # cancels)
+    if dtype == torch.bfloat16:
+        exact = _ep_out_grads_f64(x, w, u1, v1, u2, v2, g)
+        y0 = ops.etherplus_gemm(x, w, u1, v1).float()
+        y0_plain = ref.ref_etherplus_gemm(x, w, u1, v1).float()
+        ulp = torch.ldexp(torch.ones_like(y0), torch.frexp(
+            torch.maximum(y0.abs(), y0_plain.abs()))[1] - 8)
+        assert bool(((y0 - y0_plain).abs() <= ulp + 2.0 ** -16
+                     * y0_plain.abs().max()).all())
     for name, a, b in zip(("dx", "dw", "du1", "dv1", "du2", "dv2"), got,
                           want):
         assert a.dtype == b.dtype, name
         if name in ("dx", "dw"):
             assert _max_err(a, b) < TOL[dtype], name
+        elif name in ("du2", "dv2") and dtype == torch.bfloat16:
+            e = exact[name == "dv2"]
+            dist, plain = ((a.double() - e).norm() / e.norm()).item(), (
+                (b.double() - e).norm() / e.norm()).item()
+            assert dist <= EP_Y0_SLACK * plain + DU_TOL, (name, dist, plain)
         else:
             assert ((a - b).norm() / b.norm()).item() < DU_TOL, name
     # one-sided: the rank-2 dx/dw kernels alone, and no atomics anywhere

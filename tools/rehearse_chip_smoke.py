@@ -14,7 +14,8 @@ as it would on the card.  No time printed here is a device time.
 
 PART picks phases instead of the whole script: ``gemmrows`` (phase 2's
 householder_gemm and ether_merge rows), ``rows`` (phase 2's DeLoRA and
-HyperAdapt rows), ``bankrows`` (phase 2's bank rows),
+HyperAdapt rows), ``eprows`` (phase 2's ETHER+ forward and merge
+rows), ``bankrows`` (phase 2's bank rows),
 ``serve`` (phase 3's serving), ``serve:<method>`` (phase 7's serving), ``train:<method>`` (phase 4's
 training), ``base`` (phase 11), ``bank:<method>`` (phase 12's bank
 serving of ether, etherplus, delora or hyperadapt), ``mergerows``
@@ -127,6 +128,12 @@ def fake_card():
     batched.householder_gemm_batched_dw = lambda x, u, ids, g: (
         0, ref.ref_householder_gemm_batched_dw(x, u, ids, g, x.dtype))
     batched.etherplus_reflect_batched_bwd = ep_bwd
+    batched.householder_gemm_batched = lambda x, w, u, ids, on=None: (
+        0, ref.ref_householder_gemm_batched(x, w, u, ids), on or "simt")
+    from repro_torch.kernels import etherplus_gemm
+    etherplus_gemm.launch = (
+        lambda x, w, u1, v1, u2=None, v2=None, on=None, epi=None: (
+            0, ref.ref_etherplus_gemm(x, w, u1, v1, u2, v2), on or "simt"))
     from repro_torch.kernels import ether_reflect, ether_reflect_bwd
     ether_reflect.launch = lambda x, u: (0, ref.ref_ether_reflect(x, u))
     ether_reflect.launch_batched = lambda x, u, ids: (
@@ -152,6 +159,7 @@ def small(cs, failed):
     cs.LAYER = {(96, 96): 2, (96, 32): 2, (96, 256): 2, (256, 96): 1}
     cs.ROWS, cs.BWD_ROWS, cs.BWD_RAGGED = (4, 20), (40,), 37
     cs.BANK_ROWS = ((4, 1), (8, 5), (4, 3))
+    cs.BANK_WIDE_DECODE = (cs.BANK_TENANTS, 1)
     cs.TRAIN_B, cs.TRAIN_S, cs.TRAIN_STEPS, cs.TRAIN_CKPT = 2, 20, 4, 2
     cs.BANK_BWD_ROWS = ((4, 1), (2, 20), (4, 7))
     cs.BANK_TRAIN_IDS = [5, cs.BANK_TENANTS - 1]
@@ -185,7 +193,8 @@ def small(cs, failed):
         "profiled_wall_ms": 1.0, "device_busy_ms": 0.0, "busiest_ms": [],
         "flash_ms": 0.0,
         "top_level_ops": {"aten": 0}, "top_level_cpu_us": {"aten": 0.0},
-        "top_level_cpu_ms": 0.0, "processing_s": 0.0, "dxr_ms": {}})[1]
+        "top_level_cpu_ms": 0.0, "processing_s": 0.0, "dxr_ms": {},
+        "fwd_ms": {}})[1]
 
 
 def main(parts):
@@ -203,6 +212,10 @@ def main(parts):
             print(len(cs.phase_kernels(torch, ops, ref)), "rows")
         elif name == "rows":
             print(len(cs.method_kernel_rows(torch, ops, ref)), "rows")
+        elif name == "eprows":
+            from repro_torch.kernels import etherplus_merge
+            print(len(cs.etherplus_kernel_rows(torch, ops, ref,
+                                               etherplus_merge)), "rows")
         elif name == "serve" and not method:
             cs.phase_serve(torch, execute, ops, serve, api)
         elif name == "serve":

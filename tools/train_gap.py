@@ -1,36 +1,42 @@
 #!/usr/bin/env python3
-"""How far ``chip_smoke.py`` phase 4's training on the kernels lands from
-its plain path, on each bf16 ``householder_gemm`` route and each
-``reflect_gemm_dx`` route, over seeds.
+"""How far ``chip_smoke.py``'s training on the kernels lands from its plain
+path, on each bf16 route of the forward and of the ``reflect_gemm_dx``
+backward, over seeds: phase 4 (ETHER), phase 6 (two-sided ETHER+) or
+phase 14 (ETHER through a bank).
 
-    python3 tools/train_gap.py [--seeds 0 1 2]
+    python3 tools/train_gap.py [--phase 4|6|14] [--seeds 0 1 2]
 
 Two parts, on one card:
 
-1. The forward, layer by layer: at phase 4's shapes (smollm-360m's four
+1. The forward, layer by layer: at the phase's shapes (smollm-360m's four
    adapted linears, T = TRAIN_B·TRAIN_S rows, n = TRAIN_BLOCKS, bf16,
-   seeded inputs), ``ops.householder_gemm`` on the ``wgmma`` route and
-   with the SIMT route forced, against ``ref_householder_gemm``: the
-   share of outputs not bitwise the plain version's, the relative
-   Frobenius norm of the difference, and each one's (the plain version's
-   too) relative Frobenius distance from the float64 product.
-2. Phase 4's training (ETHER n = TRAIN_BLOCKS, TRAIN_STEPS AdamW steps
-   through the port's ``Trainer`` with the phase's settings), with the
-   model, adapters and data drawn from each seed: on the plain path, on
-   the kernels (``auto``: bf16 forwards and dXr backwards on ``wgmma``),
-   on the kernels with the forward's SIMT route forced, and on the
-   kernels with the backward's SIMT route forced; each kernel run's
-   largest per-step relative loss and gradient-norm difference and the
-   relative Frobenius norm of its adapter update's difference, against
-   the plain run and against the ``auto`` run.
+   seeded inputs; phase 14 a BANK_TENANTS-tenant bank read at
+   BANK_TRAIN_IDS), the phase's forward kernel (``householder_gemm``,
+   ``etherplus_gemm`` two-sided, ``householder_gemm_batched``) on the
+   ``wgmma`` route and with the SIMT route forced, against its plain
+   version: the share of outputs not bitwise the plain version's, the
+   relative Frobenius norm of the difference, and each one's (the plain
+   version's too) relative Frobenius distance from the float64 product.
+2. The phase's training (TRAIN_STEPS AdamW steps: through the port's
+   ``Trainer`` for phases 4 and 6, through ``steps.make_bank_train_step``
+   for phase 14), with the model, adapters (or bank) and data drawn from
+   each seed (seed 0 is the phase's own run): on the plain path, on the
+   kernels (``auto``: bf16 forwards and dXr backwards on ``wgmma``), on the
+   kernels with the forward's SIMT route forced, and on the kernels with
+   the backward's SIMT route forced; each kernel run's largest per-step
+   relative loss and gradient-norm difference and the relative Frobenius
+   norm of its adapters' (or bank's) update's difference, against the
+   plain run and against the ``auto`` run.
 
-A SIMT route is forced by replacing ``householder_gemm.route`` (the
-forward) or ``reflect_gemm_dx.route`` (the backward) for the run.
-Prints a line a measurement, the card's name and power limit, and last a
-JSON line.
+A SIMT route is forced by replacing the route rule for the run:
+``householder_gemm.route``, ``etherplus_gemm.route`` or
+``batched.gemm_route`` (the forward), ``reflect_gemm_dx.route`` (the
+backward, which the bank's backward consults too).  Prints a line a
+measurement, the card's name and power limit, and last a JSON line.
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -48,62 +54,110 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core.transforms import resolve_blocks  # noqa: E402
+from repro_torch.kernels import batched as kb  # noqa: E402
+from repro_torch.kernels import etherplus_gemm as ep  # noqa: E402
 from repro_torch.kernels import householder_gemm as hh  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 
+# phase: (method, the forward's module and the name of its route rule)
+PHASES = {4: ("ether", hh, "route"), 6: ("etherplus", ep, "route"),
+          14: ("ether", kb, "gemm_route")}
+FORWARD = {4: "householder_gemm", 6: "etherplus_gemm",
+           14: "householder_gemm_batched"}
+
 
 @contextmanager
-def simt_forced(module=hh):
-    """Every call of ``module``'s kernel (``householder_gemm`` by
-    default, ``reflect_gemm_dx`` for the backward) on the SIMT route."""
-    route = module.route
-    module.route = lambda *a: "simt"
+def simt_forced(module, name="route"):
+    """Every call that consults ``module.name`` on the SIMT route."""
+    rule = getattr(module, name)
+    setattr(module, name, lambda *a, **k: "simt")
     try:
         yield
     finally:
-        module.route = route
+        setattr(module, name, rule)
 
 
 def frob(a, b) -> float:
     return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
-def forward_rows(gen) -> list:
+def unit(u):
+    return u.double() / (u.double().norm(dim=-1, keepdim=True) + 1e-8)
+
+
+def blockwise(y, u, v=None):
+    """y's blocks updated in float64: I − 2ûûᵀ, or I − ûûᵀ + v̂v̂ᵀ with v
+    (u, v: (..., n, db), broadcast over y's leading dims)."""
+    n, db = u.shape[-2:]
+    yb = y.double().reshape(*y.shape[:-1], n, db)
+    uh = unit(u)
+    pu = (yb * uh).sum(-1, keepdim=True)
+    if v is None:
+        return (yb - 2 * pu * uh).reshape(y.shape)
+    vh = unit(v)
+    return (yb - pu * uh + (yb * vh).sum(-1, keepdim=True) * vh
+            ).reshape(y.shape)
+
+
+def forward_rows(gen, phase) -> list:
     t, n = cs.TRAIN_B * cs.TRAIN_S, cs.TRAIN_BLOCKS
+    module, name = PHASES[phase][1:]
     rows = []
     for d, f in cs.LINEARS[cs.ARCH]:
         x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
         w = (torch.randn(d, f, generator=gen, device="cuda") / d ** .5
              ).bfloat16()
-        u = torch.randn(n, d // n, generator=gen, device="cuda")
-        uh = u.double() / (u.double().norm(dim=1, keepdim=True) + 1e-8)
-        xb = x.double().view(t, n, d // n)
-        exact = ((xb - 2 * (xb * uh).sum(-1, keepdim=True) * uh).view(t, d)
-                 @ w.double())
-        plain = ref.ref_householder_gemm(x, w, u)
+        if phase == 4:
+            u = torch.randn(n, d // n, generator=gen, device="cuda")
+            exact = blockwise(x, u) @ w.double()
+            args, plain_fn, op = (x, w, u), ref.ref_householder_gemm, \
+                ops.householder_gemm
+        elif phase == 6:
+            n_out = resolve_blocks(n, f)
+            u1, v1 = (torch.randn(n, d // n, generator=gen, device="cuda")
+                      for _ in range(2))
+            u2, v2 = (torch.randn(n_out, f // n_out, generator=gen,
+                                  device="cuda") for _ in range(2))
+            exact = blockwise(blockwise(x, u1, v1) @ w.double(), u2, v2)
+            args, plain_fn, op = (x, w, u1, v1, u2, v2), \
+                ref.ref_etherplus_gemm, ops.etherplus_gemm
+        else:
+            bank = torch.randn(cs.BANK_TENANTS, n, d // n, generator=gen,
+                               device="cuda")
+            ids = torch.tensor(cs.BANK_TRAIN_IDS, dtype=torch.int32,
+                               device="cuda")
+            xs = x.view(cs.TRAIN_B, cs.TRAIN_S, d)
+            exact = blockwise(xs, bank[ids.long()][:, None]) @ w.double()
+            args, plain_fn, op = (xs, w, bank, ids), \
+                ref.ref_householder_gemm_batched, ops.householder_gemm_batched
+        plain = plain_fn(*args)
         ops.reset_launches()
-        got = {"wgmma": ops.householder_gemm(x, w, u)}
-        with simt_forced():
-            got["simt"] = ops.householder_gemm(x, w, u)
-        row = {"d": d, "f": f, "t": t, "n": n, "routes": ops.routes(),
+        got = {"wgmma": op(*args)}
+        with simt_forced(module, name):
+            got["simt"] = op(*args)
+        row = {"d": d, "f": f, "t": t, "n": n,
+               "routes": ops.routes(FORWARD[phase]),
                "plain_vs_exact": frob(plain, exact)}
-        for name, y in got.items():
-            row[name] = {"differs": (y != plain).float().mean().item(),
-                         "vs_plain": frob(y, plain),
-                         "vs_exact": frob(y, exact)}
-        print(f"{d}x{f} T={t} n={n}: plain vs f64 {row['plain_vs_exact']:.4e}"
+        for key, y in got.items():
+            row[key] = {"differs": (y != plain).float().mean().item(),
+                        "vs_plain": frob(y, plain),
+                        "vs_exact": frob(y, exact)}
+        print(f"{FORWARD[phase]} {d}x{f} T={t} n={n}: plain vs f64 "
+              f"{row['plain_vs_exact']:.4e}"
               + "".join(f"; {k}: {row[k]['differs'] * 100:.3f}% of outputs "
                         f"not the plain's, vs plain {row[k]['vs_plain']:.4e},"
-                        f" vs f64 {row[k]['vs_exact']:.4e}" for k in got),
-              flush=True)
+                        f" vs f64 {row[k]['vs_exact']:.4e}" for k in got)
+              + f"; routes {row['routes']}", flush=True)
         rows.append(row)
     return rows
 
 
-def train(seed: int, backend: str, tmp: str) -> dict:
-    """Phase 4's training from ``seed`` on ``backend``: its log and the
-    adapters before and after."""
+def train(seed: int, backend: str, tmp: str, method: str) -> dict:
+    """Phase 4's (``method`` "ether") or phase 6's ("etherplus") training
+    from ``seed`` on ``backend``: its log and the adapters before and
+    after."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs import get_config, peft_targets
     from repro_torch.core.transforms import PEFTConfig
@@ -112,7 +166,7 @@ def train(seed: int, backend: str, tmp: str) -> dict:
     from repro_torch.runtime.trainer import Trainer
 
     cfg = get_config(cs.ARCH, "full")
-    peft = PEFTConfig(method="ether", n_blocks=cs.TRAIN_BLOCKS,
+    peft = PEFTConfig(method=method, n_blocks=cs.TRAIN_BLOCKS,
                       rank=cs.METHOD_RANK, alpha=float(cs.METHOD_RANK),
                       targets=peft_targets(cs.ARCH), backend=backend)
     log = os.path.join(tmp, f"{seed}_{len(os.listdir(tmp))}.jsonl")
@@ -135,8 +189,62 @@ def train(seed: int, backend: str, tmp: str) -> dict:
     return {"log": metrics, "init": init, "final": final}
 
 
+def bank_setup(seed: int) -> dict:
+    """Phase 14's model, ETHER bank, ids, batches and optimizer from
+    ``seed`` (seed 0: the phase's own)."""
+    from repro_torch.configs import get_config, peft_targets
+    from repro_torch.core.peft import AdapterBank, init_adapters
+    from repro_torch.core.transforms import PEFTConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.models import api
+    from repro_torch.optim import adamw, cosine
+
+    cfg = get_config(cs.ARCH, "full")
+    peft = PEFTConfig(method="ether", n_blocks=cs.TRAIN_BLOCKS,
+                      rank=cs.METHOD_RANK, alpha=float(cs.METHOD_RANK),
+                      targets=peft_targets(cs.ARCH))
+    params = api.init_model(cfg, seed=seed, device="cuda")
+    trees = [cs.off_init(torch, init_adapters(
+        torch.Generator(device="cuda").manual_seed(100 + t + 10000 * seed),
+        params, peft), cs.BANK_MOVES["ether"], 1000 + t + 10000 * seed)
+        for t in range(cs.BANK_TENANTS)]
+    stream = SyntheticLMStream(vocab=cfg.vocab, batch=cs.TRAIN_B,
+                               seq_len=cs.TRAIN_S, seed=seed)
+    return {"cfg": cfg, "peft": peft, "params": params,
+            "bank": AdapterBank.stack(trees, params, peft),
+            "ids": torch.tensor(cs.BANK_TRAIN_IDS, dtype=torch.int32,
+                                device="cuda"),
+            "batches": [{k: torch.from_numpy(v).long().cuda()
+                         for k, v in stream.batch_at(i).items()}
+                        for i in range(cs.TRAIN_STEPS)],
+            "opt": adamw(cosine(cs.TRAIN_LR, cs.TRAIN_STEPS,
+                                cs.TRAIN_WARMUP))}
+
+
+def bank_train(setup: dict, backend: str) -> dict:
+    """Phase 14's training on ``backend``: its losses and gradient norms
+    (a log, as the Trainer's), and the bank before and after."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.launch import steps as st
+    s = setup
+    step = st.make_bank_train_step(
+        s["cfg"], dataclasses.replace(s["peft"], backend=backend), s["opt"],
+        s["bank"])
+    state = st.make_bank_state(s["params"], s["bank"], s["opt"])
+    init = {p: v.detach().clone()
+            for p, v in flatten_with_paths(state["bank"])}
+    log = []
+    for batch in s["batches"]:
+        state, m = step(state, batch, s["ids"])
+        log.append({"loss": m["loss"].item(),
+                    "grad_norm": m["grad_norm"].item()})
+    final = {p: v.detach().clone()
+             for p, v in flatten_with_paths(state["bank"])}
+    return {"log": log, "init": init, "final": final}
+
+
 def gap(a: dict, b: dict) -> dict:
-    """``a`` against ``b``: as phase 4's agreement."""
+    """``a`` against ``b``: as the phase's agreement."""
     def rel(key):
         return max(abs(x[key] - y[key]) / abs(y[key])
                    for x, y in zip(a["log"], b["log"]))
@@ -150,31 +258,45 @@ def gap(a: dict, b: dict) -> dict:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", type=int, choices=sorted(PHASES), default=4)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args(argv)
+    method, module, name = PHASES[args.phase]
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired):
         smi = "unknown"
-    print(f"card: {smi}", flush=True)
+    print(f"card: {smi}; phase {args.phase}", flush=True)
     torch.use_deterministic_algorithms(True)
-    out = {"card": smi,
+    out = {"card": smi, "phase": args.phase,
            "forward": forward_rows(
-               torch.Generator(device="cuda").manual_seed(4)),
+               torch.Generator(device="cuda").manual_seed(4), args.phase),
            "train": []}
     tmp = tempfile.mkdtemp(prefix="train_gap_")
     try:
         for seed in args.seeds:
-            runs = {"plain": train(seed, "torch", tmp),
-                    "wgmma": train(seed, "auto", tmp)}
-            with simt_forced(hh):
-                runs["simt"] = train(seed, "auto", tmp)
+            if args.phase == 14:
+                setup = bank_setup(seed)
+
+                def run(backend):
+                    return bank_train(setup, backend)
+            else:
+                def run(backend):
+                    return train(seed, backend, tmp, method)
+            runs = {"plain": run("torch")}
+            ops.reset_launches()
+            runs["wgmma"] = run("auto")
+            fwd_routes = ops.routes(FORWARD[args.phase])
+            with simt_forced(module, name):
+                runs["simt"] = run("auto")
             ops.reset_launches()
             with simt_forced(kdx):
-                runs["simt_bwd"] = train(seed, "auto", tmp)
-            simt_bwd_routes = ops.routes("reflect_gemm_dx")
+                runs["simt_bwd"] = run("auto")
+            simt_bwd_routes = ops.routes(
+                "householder_gemm_batched_bwd" if args.phase == 14
+                else "reflect_gemm_dx")
             row = {"seed": seed,
                    "wgmma_vs_plain": gap(runs["wgmma"], runs["plain"]),
                    "simt_vs_plain": gap(runs["simt"], runs["plain"]),
@@ -182,6 +304,7 @@ def main(argv) -> int:
                    "wgmma_vs_simt": gap(runs["wgmma"], runs["simt"]),
                    "wgmma_vs_simt_bwd": gap(runs["wgmma"],
                                             runs["simt_bwd"]),
+                   "wgmma_forward_routes": fwd_routes,
                    "simt_bwd_routes": simt_bwd_routes,
                    "losses": {k: [m["loss"] for m in r["log"]]
                               for k, r in runs.items()}}
@@ -191,8 +314,8 @@ def main(argv) -> int:
                 for k in ("wgmma_vs_plain", "simt_vs_plain",
                           "simt_bwd_vs_plain", "wgmma_vs_simt",
                           "wgmma_vs_simt_bwd"))
-                + f"; forced backward's routes {simt_bwd_routes}",
-                flush=True)
+                + f"; auto forward's routes {fwd_routes}; forced "
+                f"backward's routes {simt_bwd_routes}", flush=True)
             out["train"].append(row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
