@@ -231,6 +231,7 @@ object, the line before it the kernels' JSON line.  Full tables go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -491,6 +492,18 @@ def routed(ops, op: str = "householder_gemm") -> str:
                     if v) or "none"
 
 
+@contextlib.contextmanager
+def forced_route(module, name, on):
+    """Every call that consults the route rule ``module.name`` takes route
+    ``on`` while the block runs."""
+    rule = getattr(module, name)
+    setattr(module, name, lambda *a, **k: on)
+    try:
+        yield
+    finally:
+        setattr(module, name, rule)
+
+
 def served_routes(ops, per_forward, forwards, prefill_rows, decode_rows):
     """householder_gemm's launches by route in a served bf16 run
     (``serve.generate``: two prefills of ``prefill_rows`` rows, then
@@ -682,22 +695,25 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
-def host_cost(torch, ops, execute):
-    """Phase 2, host: µs a decode step's ``householder_gemm`` call costs
-    the host through ``ops.householder_gemm`` and ``execute.dispatch``.
-    The calls cycle through one step's traffic: ARCH's 7 adapted linears
-    a layer (q, k, v, o, gate, up, down) over all its layers, each weight
-    with its own u, and each layer's four inputs (q/k/v's, o's, gate/up's,
-    down's) at addresses of their own, so every call's operands sit where
-    a decode step's do; whole steps of calls, at least HOST_CALLS, after
-    two steps' warm-up.  Each step's calls are timed from a synchronize to
-    the return of its last call, so the host's time is read, not the
-    device's: a step's launches fit in the launch queue, where a long loop
-    would wait on a slower kernel.  Where the tree's binding counts the
-    wgmma routes' tensor-map encodes (``householder_gemm.map_counts``),
-    those of the timed calls are recorded too: 0 when the map cache holds
-    a step's maps."""
+def host_cost(torch, ops, execute, op="householder_gemm"):
+    """Phase 2, host: µs a decode step's ``op`` call costs the host through
+    ``ops.<op>`` and ``execute.dispatch``: ``householder_gemm`` (n =
+    N_BLOCKS) or ``hyperadapt_gemm_batched`` (a BANK_TENANTS-tenant bank, ids BANK_IDS,
+    S = 1).  The calls cycle through one step's traffic: ARCH's 7 adapted
+    linears a layer (q, k, v, o, gate, up, down) over all its layers, each
+    weight with its own adapter, and each layer's four inputs (q/k/v's,
+    o's, gate/up's, down's) at addresses of their own, so every call's
+    operands sit where a decode step's do; whole steps of calls, at least
+    HOST_CALLS, after two steps' warm-up.  Each step's calls are timed
+    from a synchronize to the return of its last call, so the host's time
+    is read, not the device's: a step's launches fit in the launch queue,
+    where a long loop would wait on a slower kernel.  Where the tree's
+    binding counts the wgmma routes' tensor-map encodes
+    (``householder_gemm.map_counts``, ``batched.hyperadapt_map_counts``),
+    those of the timed calls are
+    recorded too: 0 when the map cache holds a step's maps."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import batched as kb
     from repro_torch.kernels import householder_gemm as hh
     cfg = get_config(ARCH, "full")
     d, hd = cfg.d_model, cfg.head_dim or cfg.d_model // cfg.n_heads
@@ -705,27 +721,43 @@ def host_cost(torch, ops, execute):
     # (input, d, f) of each adapted linear of a layer, in a step's order
     layer = ((0, d, q), (0, d, kv), (0, d, kv), (1, q, d), (2, d, ff),
              (2, d, ff), (3, ff, d))
-    print(f"== phase 2: host cost of a decode step's householder_gemm "
-          f"calls ({ARCH}: {len(layer)} x {cfg.n_layers} linears, T={B}, "
-          f"n={N_BLOCKS}, bf16)", flush=True)
+    shape = {"householder_gemm": f"T={B}, n={N_BLOCKS}",
+             "hyperadapt_gemm_batched": f"B={B} S=1, A={BANK_TENANTS}"}[op]
+    print(f"== phase 2: host cost of a decode step's {op} calls ({ARCH}: "
+          f"{len(layer)} x {cfg.n_layers} linears, {shape}, bf16)",
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
+    ids = torch.tensor(BANK_IDS * (B // len(BANK_IDS)), dtype=torch.int32,
+                       device="cuda")
+
+    def adapter(k, f):
+        """One linear's adapter operands after its weight."""
+        if op == "householder_gemm":
+            return (randn(N_BLOCKS, k // N_BLOCKS),)
+        return (1 + 0.3 * randn(BANK_TENANTS, k),
+                1 + 0.3 * randn(BANK_TENANTS, f), ids)
+
     calls = []
     for _ in range(cfg.n_layers):
         xs = [randn(B, w).bfloat16() for w in (d, q, d, ff)]
-        calls += [(xs[i], (randn(k, f) / k ** .5).bfloat16(),
-                   randn(N_BLOCKS, k // N_BLOCKS)) for i, k, f in layer]
-    counts = getattr(hh, "map_counts", None)
+        if op == "hyperadapt_gemm_batched":
+            xs = [x.view(B, 1, -1) for x in xs]
+        calls += [(xs[i], (randn(k, f) / k ** .5).bfloat16(), *adapter(k, f))
+                  for i, k, f in layer]
+    counts = {"householder_gemm": getattr(hh, "map_counts", None),
+              "hyperadapt_gemm_batched": getattr(kb, "hyperadapt_map_counts",
+                                                 None)}[op]
     steps = -(-HOST_CALLS // len(calls))
-    out = {"arch": ARCH, "linears": len(calls), "t": B, "n": N_BLOCKS,
+    out = {"arch": ARCH, "op": op, "linears": len(calls), "t": B,
+           "n": N_BLOCKS if op == "householder_gemm" else None,
            "calls": steps * len(calls)}
     for name, fn in (
-            ("ops", ops.householder_gemm),
-            ("dispatch", lambda x, w, u: execute.dispatch(
-                "householder_gemm", "cuda", x, w, u))):
+            ("ops", getattr(ops, op)),
+            ("dispatch", lambda *a: execute.dispatch(op, "cuda", *a))):
         for _ in range(2):
             for call in calls:
                 fn(*call)
@@ -741,7 +773,7 @@ def host_cost(torch, ops, execute):
         out[f"{name}_us"] = host_s / out["calls"] * 1e6
         out[f"{name}_map_encodes"] = (counts()["encodes"] - before["encodes"]
                                       if counts else None)
-    print(f"host cost: ops.householder_gemm {out['ops_us']:.2f} us a call, "
+    print(f"host cost: ops.{op} {out['ops_us']:.2f} us a call, "
           f"execute.dispatch {out['dispatch_us']:.2f} us a call "
           f"({out['calls']} calls each over {len(calls)} linears; tensor "
           f"maps encoded in them: {out['ops_map_encodes']}, "
@@ -1386,6 +1418,39 @@ def bank_kernel_rows(torch, ops, ref):
                 (m * d + d * f + m * f) * es + 4 * b + 4 * d * tenants,
                 2 * m * d * f + 4 * m * d, dtype))))
 
+    def ha_row(dtype, es, x, w, ws, rb, cb, ids, common):
+        """hyperadapt_gemm_batched's row: the wrapper's output and, in bf16,
+        each route forced held to the plain version, and timed."""
+        b, s, d = x.shape
+        m, f = b * s, w.shape[1]
+        tenants = len(set(ids.tolist()))   # rows of the bank read
+        ops.reset_launches()
+        got = ops.hyperadapt_gemm_batched(x, w, rb, cb, ids)
+        check(ops.launches()["hyperadapt_gemm_batched"] == 1,
+              f"hyperadapt_gemm_batched launched {ops.launches()}")
+        route = routed(ops, "hyperadapt_gemm_batched")
+        want = ref.ref_hyperadapt_gemm_batched(x, w, rb, cb, ids)
+        route_ms = {}
+        for on in kb.HA_ROUTES if dtype == "bfloat16" else ():
+            compare(launched(kb.hyperadapt_gemm_batched(
+                x, w, rb, cb, ids, on=on))[0], want, dtype,
+                f"hyperadapt_gemm_batched on {on}")
+            route_ms[on] = timed_ms(torch, [
+                lambda w=w, on=on: kb.hyperadapt_gemm_batched(
+                    x, w, rb, cb, ids, on=on) for w in ws])
+        add("hyperadapt_gemm_batched", dtype, got, want, n=None, r=None,
+            route=route, route_ms=route_ms, **common,
+            ms=timed_ms(torch, [
+                lambda w=w: ops.hyperadapt_gemm_batched(x, w, rb, cb, ids)
+                for w in ws]),
+            plain_ms=timed_ms(torch, [
+                lambda w=w: ref.ref_hyperadapt_gemm_batched(
+                    x, w, rb, cb, ids) for w in ws]),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                (m * d + d * f + m * f) * es + 4 * b
+                + 4 * (d + f) * tenants,
+                2 * m * d * f + m * (d + f), dtype))))
+
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         es = torch.tensor([], dtype=dt).element_size()
@@ -1452,19 +1517,7 @@ def bank_kernel_rows(torch, ops, ref):
                             io + (4 * r * (d + f) + r * es) * tenants,
                             2 * m * d * f + 2 * m * r * (d + f) + m * r,
                             dtype))))
-                add("hyperadapt_gemm_batched", dtype,
-                    ops.hyperadapt_gemm_batched(x, w, rb, cb, ids),
-                    ref.ref_hyperadapt_gemm_batched(x, w, rb, cb, ids),
-                    n=None, r=None, **common,
-                    ms=timed_ms(torch, [
-                        lambda w=w: ops.hyperadapt_gemm_batched(
-                            x, w, rb, cb, ids) for w in ws]),
-                    plain_ms=timed_ms(torch, [
-                        lambda w=w: ref.ref_hyperadapt_gemm_batched(
-                            x, w, rb, cb, ids) for w in ws]),
-                    **dict(zip(("bound_ms", "bound_by"), bound(
-                        io + 4 * (d + f) * tenants,
-                        2 * m * d * f + m * (d + f), dtype))))
+                ha_row(dtype, es, x, w, ws, rb, cb, ids, common)
             if dtype == "bfloat16":
                 # the wide decode row, from a generator of its own (the
                 # other rows' inputs stay as they were)
@@ -1475,10 +1528,10 @@ def bank_kernel_rows(torch, ops, ref):
                 got = ops.householder_gemm_batched(x, w, u, ids)
                 check(ops.launches()["householder_gemm_batched"] == 1,
                       f"householder_gemm_batched launched {ops.launches()}")
-                gemm_row(dtype, es, x, w, ws, u, ids, got, dict(
-                    b=b, s=s, t=b * s, d=d, f=f, matmul_ms=timed_ms(
-                        torch, [lambda w=w: torch.matmul(x, w)
-                                for w in ws])))
+                common = dict(b=b, s=s, t=b * s, d=d, f=f, matmul_ms=timed_ms(
+                    torch, [lambda w=w: torch.matmul(x, w) for w in ws]))
+                gemm_row(dtype, es, x, w, ws, u, ids, got, common)
+                ha_row(dtype, es, x, w, ws, rb, cb, ids, common)
             del ws, w
     torch.cuda.synchronize()
     return rows
@@ -1519,8 +1572,10 @@ def bank_bwd_rows(torch, ops, ref, kb):
               "n={n!s:4s} err {rel_err:.2e} (tol {tol:g})  du {du_rel_frob:.2e}"
               "  {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul {matmul_ms:.4f} "
               "ms  bound {bound_ms:.4f} ms ({bound_by})".format(**row)
-              + (f"  {row['route']} ({row['epilogue']})" if "route" in row
-                 else ""), flush=True)
+              + (f"  {row['route']} ({row['epilogue']})" if "epilogue" in row
+                 else f"  route {row['route']}" + "".join(
+                     f"  {k} {v:.4f} ms" for k, v in row["route_ms"].items())
+                 if "route" in row else ""), flush=True)
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -1684,19 +1739,35 @@ def bank_bwd_rows(torch, ops, ref, kb):
                     want_l = {**dict.fromkeys(ops.launches(), 0), **n_launch}
                     check(ops.launches() == want_l,
                           f"{kernel} launched {ops.launches()}")
-                    e = [err(p, q) for p, q in zip(got, plain())
+                    want = plain()
+                    e = [err(p, q) for p, q in zip(got, want)
                          if q is not None]
                     rel = max(x for _, x in e)
                     check(rel <= METHOD_TOL[dtype], f"{kernel} disagrees "
                           f"with its plain version at {dtype} B={b} S={s} "
                           f"d={d} f={f}: {rel:.3e} > {METHOD_TOL[dtype]:g}")
+                    extra = {}
+                    if kernel == "hyperadapt_gemm_batched_bwd":
+                        # z's and y0's route, and each route forced
+                        extra = {"route": routed(
+                            ops, "hyperadapt_gemm_batched"), "route_ms": {}}
+                        for on in (kb.HA_ROUTES if dtype == "bfloat16"
+                                   else ()):
+                            with forced_route(kb, "hyperadapt_route", on):
+                                forced = max(err(p, q)[1] for p, q in zip(
+                                    run(), want) if q is not None)
+                                check(forced <= METHOD_TOL[dtype],
+                                      f"{kernel} on {on} disagrees with its "
+                                      f"plain version: {forced:.3e}")
+                                extra["route_ms"][on] = timed_ms(torch,
+                                                                 [run])
                     add(dict(common, kernel=kernel, n=None, r=METHOD_RANK,
                              max_abs_err=max(x for x, _ in e), rel_err=rel,
                              tol=METHOD_TOL[dtype], du_rel_frob=0.0,
                              ms=timed_ms(torch, [run]),
                              plain_ms=timed_ms(torch, [plain]),
                              matmul_ms=mm, bound_ms=bnd[0],
-                             bound_by=bnd[1]))
+                             bound_by=bnd[1], **extra))
                 del x, g, gx, y0
             del w
     torch.cuda.synchronize()
@@ -2221,6 +2292,7 @@ def counted(torch, execute, ops, run):
     r["flash_routes"] = ops.routes("flash_attention")
     r["ep_routes"] = ops.routes("etherplus_gemm")
     r["bank_routes"] = ops.routes("householder_gemm_batched")
+    r["ha_routes"] = ops.routes("hyperadapt_gemm_batched")
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
 
@@ -2233,19 +2305,25 @@ FLASH_KERNELS = ("::wg::wgmma_kernel<", "::dec::decode_kernel<",
                  "::dec::combine_kernel<", "::flash_kernel<")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 # the device work of the bf16 forwards of ETHER+ (etherplus_gemm) and of
-# the ETHER bank (householder_gemm_batched) on their wgmma routes in a
-# trace, by kernel name: each name holds every string of one of its op's
-# tuples.  Their prologues (proj_kernel: ETHER+'s rank 2, the bank's under
-# BANK; the weight gradients that share them launch 0 times, as PEFT
-# freezes W), the wgmma core (hh_wgmma.cuh: rank 2, or rank 1 under BANK)
-# and ETHER+'s scratch epilogue (rank2_rows_kernel on an f32 y0)
+# the ETHER bank (householder_gemm_batched), and of the HyperAdapt bank
+# (hyperadapt_gemm_batched) with its backward's GEMMs, on their wgmma
+# routes in a trace, by kernel name: each name holds every string of one
+# of its op's tuples.  Their prologues (proj_kernel: ETHER+'s rank 2, the
+# bank's under BANK; the weight gradients that share them launch 0 times,
+# as PEFT freezes W; scaled_wgmma.cuh's scale_rows_kernel), the wgmma
+# cores (hh_wgmma.cuh: rank 2, or rank 1 under BANK; scaled_wgmma.cuh's
+# gemm_kernel<TN, W layout, epilogue>: kColScale 1, kPlain 0) and ETHER+'s
+# scratch epilogue (rank2_rows_kernel on an f32 y0)
 FWD_KERNELS = {
     "etherplus_gemm": (("proj_kernel<__nv_bfloat16, true",),
                        ("hhw::", "wgmma_kernel<128, 2,"),
                        ("rank2_rows_kernel<float, __nv_bfloat16",)),
     "householder_gemm_batched": (
         ("proj_kernel<__nv_bfloat16, false, true>",),
-        ("hhw::", "wgmma_kernel<128, 1, true,"))}
+        ("hhw::", "wgmma_kernel<128, 1, true,")),
+    "hyperadapt_gemm_batched": (("sw::", "scale_rows_kernel"),
+                                ("sw::", "gemm_kernel<", ", 1>"),
+                                ("sw::", "gemm_kernel<", ", 0>"))}
 
 
 def trace_tables(events, steps):
@@ -2371,36 +2449,47 @@ def trace_decode(torch, api, steps, params, adapters, tokens, cfg, peft,
     return trace_steps(torch, decode, steps)
 
 
-def decode_map_encodes(torch, serve, api, steps, **kw):
-    """The tensor maps householder_gemm's wgmma routes encode on the host
-    (their map cache's misses) in the prefill and then in each of
-    ``steps`` greedy decode steps of the model ``serve.build(**kw)``
-    makes, [prefill, step 1, ..., step ``steps``]."""
-    from repro_torch.kernels import householder_gemm as hh
-    m = serve.build(**kw)
-    params, adapters, cfg, peft = (m[k] for k in
-                                   ("params", "adapters", "cfg", "peft"))
-    seen = hh.map_counts()["encodes"]
+def decode_map_encodes(torch, api, steps, params, adapters, tokens, cfg,
+                       peft, counts, tenant_ids=None):
+    """The tensor maps a wgmma route encodes on the host (its map cache's
+    misses, read by ``counts``: ``householder_gemm.map_counts`` or another
+    library's) in the prefill and then in each of ``steps`` greedy decode
+    steps of one model and batch (``adapters`` may be a bank, with
+    ``tenant_ids``), [prefill, step 1, ..., step ``steps``]."""
+    seen = counts()["encodes"]
     per = []
 
     def encoded():
         nonlocal seen
-        now = hh.map_counts()["encodes"]
+        now = counts()["encodes"]
         per.append(now - seen)
         seen = now
 
-    cache, logits = api.prefill(params, adapters, {"tokens": m["tokens"]},
-                                cfg, peft)
-    cache = api.pad_cache(cache, cfg, m["tokens"].shape[1] + steps + 1)
+    cache, logits = api.prefill(params, adapters, {"tokens": tokens}, cfg,
+                                peft, tenant_ids=tenant_ids)
+    cache = api.pad_cache(cache, cfg, tokens.shape[1] + steps + 1)
     encoded()
     for _ in range(steps):
         logits, cache = api.decode_step(
             params, adapters, cache, logits[:, -1].argmax(dim=-1,
                                                           keepdim=True),
-            cfg, peft)
+            cfg, peft, tenant_ids=tenant_ids)
         encoded()
     torch.cuda.synchronize()
     return per
+
+
+def check_map_encodes(encodes, lookups_a_step, what):
+    """A decode path's maps encoded (:func:`decode_map_encodes`), printed;
+    the later half of the steps must encode none: once the first steps
+    have encoded a step's maps, the cache holds them."""
+    print(f"[{what}] tensor maps encoded on the host: prefill {encodes[0]}, "
+          f"decode steps 1-{len(encodes) - 1} {encodes[1:]} (two lookups a "
+          f"linear, {lookups_a_step} a step)", flush=True)
+    half = (len(encodes) - 1) // 2 + 1
+    check(not any(encodes[half:]), f"{what}: decode steps {half}-"
+          f"{len(encodes) - 1} still encode tensor maps: the map cache does "
+          f"not hold a step's maps")
 
 
 def with_attention(want, cfg, forwards):
@@ -2529,13 +2618,13 @@ def phase_serve(torch, execute, ops, serve, api):
     # counted runs: a step's weights and (from the caching allocator) its
     # activations come back at the same addresses, so once the first step
     # has encoded its maps the cache should hold them
-    encodes = decode_map_encodes(torch, serve, api, GEN, **kw)
-    print(f"tensor maps encoded on the host: prefill {encodes[0]}, decode "
-          f"steps 1-{GEN} {encodes[1:]} (two lookups a linear, "
-          f"{2 * per_forward} a step)", flush=True)
-    check(not any(encodes[GEN // 2 + 1:]), f"decode steps "
-          f"{GEN // 2 + 1}-{GEN} still encode tensor maps: the map cache "
-          f"does not hold a step's maps")
+    from repro_torch.kernels import householder_gemm as hh
+    m = serve.build(**kw)
+    encodes = decode_map_encodes(torch, api, GEN, m["params"],
+                                 m["adapters"], m["tokens"], m["cfg"],
+                                 m["peft"], hh.map_counts)
+    del m
+    check_map_encodes(encodes, 2 * per_forward, "householder_gemm")
 
     w_bytes = 2 * cfg.n_layers * sum(m * d * f for (d, f), m in LAYER.items())
     print(f"decode-step bound from reading the adapted weights: "
@@ -3111,6 +3200,19 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                                     True),
             per_forward, bk["forwards"], P, 1), "householder_gemm_batched",
             "bank")
+    if method == "hyperadapt":
+        from repro_torch.kernels import batched as kb
+        check_fwd_routes(bk["ha_routes"], served_fwd_routes(
+            ops, "hyperadapt_gemm_batched",
+            lambda s: kb.hyperadapt_route(torch.bfloat16, 960, 960, True),
+            per_forward, bk["forwards"], P, 1), "hyperadapt_gemm_batched",
+            "bank")
+        # its tensor-map cache on the bank's decode path, outside the
+        # counted runs: xr, a scratch allocated a call, is a TMA source
+        check_map_encodes(decode_map_encodes(
+            torch, api, GEN, params, bank, tokens, cfg, peft,
+            kb.hyperadapt_map_counts, tenant_ids=ids), 2 * per_forward,
+            "hyperadapt_gemm_batched")
 
     # outside the counted runs: the plain path on the card, each distinct
     # tenant served alone on the single-tenant kernels, and every row
@@ -3181,7 +3283,7 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                    (("bank", bk), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches",
-                             "bank_routes")},
+                             "bank_routes", "ha_routes")},
                 trace=trace)
 
 
@@ -3780,6 +3882,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
         counters, launches = execute.counters(), ops.launches()
         dx_routes = ops.routes("householder_gemm_batched_bwd")
         bank_routes = ops.routes("householder_gemm_batched")
+        ha_routes = ops.routes("hyperadapt_gemm_batched")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
         final_step = state["step"].clone()
@@ -3798,6 +3901,11 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
             # S = TRAIN_S rows a sequence, bf16: the forward and its remat
             # recompute all on the wgmma route
             check_dx_routes(bank_routes, launches, "householder_gemm_batched",
+                            "kernels")
+        if launches["hyperadapt_gemm_batched"]:
+            # bf16: the forward, its remat recompute and the backward's z
+            # and y0 all on the wgmma route
+            check_dx_routes(ha_routes, launches, "hyperadapt_gemm_batched",
                             "kernels")
         check(all(map(math.isfinite, losses + norms)),
               f"bank train losses {losses} / grad norms {norms} not finite")
@@ -3907,7 +4015,8 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
                 bank_bytes=bank.size_bytes(), build_s=build_s,
                 loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
                 update_rel=upd_rel, counters=counters, launches=launches,
-                dx_routes=dx_routes, bank_routes=bank_routes, trace=trace)
+                dx_routes=dx_routes, bank_routes=bank_routes,
+                ha_routes=ha_routes, trace=trace)
 
 
 def print_modes(weight, activation, card):
@@ -3987,6 +4096,7 @@ def phase_registry(torch, execute, ops):
     a flip can fall differently, so there TOL holds them).  Last,
     ``ssd_chunked`` under grad on ``cuda`` must raise NotPortedError."""
     from repro_torch import NotPortedError
+    from repro_torch.kernels import batched as kb
     print(f"== phase 16: the registry, {len(execute.FUNCTIONS)} forward ops "
           f"dispatched on cuda under autograd at {REGISTRY_LINEAR[0]}×"
           f"{REGISTRY_LINEAR[1]}, B={TRAIN_B} S={TRAIN_S}, n={TRAIN_BLOCKS}, "
@@ -4027,6 +4137,17 @@ def phase_registry(torch, execute, ops):
                         launches[k] += c
                     cuda_launches = {k: c for k, c in lc.items() if c}
                     cuda_ms = wall
+                    # the scaled wgmma core's kernel: every launch (the
+                    # forward and the backward's z and y0) on its rule's
+                    # route (f32: simt)
+                    kernel = "hyperadapt_gemm_batched"
+                    if lc[kernel]:
+                        check_fwd_routes(ops.routes(kernel), {
+                            **dict.fromkeys(ops.routes(kernel), 0),
+                            f"{kernel}." + kb.hyperadapt_route(
+                                getattr(torch, dtype), *REGISTRY_LINEAR,
+                                True): lc[kernel]}, kernel,
+                            f"registry {op} {dtype}")
                 got[backend] = (out.detach(), [leaves[i].grad for i in train])
             (y, dk), (py, dp) = got["cuda"], got["torch"]
             method_op = op.startswith(("delora", "hyperadapt"))
@@ -4436,6 +4557,24 @@ def main() -> int:
                                    "route", "epilogue", "route_ms",
                                    "epilogue_ms", "ms",
                                    "matmul_ms", "bound_ms")}
+            for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+    # the HyperAdapt bank's forward (and backward GEMMs) on the wgmma core
+    # of csrc/scaled_wgmma.cuh: each path's launches by route, and every
+    # bf16 phase-2 row's route and each forced route's ms
+    for name, routes, by_path in (
+            ("hyperadapt_gemm_batched", kb.HA_ROUTES,
+             {"hyperadapt bank serve":
+                  served_bank["hyperadapt"]["bank_ha_routes"],
+              "hyperadapt bank train":
+                  trained_bank["hyperadapt"]["ha_routes"]}),):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["wgmma_core"] = "src/repro_torch/csrc/scaled_wgmma.cuh"
+        entry["routes"] = list(routes)
+        entry["routes_by_path"] = by_path
+        entry["by_row"] = [
+            {k: r.get(k) for k in ("t", "b", "s", "d", "f", "r", "route",
+                                   "route_ms", "ms", "matmul_ms",
+                                   "bound_ms")}
             for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
     # rows 5, 6 and 10-13 at phase 2's train-size rows (T = 2048; a
     # bank's B·S = 16·128): the forwards of the bank, ETHER+, DeLoRA and

@@ -8,35 +8,42 @@
 // (src/repro/core/methods.py:574-577).
 // x: (B·S, K) bf16 or f32, W: (K, N) same dtype, r_bank: (A, K) f32,
 // c_bank: (A, N) f32, ids: (B,) int32 or int64 (mapped into [0, A));
-// y: (B·S, N) in x's dtype.  Everything inside is f32 (x·r formed in f32
-// as the x tile is staged, the column scale on the f32 sum before the one
-// rounding), as in the Pallas kernel.
+// y: (B·S, N) in x's dtype.  The column scale multiplies the f32 sum
+// before the one rounding, as in the Pallas kernel.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, the
 // data sheet's rates at 700 W): the GEMM, as for hyperadapt_gemm — bytes
 // at decode (W read once, plus B·(K + N) floats of gathered scales),
 // operations at prefill.
 //
-// What the design does about that — a simple kernel that is right first:
-//  * The shared SIMT f32 GEMM of reflect_common.cuh in its kFuseScale
-//    variant under BANK: the row scale multiplies each x element as the A
-//    tile is staged, read at the row's tenant (ids[m / S], mapped into
-//    [0, A)), and the column scale multiplies the f32 sum at the output
-//    row's tenant.
-//    So a tile spans rows of several tenants and W is read once for the
-//    whole batch, where the Pallas grid (B, S/Ts, F/Tf, K/Tk) reads it
-//    once per sequence.
-//  * Training through a bank (src/repro/kernels/ops.py:609) runs it twice
-//    more per linear for z = (G·c_t)·Wᵀ (row scale c, W read transposed
-//    in place: w_t) and y0 = (x·r_t)·W, each without its column scale
-//    (c null), as the single-tenant hyperadapt_gemm serves its backward.
-//  * No tensor cores, as every GEMM of the port so far.
+// Routes, chosen on the host (kernels/batched.py, `hyperadapt_route`)
+// and counted by ops.routes("hyperadapt_gemm_batched"):
+//  * wgmma (bf16, d and f multiples of 8, x, W and both banks 16-byte
+//    aligned): scaled_wgmma.cuh's core.  A prologue writes x⊙r_t, formed
+//    in f32 at each row's tenant (read on the device), as a bf16 hi and lo
+//    plane (a (2, M, K) scratch); the TMA-fed wgmma GEMM adds hi·W and
+//    lo·W and its epilogue multiplies the f32 accumulator by c_t[col] at
+//    each row's tenant and rounds once (kColScale; kPlain without c).  A
+//    row tile spans rows of any sequences, so W is read once a call.  Both
+//    kernels from this one C call, on one stream.
+//  * simt (float32, and the shapes the rule refuses): the shared SIMT f32
+//    GEMM of reflect_common.cuh in its kFuseScale variant under BANK: the
+//    row scale multiplies each x element in f32 as the A tile is staged,
+//    read at the row's tenant, and the column scale multiplies the f32 sum at the
+//    output row's tenant.  A tile spans rows of several tenants and W is
+//    read once for the whole batch, where the Pallas grid (B, S/Ts, F/Tf,
+//    K/Tk) reads it once per sequence.
+// Training through a bank (src/repro/kernels/ops.py:609) runs it twice
+// more per linear for z = (G·c_t)·Wᵀ (row scale c, W read transposed in
+// place: w_t) and y0 = (x·r_t)·W, each without its column scale (c null),
+// on either route.
 //
 // C interface, bound with ctypes: hyperadapt_gemm_batched(...) launches
-// one kernel on the given stream, allocates nothing and returns
-// cudaGetLastError().
+// the route it is given on the given stream, allocates nothing and returns
+// a cudaError_t; hg_map_counts reads the wgmma route's tensor-map cache.
 
 #include "reflect_common.cuh"
+#include "scaled_wgmma.cuh"
 
 namespace {
 
@@ -62,24 +69,63 @@ int run(const void* x, const void* w, const void* r, const void* c,
           xt, K, wt, N, static_cast<T*>(y), M, N, K, none, s, sd, tn));
 }
 
+int run_wgmma(const void* x, const void* w, const void* r, const void* c,
+              const Tenants& tn, void* xr, void* y, int M, int K, int N,
+              int w_t, cudaStream_t s) {
+  const void* ptrs[4] = {x, w, r, c};
+  if (!sw::takes(K, N, ptrs, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  const long long chunks = static_cast<long long>(M) * K / 8;
+  sw::scale_rows_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256,
+                          0, s>>>(static_cast<const bf16*>(x),
+                                  static_cast<const float*>(r),
+                                  static_cast<bf16*>(xr), tn, M, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sw::Args args{};
+  args.y = static_cast<bf16*>(y);
+  args.c = static_cast<const float*>(c);
+  args.tn = tn;
+  args.M = M, args.K = K, args.N = N;
+  if (c == nullptr)
+    return static_cast<int>(
+        w_t ? sw::launch<sw::kWK, sw::kPlain>(xr, w, args, s)
+            : sw::launch<sw::kWN, sw::kPlain>(xr, w, args, s));
+  return static_cast<int>(
+      w_t ? sw::launch<sw::kWK, sw::kColScale>(xr, w, args, s)
+          : sw::launch<sw::kWN, sw::kColScale>(xr, w, args, s));
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, W and y alike).  ids: B = M / seq
-// ids, int64 when ids64, else int32; tenants = A.  w_t = 1 reads W as the
-// transpose of a row-major (N, K) matrix.  c may be null (no column
-// scale).
+// dtype: 0 = float32, 1 = bfloat16 (x, W and y alike); route: 0 = SIMT,
+// 1 = wgmma (bf16 only).  ids: B = M / seq ids, int64 when ids64, else
+// int32; tenants = A.  w_t = 1 reads W as the transpose of a row-major
+// (N, K) matrix.  c may be null (no column scale).  xr: the wgmma route's
+// (2, M, K) bf16 scratch, written before it is read (unused by SIMT).
 extern "C" int hyperadapt_gemm_batched(const void* x, const void* w,
                                        const void* r, const void* c,
                                        const void* ids, int ids64, int seq,
-                                       int tenants, void* y, int M, int K,
-                                       int N, int w_t, int dtype,
-                                       void* stream) {
+                                       int tenants, void* xr, void* y, int M,
+                                       int K, int N, int w_t, int dtype,
+                                       int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq < 1 || tenants < 1 || M % seq || !r)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tenants tn{ids, ids64, seq, tenants};
-  if (dtype == 0) return run<float>(x, w, r, c, tn, y, M, K, N, w_t, s);
-  if (dtype == 1)
+  if (route == 1 && dtype == 1)
+    return run_wgmma(x, w, r, c, tn, xr, y, M, K, N, w_t, s);
+  if (route == 0 && dtype == 0)
+    return run<float>(x, w, r, c, tn, y, M, K, N, w_t, s);
+  if (route == 0 && dtype == 1)
     return run<__nv_bfloat16>(x, w, r, c, tn, y, M, K, N, w_t, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma route's tensor-map cache: lookups and encodes (its misses)
+// since the library was loaded, into counts[0] and counts[1].
+extern "C" int hg_map_counts(long long* counts) {
+  sw::map_cache().counts(counts);
+  return 0;
 }

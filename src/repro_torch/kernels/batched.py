@@ -48,8 +48,11 @@ _EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
 # x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, w_t, dtype,
 # stream
 _DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
-# x, w, r, c, ids, ids64, seq, tenants, y, M, K, N, w_t, dtype, stream
-_HG = (_P,) * 5 + (_I,) * 3 + (_P,) + (_I,) * 5 + (_P,)
+# x, w, r, c, ids, ids64, seq, tenants, xr, y, M, K, N, w_t, dtype, route,
+# stream
+_HG = (_P,) * 5 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
+# hyperadapt_gemm_batched's routes (:func:`hyperadapt_route`)
+HA_ROUTES = ("wgmma", "simt")
 # x, w, u, g, ids, ids64, seq, tenants, dxr, part, ghat, dx, du, M, K, N, n,
 # db, dtype, route, nb, stream
 _HB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 8 + (_P,)
@@ -172,23 +175,71 @@ def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     return err, y
 
 
+def hyperadapt_route(dtype: torch.dtype, d: int, f: int,
+                     aligned: bool) -> str:
+    """hyperadapt_gemm_batched's route for x (·, ·, d) and a w of d × f
+    (either layout) of ``dtype``, at every B and S; ``aligned``: x, w and
+    both banks start on 16 bytes.  ``wgmma`` where the wgmma cores take
+    the call (:func:`householder_gemm.wgmma_takes` with no reflection
+    blocks: bf16, d and f multiples of 8), else ``simt``.  Its rows need
+    no tile of their own sequence: both scales are per row."""
+    return "wgmma" if hh.wgmma_takes(dtype, d, f, 0, aligned) else "simt"
+
+
+def pick_hyperadapt(x: torch.Tensor, w: torch.Tensor, r_bank: torch.Tensor,
+                    c_bank, w_t: bool = False) -> str:
+    """The route of hyperadapt_gemm_batched on these operands: every one
+    it loads (c_bank may be None) must start on 16 bytes."""
+    bits = (x.data_ptr() | w.data_ptr() | r_bank.data_ptr()
+            | (0 if c_bank is None else c_bank.data_ptr()))
+    return hyperadapt_route(x.dtype, x.shape[2],
+                            w.shape[0] if w_t else w.shape[1], not bits & 15)
+
+
+def hyperadapt_map_counts() -> dict[str, int]:
+    """hyperadapt_gemm_batched's wgmma route's tensor-map cache
+    (:func:`build.map_counts`): two lookups a call."""
+    return build.map_counts("hyperadapt_gemm_batched", "hg_map_counts")
+
+
+# the wgmma route's bf16 scratch, x⊙r_t as hi and lo planes, one buffer a
+# (device, stream) grown to the largest call: each call's prologue writes
+# it before the GEMM reads it, in stream order, and it keeps one address,
+# so its tensor maps stay in the map cache
+_XR: dict = {}
+
+
+def _xr_scratch(x: torch.Tensor, stream: int) -> torch.Tensor:
+    key = (x.device.index, stream)
+    buf = _XR.get(key)
+    if buf is None or buf.numel() < 2 * x.numel():
+        buf = _XR[key] = torch.empty(2 * x.numel(), dtype=x.dtype,
+                                     device=x.device)
+    return buf
+
+
 @_on_device
 def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                             r_bank: torch.Tensor, c_bank, ids: torch.Tensor,
-                            w_t: bool = False):
+                            w_t: bool = False, on=None):
     """((x[b]·r_t)·w)·c_t, t = ids[b]: x (B, S, d), w (d, f) (with ``w_t``
     the (f, d) matrix read transposed in place), r_bank (A, d) f32, c_bank
-    (A, f) f32 or None (no column scale)."""
+    (A, f) f32 or None (no column scale), on route ``on``
+    (:func:`pick_hyperadapt`'s when None).  Returns (cudaError_t, y, the
+    route taken)."""
     b, s, d = x.shape
     f = w.shape[0] if w_t else w.shape[1]
+    on = pick_hyperadapt(x, w, r_bank, c_bank, w_t) if on is None else on
     fn = build.function("hyperadapt_gemm_batched", "hyperadapt_gemm_batched",
                         _HG)
+    stream = _dx.stream(x.device)
     y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
+    xr = _xr_scratch(x, stream).data_ptr() if on == "wgmma" else None
     err = fn(x.data_ptr(), w.data_ptr(), r_bank.data_ptr(),
              None if c_bank is None else c_bank.data_ptr(),
-             *_tenants(x, ids, r_bank), y.data_ptr(), b * s, d, f, int(w_t),
-             DTYPE_CODE[x.dtype], _stream())
-    return err, y
+             *_tenants(x, ids, r_bank), xr, y.data_ptr(), b * s, d, f,
+             int(w_t), DTYPE_CODE[x.dtype], int(on == "wgmma"), stream)
+    return err, y, on
 
 
 def route(dtype: torch.dtype, t: int, d: int, f: int, n: int, db: int,

@@ -56,7 +56,8 @@ def wgmma_takes(dtype: torch.dtype, d: int, f: int, n: int,
                 aligned: bool) -> bool:
     """Whether the wgmma core (``csrc/hh_wgmma.cuh``, which rows 1, 5 and
     6 share) takes x (·, d) and w (d, f) of ``dtype`` with n reflection
-    blocks; ``aligned``: the operands it loads start on 16 bytes."""
+    blocks; ``aligned``: the operands it loads start on 16 bytes.  With
+    n = 0, whether ``csrc/scaled_wgmma.cuh``'s core (row 13's) takes it."""
     return (dtype == torch.bfloat16 and n <= WGMMA_MAX_BLOCKS
             and not d % 8 and not f % 8 and aligned)
 

@@ -41,7 +41,9 @@ or ``simt``), and ``routes("reflect_gemm_dx")`` and
 ``routes("householder_gemm_batched_bwd")`` the dXr backwards' (``wgmma``
 or ``simt``, rank-2 calls included), ``routes("etherplus_gemm")`` and
 ``routes("householder_gemm_batched")`` the forwards of ETHER+ and of the
-bank (``wgmma`` or ``simt``; the backward's y0 recompute included).  The
+bank (``wgmma`` or ``simt``; the backward's y0 recompute included), and
+``routes("hyperadapt_gemm_batched")`` the HyperAdapt bank's (``wgmma`` or
+``simt``; its backward's z and y0 included).  The
 rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
 scatter-add over a bank's ids) are a few thin PyTorch ops beside the
 kernels, as the JAX package leaves them to XLA.
@@ -87,14 +89,15 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
              "flash_attention": 0}
 # launches by route of the kernels that have routes
 # (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``, the dXr
-# backwards' ``reflect_gemm_dx.ROUTES``, ``etherplus_gemm.ROUTES`` and the
-# bank forward's ``batched.GEMM_ROUTES``)
+# backwards' ``reflect_gemm_dx.ROUTES``, ``etherplus_gemm.ROUTES``, the
+# bank forward's ``batched.GEMM_ROUTES`` and ``batched.HA_ROUTES``)
 _ROUTES = {"householder_gemm": dict.fromkeys(_hh.ROUTES, 0),
            "flash_attention": dict.fromkeys(_fa.ROUTES, 0),
            "reflect_gemm_dx": dict.fromkeys(_dx.ROUTES, 0),
            "householder_gemm_batched_bwd": dict.fromkeys(_dx.ROUTES, 0),
            "etherplus_gemm": dict.fromkeys(_ep.ROUTES, 0),
-           "householder_gemm_batched": dict.fromkeys(_bk.GEMM_ROUTES, 0)}
+           "householder_gemm_batched": dict.fromkeys(_bk.GEMM_ROUTES, 0),
+           "hyperadapt_gemm_batched": dict.fromkeys(_bk.HA_ROUTES, 0)}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -116,8 +119,8 @@ def routes(op: str = "householder_gemm") -> dict[str, int]:
     """``op``'s launches per route since the last reset, as
     ``<op>.<route>``; they add up to its entry in :func:`launches`.  ``op``
     is ``householder_gemm``, ``flash_attention``, ``reflect_gemm_dx``,
-    ``householder_gemm_batched_bwd``, ``etherplus_gemm`` or
-    ``householder_gemm_batched``."""
+    ``householder_gemm_batched_bwd``, ``etherplus_gemm``,
+    ``householder_gemm_batched`` or ``hyperadapt_gemm_batched``."""
     return {f"{op}.{r}": v for r, v in _ROUTES[op].items()}
 
 
@@ -789,7 +792,10 @@ def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                             r_bank: torch.Tensor, c_bank: torch.Tensor,
                             ids: torch.Tensor) -> torch.Tensor:
     """((x[b]·r_t)·w)·c_t, t = ids[b]; x: (B, S, d); w: (d, f); r_bank:
-    (A, d) f32; c_bank: (A, f) f32; ids: (B,) int32 or int64."""
+    (A, d) f32; c_bank: (A, f) f32; ids: (B,) int32 or int64.  On the card
+    it launches the route :func:`batched.hyperadapt_route` picks
+    (``wgmma`` or ``simt``), counted in
+    ``routes("hyperadapt_gemm_batched")``."""
     d, f = _dims(x, w)
     a = _bank_size(r_bank, 2)
     _check_bank("hyperadapt_gemm_batched", x, w, ids,
@@ -797,8 +803,9 @@ def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                  "c_bank": (c_bank, (a, f), _F32)})
     if x.device.type == "cpu":
         return ref.ref_hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
-    err, y = _bk.hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
+    err, y, on = _bk.hyperadapt_gemm_batched(x, w, r_bank, c_bank, ids)
     _launched("hyperadapt_gemm_batched", err)
+    _ROUTES["hyperadapt_gemm_batched"][on] += 1
     return y
 
 
@@ -918,10 +925,13 @@ def hyperadapt_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ref_hyperadapt_gemm_batched_bwd(x, w, r_bank, c_bank, ids,
                                                    g, need_dw=need_dw)
-    err, z = _bk.hyperadapt_gemm_batched(g, w, c_bank, None, ids, w_t=True)
+    err, z, on = _bk.hyperadapt_gemm_batched(g, w, c_bank, None, ids,
+                                             w_t=True)
     _launched("hyperadapt_gemm_batched", err)
-    err, y0 = _bk.hyperadapt_gemm_batched(x, w, r_bank, None, ids)
+    _ROUTES["hyperadapt_gemm_batched"][on] += 1
+    err, y0, on = _bk.hyperadapt_gemm_batched(x, w, r_bank, None, ids)
     _launched("hyperadapt_gemm_batched", err)
+    _ROUTES["hyperadapt_gemm_batched"][on] += 1
     dw = None
     if need_dw:
         xr, gc = ref.hyperadapt_bank_scaled(x, g, r_bank, c_bank, ids)

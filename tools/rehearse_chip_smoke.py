@@ -130,6 +130,10 @@ def fake_card():
     batched.etherplus_reflect_batched_bwd = ep_bwd
     batched.householder_gemm_batched = lambda x, w, u, ids, on=None: (
         0, ref.ref_householder_gemm_batched(x, w, u, ids), on or "simt")
+    batched.hyperadapt_gemm_batched = (
+        lambda x, w, r, c, ids, w_t=False, on=None: (
+            0, ref.ref_hyperadapt_gemm_batched(x, w.T if w_t else w, r, c,
+                                               ids), on or "simt"))
     from repro_torch.kernels import etherplus_gemm
     etherplus_gemm.launch = (
         lambda x, w, u1, v1, u2=None, v2=None, on=None, epi=None: (
@@ -182,8 +186,9 @@ def small(cs, failed):
                      ("poisoned neighbour", 1, 8, 2, 20, 20, 128, 0, None))
     cs.QWEN_P = 20
     cs.HOST_CALLS = 20
-    from repro_torch.kernels import householder_gemm
-    householder_gemm.map_counts = lambda: {"lookups": 0, "encodes": 0}
+    from repro_torch.kernels import batched, householder_gemm
+    householder_gemm.map_counts = batched.hyperadapt_map_counts = \
+        lambda: {"lookups": 0, "encodes": 0}
     cs.QWEN_LINEARS = {"qwen2.5-32b": [(80, 80), (80, 16), (80, 216),
                                        (216, 80)]}
     cs.GEN = 4

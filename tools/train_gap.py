@@ -2,9 +2,11 @@
 """How far ``chip_smoke.py``'s training on the kernels lands from its plain
 path, on each bf16 route of the forward and of the ``reflect_gemm_dx``
 backward, over seeds: phase 4 (ETHER), phase 6 (two-sided ETHER+) or
-phase 14 (ETHER through a bank).
+phase 14 (ETHER, or with ``--method hyperadapt`` HyperAdapt, through a
+bank).
 
-    python3 tools/train_gap.py [--phase 4|6|14] [--seeds 0 1 2]
+    python3 tools/train_gap.py [--phase 4|6|14] [--method ether|hyperadapt]
+                               [--seeds 0 1 2]
 
 Two parts, on one card:
 
@@ -12,8 +14,9 @@ Two parts, on one card:
    adapted linears, T = TRAIN_B·TRAIN_S rows, n = TRAIN_BLOCKS, bf16,
    seeded inputs; phase 14 a BANK_TENANTS-tenant bank read at
    BANK_TRAIN_IDS), the phase's forward kernel (``householder_gemm``,
-   ``etherplus_gemm`` two-sided, ``householder_gemm_batched``) on the
-   ``wgmma`` route and with the SIMT route forced, against its plain
+   ``etherplus_gemm`` two-sided, ``householder_gemm_batched``,
+   ``hyperadapt_gemm_batched``) with each
+   route forced (``wgmma``, ``simt``), against its plain
    version: the share of outputs not bitwise the plain version's, the
    relative Frobenius norm of the difference, and each one's (the plain
    version's too) relative Frobenius distance from the float64 product.
@@ -21,17 +24,21 @@ Two parts, on one card:
    ``Trainer`` for phases 4 and 6, through ``steps.make_bank_train_step``
    for phase 14), with the model, adapters (or bank) and data drawn from
    each seed (seed 0 is the phase's own run): on the plain path, on the
-   kernels (``auto``: bf16 forwards and dXr backwards on ``wgmma``), on the
-   kernels with the forward's SIMT route forced, and on the kernels with
-   the backward's SIMT route forced; each kernel run's largest per-step
-   relative loss and gradient-norm difference and the relative Frobenius
-   norm of its adapters' (or bank's) update's difference, against the
-   plain run and against the ``auto`` run.
+   kernels on the rules' routes (``auto``), on the kernels with each
+   forward route the rule did not take forced (``wgmma`` or ``simt``),
+   and (ETHER and ETHER+, whose backward
+   is ``reflect_gemm_dx``) on the kernels with the backward's SIMT route
+   forced; each kernel run's largest per-step relative loss and
+   gradient-norm difference and the relative Frobenius norm of its
+   adapters' (or bank's) update's difference, against the plain run, and
+   the ``wgmma`` run's against the others.
 
-A SIMT route is forced by replacing the route rule for the run:
-``householder_gemm.route``, ``etherplus_gemm.route`` or
-``batched.gemm_route`` (the forward), ``reflect_gemm_dx.route`` (the
-backward, which the bank's backward consults too).  Prints a line a
+A route is forced by replacing the route rule for the run:
+``householder_gemm.route``, ``etherplus_gemm.route``,
+``batched.gemm_route`` or ``batched.hyperadapt_route`` (the forward;
+HyperAdapt's z and y0 run on the forward kernel, so they follow it),
+``reflect_gemm_dx.route`` (the backward, which the ETHER bank's backward
+consults too).  Prints a line a
 measurement, the card's name and power limit, and last a JSON line.
 """
 
@@ -61,18 +68,20 @@ from repro_torch.kernels import householder_gemm as hh  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 
-# phase: (method, the forward's module and the name of its route rule)
-PHASES = {4: ("ether", hh, "route"), 6: ("etherplus", ep, "route"),
-          14: ("ether", kb, "gemm_route")}
-FORWARD = {4: "householder_gemm", 6: "etherplus_gemm",
-           14: "householder_gemm_batched"}
+# (phase, method): the forward's module, the name of its route rule and
+# the forward op
+PHASES = {(4, "ether"): (hh, "route", "householder_gemm"),
+          (6, "etherplus"): (ep, "route", "etherplus_gemm"),
+          (14, "ether"): (kb, "gemm_route", "householder_gemm_batched"),
+          (14, "hyperadapt"): (kb, "hyperadapt_route",
+                               "hyperadapt_gemm_batched")}
 
 
 @contextmanager
-def simt_forced(module, name="route"):
-    """Every call that consults ``module.name`` on the SIMT route."""
+def forced(module, name="route", on="simt"):
+    """Every call that consults ``module.name`` on route ``on``."""
     rule = getattr(module, name)
-    setattr(module, name, lambda *a, **k: "simt")
+    setattr(module, name, lambda *a, **k: on)
     try:
         yield
     finally:
@@ -101,9 +110,9 @@ def blockwise(y, u, v=None):
             ).reshape(y.shape)
 
 
-def forward_rows(gen, phase) -> list:
+def forward_rows(gen, phase, method) -> list:
     t, n = cs.TRAIN_B * cs.TRAIN_S, cs.TRAIN_BLOCKS
-    module, name = PHASES[phase][1:]
+    module, name, fwd = PHASES[phase, method]
     rows = []
     for d, f in cs.LINEARS[cs.ARCH]:
         x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
@@ -123,6 +132,18 @@ def forward_rows(gen, phase) -> list:
             exact = blockwise(blockwise(x, u1, v1) @ w.double(), u2, v2)
             args, plain_fn, op = (x, w, u1, v1, u2, v2), \
                 ref.ref_etherplus_gemm, ops.etherplus_gemm
+        elif method == "hyperadapt":
+            rb = 1 + cs.HA_SPREAD * torch.randn(cs.BANK_TENANTS, d,
+                                                generator=gen, device="cuda")
+            cb = 1 + cs.HA_SPREAD * torch.randn(cs.BANK_TENANTS, f,
+                                                generator=gen, device="cuda")
+            ids = torch.tensor(cs.BANK_TRAIN_IDS, dtype=torch.int32,
+                               device="cuda")
+            xs = x.view(cs.TRAIN_B, cs.TRAIN_S, d)
+            exact = ((xs.double() * rb[ids.long()][:, None].double())
+                     @ w.double()) * cb[ids.long()][:, None].double()
+            args, plain_fn, op = (xs, w, rb, cb, ids), \
+                ref.ref_hyperadapt_gemm_batched, ops.hyperadapt_gemm_batched
         else:
             bank = torch.randn(cs.BANK_TENANTS, n, d // n, generator=gen,
                                device="cuda")
@@ -134,17 +155,18 @@ def forward_rows(gen, phase) -> list:
                 ref.ref_householder_gemm_batched, ops.householder_gemm_batched
         plain = plain_fn(*args)
         ops.reset_launches()
-        got = {"wgmma": op(*args)}
-        with simt_forced(module, name):
-            got["simt"] = op(*args)
+        got = {}
+        for on in ("wgmma", "simt"):
+            with forced(module, name, on):
+                got[on] = op(*args)
         row = {"d": d, "f": f, "t": t, "n": n,
-               "routes": ops.routes(FORWARD[phase]),
+               "routes": ops.routes(fwd),
                "plain_vs_exact": frob(plain, exact)}
         for key, y in got.items():
             row[key] = {"differs": (y != plain).float().mean().item(),
                         "vs_plain": frob(y, plain),
                         "vs_exact": frob(y, exact)}
-        print(f"{FORWARD[phase]} {d}x{f} T={t} n={n}: plain vs f64 "
+        print(f"{fwd} {d}x{f} T={t} n={n}: plain vs f64 "
               f"{row['plain_vs_exact']:.4e}"
               + "".join(f"; {k}: {row[k]['differs'] * 100:.3f}% of outputs "
                         f"not the plain's, vs plain {row[k]['vs_plain']:.4e},"
@@ -189,9 +211,9 @@ def train(seed: int, backend: str, tmp: str, method: str) -> dict:
     return {"log": metrics, "init": init, "final": final}
 
 
-def bank_setup(seed: int) -> dict:
-    """Phase 14's model, ETHER bank, ids, batches and optimizer from
-    ``seed`` (seed 0: the phase's own)."""
+def bank_setup(seed: int, method: str) -> dict:
+    """Phase 14's model, bank of ``method`` tenants, ids, batches and
+    optimizer from ``seed`` (seed 0: the phase's own)."""
     from repro_torch.configs import get_config, peft_targets
     from repro_torch.core.peft import AdapterBank, init_adapters
     from repro_torch.core.transforms import PEFTConfig
@@ -200,13 +222,13 @@ def bank_setup(seed: int) -> dict:
     from repro_torch.optim import adamw, cosine
 
     cfg = get_config(cs.ARCH, "full")
-    peft = PEFTConfig(method="ether", n_blocks=cs.TRAIN_BLOCKS,
+    peft = PEFTConfig(method=method, n_blocks=cs.TRAIN_BLOCKS,
                       rank=cs.METHOD_RANK, alpha=float(cs.METHOD_RANK),
                       targets=peft_targets(cs.ARCH))
     params = api.init_model(cfg, seed=seed, device="cuda")
     trees = [cs.off_init(torch, init_adapters(
         torch.Generator(device="cuda").manual_seed(100 + t + 10000 * seed),
-        params, peft), cs.BANK_MOVES["ether"], 1000 + t + 10000 * seed)
+        params, peft), cs.BANK_MOVES[method], 1000 + t + 10000 * seed)
         for t in range(cs.BANK_TENANTS)]
     stream = SyntheticLMStream(vocab=cfg.vocab, batch=cs.TRAIN_B,
                                seq_len=cs.TRAIN_S, seed=seed)
@@ -258,64 +280,88 @@ def gap(a: dict, b: dict) -> dict:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=sorted(PHASES), default=4)
+    ap.add_argument("--phase", type=int, choices=sorted({p for p, _ in PHASES}),
+                    default=4)
+    ap.add_argument("--method", choices=("ether", "hyperadapt"),
+                    help="phase 14's method (default ether)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args(argv)
-    method, module, name = PHASES[args.phase]
+    method = {4: "ether", 6: "etherplus"}.get(
+        args.phase, args.method or "ether")
+    if (args.phase, method) not in PHASES:
+        ap.error(f"phase {args.phase} does not train {method}")
+    module, name, fwd = PHASES[args.phase, method]
+    # ETHER's and ETHER+'s backward runs reflect_gemm_dx's routes
+    dx_bwd = method in ("ether", "etherplus")
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired):
         smi = "unknown"
-    print(f"card: {smi}; phase {args.phase}", flush=True)
+    print(f"card: {smi}; phase {args.phase}, {method}", flush=True)
     torch.use_deterministic_algorithms(True)
-    out = {"card": smi, "phase": args.phase,
+    out = {"card": smi, "phase": args.phase, "method": method,
            "forward": forward_rows(
-               torch.Generator(device="cuda").manual_seed(4), args.phase),
+               torch.Generator(device="cuda").manual_seed(4), args.phase,
+               method),
            "train": []}
     tmp = tempfile.mkdtemp(prefix="train_gap_")
     try:
         for seed in args.seeds:
             if args.phase == 14:
-                setup = bank_setup(seed)
+                setup = bank_setup(seed, method)
 
                 def run(backend):
                     return bank_train(setup, backend)
             else:
                 def run(backend):
                     return train(seed, backend, tmp, method)
-            runs = {"plain": run("torch")}
+            # the plain path; the kernels on the rule's routes (``auto``);
+            # each forward route the rule did not take, forced
+            runs, routes = {"plain": run("torch")}, {}
             ops.reset_launches()
-            runs["wgmma"] = run("auto")
-            fwd_routes = ops.routes(FORWARD[args.phase])
-            with simt_forced(module, name):
-                runs["simt"] = run("auto")
-            ops.reset_launches()
-            with simt_forced(kdx):
-                runs["simt_bwd"] = run("auto")
-            simt_bwd_routes = ops.routes(
-                "householder_gemm_batched_bwd" if args.phase == 14
-                else "reflect_gemm_dx")
+            auto = run("auto")
+            routes["auto"] = ops.routes(fwd)
+            took = [k.split(".", 1)[1] for k, v in routes["auto"].items()
+                    if v]
+            for on in ("wgmma", "simt"):
+                if took == [on]:
+                    runs[on] = auto
+                    continue
+                ops.reset_launches()
+                with forced(module, name, on):
+                    runs[on] = run("auto")
+                routes[on] = ops.routes(fwd)
             row = {"seed": seed,
                    "wgmma_vs_plain": gap(runs["wgmma"], runs["plain"]),
                    "simt_vs_plain": gap(runs["simt"], runs["plain"]),
-                   "simt_bwd_vs_plain": gap(runs["simt_bwd"], runs["plain"]),
                    "wgmma_vs_simt": gap(runs["wgmma"], runs["simt"]),
-                   "wgmma_vs_simt_bwd": gap(runs["wgmma"],
-                                            runs["simt_bwd"]),
-                   "wgmma_forward_routes": fwd_routes,
-                   "simt_bwd_routes": simt_bwd_routes,
-                   "losses": {k: [m["loss"] for m in r["log"]]
-                              for k, r in runs.items()}}
+                   "forward_routes": routes}
+            keys = ["wgmma_vs_plain", "simt_vs_plain", "wgmma_vs_simt"]
+            simt_bwd_routes = None
+            if dx_bwd:
+                ops.reset_launches()
+                with forced(kdx):
+                    runs["simt_bwd"] = run("auto")
+                simt_bwd_routes = ops.routes(
+                    "householder_gemm_batched_bwd" if args.phase == 14
+                    else "reflect_gemm_dx")
+                row.update(simt_bwd_vs_plain=gap(runs["simt_bwd"],
+                                                 runs["plain"]),
+                           wgmma_vs_simt_bwd=gap(runs["wgmma"],
+                                                 runs["simt_bwd"]),
+                           simt_bwd_routes=simt_bwd_routes)
+                keys += ["simt_bwd_vs_plain", "wgmma_vs_simt_bwd"]
+            row["losses"] = {k: [m["loss"] for m in r["log"]]
+                             for k, r in runs.items()}
             print(f"seed {seed}: " + "; ".join(
                 f"{k} loss {row[k]['loss']:.3e} grad_norm "
                 f"{row[k]['grad_norm']:.3e} update {row[k]['update']:.3e}"
-                for k in ("wgmma_vs_plain", "simt_vs_plain",
-                          "simt_bwd_vs_plain", "wgmma_vs_simt",
-                          "wgmma_vs_simt_bwd"))
-                + f"; auto forward's routes {fwd_routes}; forced "
-                f"backward's routes {simt_bwd_routes}", flush=True)
+                for k in keys)
+                + f"; forward routes {routes}"
+                + (f"; forced backward's routes {simt_bwd_routes}"
+                   if dx_bwd else ""), flush=True)
             out["train"].append(row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
