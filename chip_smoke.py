@@ -698,8 +698,10 @@ def phase_kernels(torch, ops, ref):
 def host_cost(torch, ops, execute, op="householder_gemm"):
     """Phase 2, host: µs a decode step's ``op`` call costs the host through
     ``ops.<op>`` and ``execute.dispatch``: ``householder_gemm`` (n =
-    N_BLOCKS) or ``hyperadapt_gemm_batched`` (a BANK_TENANTS-tenant bank, ids BANK_IDS,
-    S = 1).  The calls cycle through one step's traffic: ARCH's 7 adapted
+    N_BLOCKS), ``hyperadapt_gemm`` (one tenant, T = B), or
+    ``hyperadapt_gemm_batched`` or ``delora_gemm_batched`` (r =
+    METHOD_RANK) through a BANK_TENANTS-tenant bank, ids BANK_IDS, S = 1.
+    The calls cycle through one step's traffic: ARCH's 7 adapted
     linears a layer (q, k, v, o, gate, up, down) over all its layers, each
     weight with its own adapter, and each layer's four inputs (q/k/v's,
     o's, gate/up's, down's) at addresses of their own, so every call's
@@ -709,12 +711,14 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
     is read, not the device's: a step's launches fit in the launch queue,
     where a long loop would wait on a slower kernel.  Where the tree's
     binding counts the wgmma routes' tensor-map encodes
-    (``householder_gemm.map_counts``, ``batched.hyperadapt_map_counts``),
-    those of the timed calls are
+    (``householder_gemm.map_counts``, ``batched.hyperadapt_map_counts``,
+    ``batched.delora_map_counts``, ``hyperadapt_gemm.map_counts``), those
+    of the timed calls are
     recorded too: 0 when the map cache holds a step's maps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import batched as kb
     from repro_torch.kernels import householder_gemm as hh
+    from repro_torch.kernels import hyperadapt_gemm as kh
     cfg = get_config(ARCH, "full")
     d, hd = cfg.d_model, cfg.head_dim or cfg.d_model // cfg.n_heads
     q, kv, ff = cfg.n_heads * hd, cfg.n_kv * hd, cfg.d_ff
@@ -722,7 +726,10 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
     layer = ((0, d, q), (0, d, kv), (0, d, kv), (1, q, d), (2, d, ff),
              (2, d, ff), (3, ff, d))
     shape = {"householder_gemm": f"T={B}, n={N_BLOCKS}",
-             "hyperadapt_gemm_batched": f"B={B} S=1, A={BANK_TENANTS}"}[op]
+             "hyperadapt_gemm": f"T={B}",
+             "hyperadapt_gemm_batched": f"B={B} S=1, A={BANK_TENANTS}",
+             "delora_gemm_batched": f"B={B} S=1, r={METHOD_RANK}, "
+                                    f"A={BANK_TENANTS}"}[op]
     print(f"== phase 2: host cost of a decode step's {op} calls ({ARCH}: "
           f"{len(layer)} x {cfg.n_layers} linears, {shape}, bf16)",
           flush=True)
@@ -738,19 +745,29 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
         """One linear's adapter operands after its weight."""
         if op == "householder_gemm":
             return (randn(N_BLOCKS, k // N_BLOCKS),)
+        if op == "hyperadapt_gemm":
+            return 1 + 0.3 * randn(k), 1 + 0.3 * randn(f)
+        if op == "delora_gemm_batched":
+            return (randn(BANK_TENANTS, k, METHOD_RANK),
+                    randn(BANK_TENANTS, METHOD_RANK, f),
+                    (randn(BANK_TENANTS, METHOD_RANK).abs() + 0.1).bfloat16(),
+                    ids)
         return (1 + 0.3 * randn(BANK_TENANTS, k),
                 1 + 0.3 * randn(BANK_TENANTS, f), ids)
 
     calls = []
     for _ in range(cfg.n_layers):
         xs = [randn(B, w).bfloat16() for w in (d, q, d, ff)]
-        if op == "hyperadapt_gemm_batched":
+        if op.endswith("_batched"):
             xs = [x.view(B, 1, -1) for x in xs]
         calls += [(xs[i], (randn(k, f) / k ** .5).bfloat16(), *adapter(k, f))
                   for i, k, f in layer]
     counts = {"householder_gemm": getattr(hh, "map_counts", None),
+              "hyperadapt_gemm": getattr(kh, "map_counts", None),
               "hyperadapt_gemm_batched": getattr(kb, "hyperadapt_map_counts",
-                                                 None)}[op]
+                                                 None),
+              "delora_gemm_batched": getattr(kb, "delora_map_counts",
+                                             None)}[op]
     steps = -(-HOST_CALLS // len(calls))
     out = {"arch": ARCH, "op": op, "linears": len(calls), "t": B,
            "n": N_BLOCKS if op == "householder_gemm" else None,
@@ -1185,7 +1202,10 @@ def method_kernel_rows(torch, ops, ref):
     its wrapper against its plain version, timed beside it and beside
     ``torch.matmul`` of the GEMM inside (``torch.addmm`` for
     delora_merge).  Every operand is off the methods' identity init (b ≠
-    0, r and c ≠ 1), from a generator of its own."""
+    0, r and c ≠ 1), from a generator of its own.  hyperadapt_gemm's rows
+    and its backward's carry the route its rule took and, in bf16, each
+    route forced, held to the plain version and timed (``route_ms``)."""
+    from repro_torch.kernels import hyperadapt_gemm as kh
     print("== phase 2: DeLoRA and HyperAdapt kernels against their plain "
           "versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1216,8 +1236,22 @@ def method_kernel_rows(torch, ops, ref):
                  else "")
               + (f"addmm {row['library_ms']:.4f} ms  " if row["library_ms"]
                  else "")
-              + "bound {bound_ms:.4f} ms ({bound_by})".format(**row),
-              flush=True)
+              + "bound {bound_ms:.4f} ms ({bound_by})".format(**row)
+              + (f"  route {row['route']}" + "".join(
+                  f"  {k} {v:.4f} ms" for k, v in row["route_ms"].items())
+                 if "route" in row else ""), flush=True)
+
+    def routes_forced(kernel, dtype, run, want):
+        """The route hyperadapt_gemm's rule took on the row's wrapper call,
+        made just before; and ``run(on)``, ``kernel`` on each route forced,
+        in bf16: held to ``want`` (METHOD_TOL) and timed."""
+        route, route_ms = routed(ops, "hyperadapt_gemm"), {}
+        for on in kh.ROUTES if dtype == "bfloat16" else ():
+            _, rel = errs(zip(run(on), want))
+            check(rel <= METHOD_TOL[dtype], f"{kernel} on {on} disagrees "
+                  f"with its plain version: {rel:.3e}")
+            route_ms[on] = timed_ms(torch, [lambda: run(on)])
+        return dict(route=route, route_ms=route_ms)
 
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -1280,10 +1314,15 @@ def method_kernel_rows(torch, ops, ref):
                                 + 4 * r * (d + f) + r * es,
                                 2 * t * d * f + 2 * t * r * (d + f)
                                 + t * (r + f), dtype))))
-                    add("hyperadapt_gemm", dtype,
-                        [(ops.hyperadapt_gemm(x, w, rr, c),
-                          ref.ref_hyperadapt_gemm(x, w, rr, c))],
+                    ops.reset_launches()
+                    got = ops.hyperadapt_gemm(x, w, rr, c)
+                    want = ref.ref_hyperadapt_gemm(x, w, rr, c)
+                    add("hyperadapt_gemm", dtype, [(got, want)],
                         t=t, r=None, **common, matmul_ms=mm,
+                        **routes_forced(
+                            "hyperadapt_gemm", dtype,
+                            lambda on: [launched(kh.launch(
+                                x, w, rr, c, on=on))[0]], [want]),
                         ms=timed_ms(torch, [
                             lambda w=w: ops.hyperadapt_gemm(x, w, rr, c)
                             for w in ws]),
@@ -1331,9 +1370,17 @@ def method_kernel_rows(torch, ops, ref):
             check(ops.launches()["hyperadapt_gemm"] == 2 and got[1] is None,
                   f"hyperadapt_gemm_bwd launched {ops.launches()}")
             want = ref.ref_hyperadapt_gemm_bwd(x, w, rr, c, g, need_dw=False)
-            add("hyperadapt_gemm_bwd", dtype,
-                [(p, q) for p, q in zip(got, want) if q is not None],
+            pairs = [(p, q) for p, q in zip(got, want) if q is not None]
+
+            def bwd_on(on):
+                with forced_route(kh, "route", on):
+                    return [p for p, q in zip(ops.hyperadapt_gemm_bwd(
+                        x, w, rr, c, g, need_dw=False), want)
+                        if q is not None]
+            add("hyperadapt_gemm_bwd", dtype, pairs,
                 r=None, **common,
+                **routes_forced("hyperadapt_gemm_bwd", dtype, bwd_on,
+                                [q for q in want if q is not None]),
                 matmul_ms=mm + timed_ms(torch, [lambda: torch.matmul(x, w)]),
                 ms=timed_ms(torch, [lambda: ops.hyperadapt_gemm_bwd(
                     x, w, rr, c, g, need_dw=False)]),
@@ -1345,6 +1392,20 @@ def method_kernel_rows(torch, ops, ref):
             del w, x, g
     torch.cuda.synchronize()
     return rows
+
+
+def staged_tiles(ids, seq, count):
+    """The tiles expected to stage: (row tiles whose rows name one tenant,
+    row tiles) of the scaled core's low-rank epilogue on ids, ``seq`` rows
+    a sequence: 16-row tiles at 16 rows or fewer, else 128-row ones; the
+    first stage b_t.  Phase 2 holds the kernel's own count to it."""
+    from repro_torch.kernels import ref
+    t = ref.bank_index(ids.cpu(), count).tolist()
+    m = len(t) * seq
+    rows = 16 if m <= 16 else 128
+    tiles = [{t[i // seq] for i in range(r0, min(r0 + rows, m))}
+             for r0 in range(0, m, rows)]
+    return sum(len(x) == 1 for x in tiles), len(tiles)
 
 
 def bank_kernel_rows(torch, ops, ref):
@@ -1389,7 +1450,11 @@ def bank_kernel_rows(torch, ops, ref):
               "{bound_ms:.4f} ms ({bound_by})".format(**row)
               + (f"  route {row['route']}" + "".join(
                   f"  {k} {v:.4f} ms" for k, v in row["route_ms"].items())
-                 if "route" in row else ""), flush=True)
+                 if "route" in row else "")
+              + ("".join(f"  epilogue {k} {v:.4f} ms" for k, v in
+                         row["lowrank_ms"].items())
+                 + "  tiles staged {}/{}".format(*row["staged_tiles"])
+                 if row.get("lowrank_ms") else ""), flush=True)
 
     def gemm_row(dtype, es, x, w, ws, u, ids, got, common):
         """householder_gemm_batched's row: ``got`` (the wrapper's output)
@@ -1417,6 +1482,50 @@ def bank_kernel_rows(torch, ops, ref):
             **dict(zip(("bound_ms", "bound_by"), bound(
                 (m * d + d * f + m * f) * es + 4 * b + 4 * d * tenants,
                 2 * m * d * f + 4 * m * d, dtype))))
+
+    def dl_routes(dtype, x, w, ws, ab, bb, sb, ids, got):
+        """delora_gemm_batched's row: the route its rule took on the
+        wrapper's call ``got``, made just before; in bf16 each route forced
+        held to the plain version and timed, and the wgmma route's
+        epilogue timed both ways (``lowrank_ms``: b_t staged in shared
+        memory where a tile names one tenant, or read with __ldg at every
+        tile; the same bits), with the row tiles that staged and all row
+        tiles, counted by the kernel and held to :func:`staged_tiles`."""
+        route, route_ms, lowrank_ms = routed(ops, "delora_gemm_batched"), \
+            {}, {}
+        want = ref.ref_delora_gemm_batched(x, w, ab, bb, sb, ids)
+        for on in kb.DL_ROUTES if dtype == "bfloat16" else ():
+            y = launched(kb.delora_gemm_batched(x, w, ab, bb, sb, ids,
+                                                on=on))[0]
+            compare(y, want, dtype, f"delora_gemm_batched on {on}")
+            route_ms[on] = timed_ms(torch, [
+                lambda w=w, on=on: kb.delora_gemm_batched(
+                    x, w, ab, bb, sb, ids, on=on) for w in ws])
+        counted = None
+        if dtype == "bfloat16":
+            expected = staged_tiles(ids, x.shape[1], a_n)
+            for stage in (True, False):
+                # the tiles that staged, as the kernel counts them
+                tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+                y = launched(kb.delora_gemm_batched(
+                    x, w, ab, bb, sb, ids, on="wgmma", stage=stage,
+                    staged=tiles))[0]
+                check(torch.equal(y, got), "delora_gemm_batched's epilogue "
+                      f"(stage={stage}) changed the wgmma route's bits")
+                tiles = tuple(tiles.tolist())
+                want_tiles = (expected[0] if stage else 0, expected[1])
+                check(tiles == want_tiles, "delora_gemm_batched's epilogue "
+                      f"(stage={stage}) staged {tiles[0]} of {tiles[1]} row "
+                      f"tiles, not the {want_tiles[0]} of {want_tiles[1]} "
+                      "whose rows name one tenant")
+                if stage:
+                    counted = tiles
+                lowrank_ms["staged" if stage else "ldg"] = timed_ms(torch, [
+                    lambda w=w, stage=stage: kb.delora_gemm_batched(
+                        x, w, ab, bb, sb, ids, on="wgmma", stage=stage)
+                    for w in ws])
+        return dict(route=route, route_ms=route_ms, lowrank_ms=lowrank_ms,
+                    staged_tiles=counted)
 
     def ha_row(dtype, es, x, w, ws, rb, cb, ids, common):
         """hyperadapt_gemm_batched's row: the wrapper's output and, in bf16,
@@ -1503,10 +1612,12 @@ def bank_kernel_rows(torch, ops, ref):
                         2 * m * (d + f) * es + 8 * b + 8 * (d + f) * tenants,
                         8 * m * (d + f), dtype))))
                 for r, (ab, bb, sb) in lr.items():
-                    add("delora_gemm_batched", dtype,
-                        ops.delora_gemm_batched(x, w, ab, bb, sb, ids),
+                    ops.reset_launches()
+                    got = ops.delora_gemm_batched(x, w, ab, bb, sb, ids)
+                    add("delora_gemm_batched", dtype, got,
                         ref.ref_delora_gemm_batched(x, w, ab, bb, sb, ids),
                         n=None, r=r, **common,
+                        **dl_routes(dtype, x, w, ws, ab, bb, sb, ids, got),
                         ms=timed_ms(torch, [
                             lambda w=w: ops.delora_gemm_batched(
                                 x, w, ab, bb, sb, ids) for w in ws]),
@@ -1746,21 +1857,23 @@ def bank_bwd_rows(torch, ops, ref, kb):
                     check(rel <= METHOD_TOL[dtype], f"{kernel} disagrees "
                           f"with its plain version at {dtype} B={b} S={s} "
                           f"d={d} f={f}: {rel:.3e} > {METHOD_TOL[dtype]:g}")
-                    extra = {}
-                    if kernel == "hyperadapt_gemm_batched_bwd":
-                        # z's and y0's route, and each route forced
-                        extra = {"route": routed(
-                            ops, "hyperadapt_gemm_batched"), "route_ms": {}}
-                        for on in (kb.HA_ROUTES if dtype == "bfloat16"
-                                   else ()):
-                            with forced_route(kb, "hyperadapt_route", on):
-                                forced = max(err(p, q)[1] for p, q in zip(
-                                    run(), want) if q is not None)
-                                check(forced <= METHOD_TOL[dtype],
-                                      f"{kernel} on {on} disagrees with its "
-                                      f"plain version: {forced:.3e}")
-                                extra["route_ms"][on] = timed_ms(torch,
-                                                                 [run])
+                    # z's and y0's route, or dx's, and each route forced
+                    fwd, rule, all_routes = {
+                        "hyperadapt_gemm_batched_bwd": (
+                            "hyperadapt_gemm_batched", "hyperadapt_route",
+                            kb.HA_ROUTES),
+                        "delora_gemm_batched_bwd": (
+                            "delora_gemm_batched", "delora_route",
+                            kb.DL_ROUTES)}[kernel]
+                    extra = {"route": routed(ops, fwd), "route_ms": {}}
+                    for on in all_routes if dtype == "bfloat16" else ():
+                        with forced_route(kb, rule, on):
+                            forced = max(err(p, q)[1] for p, q in zip(
+                                run(), want) if q is not None)
+                            check(forced <= METHOD_TOL[dtype],
+                                  f"{kernel} on {on} disagrees with its "
+                                  f"plain version: {forced:.3e}")
+                            extra["route_ms"][on] = timed_ms(torch, [run])
                     add(dict(common, kernel=kernel, n=None, r=METHOD_RANK,
                              max_abs_err=max(x for x, _ in e), rel_err=rel,
                              tol=METHOD_TOL[dtype], du_rel_frob=0.0,
@@ -2293,6 +2406,8 @@ def counted(torch, execute, ops, run):
     r["ep_routes"] = ops.routes("etherplus_gemm")
     r["bank_routes"] = ops.routes("householder_gemm_batched")
     r["ha_routes"] = ops.routes("hyperadapt_gemm_batched")
+    r["hg_routes"] = ops.routes("hyperadapt_gemm")
+    r["dl_routes"] = ops.routes("delora_gemm_batched")
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return r
 
@@ -2305,15 +2420,18 @@ FLASH_KERNELS = ("::wg::wgmma_kernel<", "::dec::decode_kernel<",
                  "::dec::combine_kernel<", "::flash_kernel<")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 # the device work of the bf16 forwards of ETHER+ (etherplus_gemm) and of
-# the ETHER bank (householder_gemm_batched), and of the HyperAdapt bank
-# (hyperadapt_gemm_batched) with its backward's GEMMs, on their wgmma
-# routes in a trace, by kernel name: each name holds every string of one
-# of its op's tuples.  Their prologues (proj_kernel: ETHER+'s rank 2, the
-# bank's under BANK; the weight gradients that share them launch 0 times,
-# as PEFT freezes W; scaled_wgmma.cuh's scale_rows_kernel), the wgmma
-# cores (hh_wgmma.cuh: rank 2, or rank 1 under BANK; scaled_wgmma.cuh's
-# gemm_kernel<TN, W layout, epilogue>: kColScale 1, kPlain 0) and ETHER+'s
-# scratch epilogue (rank2_rows_kernel on an f32 y0)
+# the ETHER bank (householder_gemm_batched), and of HyperAdapt, through a
+# bank and with one tenant (hyperadapt_gemm_batched, hyperadapt_gemm), and
+# of the DeLoRA bank (delora_gemm_batched) with their backward's GEMMs, on
+# their wgmma routes in a trace, by kernel name: each name holds every
+# string of one of its op's tuples.  Their prologues (proj_kernel: ETHER+'s
+# rank 2, the bank's under BANK; the weight gradients that share them
+# launch 0 times, as PEFT freezes W; scaled_wgmma.cuh's scale_rows_kernel,
+# the bank's taking Tenants, and lowrank_h_kernel), the wgmma cores
+# (hh_wgmma.cuh: rank 2, or rank 1 under BANK; scaled_wgmma.cuh's
+# gemm_kernel<TN, W layout, MODE>: the bank's kColScale 1 and kPlain 0,
+# the single tenant's 5 and 4, DeLoRA's kLowRank 2) and ETHER+'s scratch
+# epilogue (rank2_rows_kernel on an f32 y0)
 FWD_KERNELS = {
     "etherplus_gemm": (("proj_kernel<__nv_bfloat16, true",),
                        ("hhw::", "wgmma_kernel<128, 2,"),
@@ -2321,9 +2439,15 @@ FWD_KERNELS = {
     "householder_gemm_batched": (
         ("proj_kernel<__nv_bfloat16, false, true>",),
         ("hhw::", "wgmma_kernel<128, 1, true,")),
-    "hyperadapt_gemm_batched": (("sw::", "scale_rows_kernel"),
+    "hyperadapt_gemm_batched": (("sw::", "scale_rows_kernel", "Tenants"),
                                 ("sw::", "gemm_kernel<", ", 1>"),
-                                ("sw::", "gemm_kernel<", ", 0>"))}
+                                ("sw::", "gemm_kernel<", ", 0>")),
+    "hyperadapt_gemm": (("sw::", "scale_rows_kernel",
+                         "__nv_bfloat16*, int, int)"),
+                        ("sw::", "gemm_kernel<", ", 5>"),
+                        ("sw::", "gemm_kernel<", ", 4>")),
+    "delora_gemm_batched": (("sw::", "lowrank_h_kernel"),
+                            ("sw::", "gemm_kernel<", ", 2>"))}
 
 
 def trace_tables(events, steps):
@@ -2723,6 +2847,20 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
             lambda rows: kep.route(torch.bfloat16, 960, 960, N_BLOCKS, True),
             per_forward, un["forwards"], B * P, B), "etherplus_gemm",
             "unmerged")
+    if method == "hyperadapt":
+        # every shape aligned, d and f multiples of 8: one route at every
+        # row count
+        from repro_torch.kernels import hyperadapt_gemm as kh
+        check_fwd_routes(un["hg_routes"], served_fwd_routes(
+            ops, "hyperadapt_gemm",
+            lambda rows: kh.route(torch.bfloat16, 960, 960, True),
+            per_forward, un["forwards"], B * P, B), "hyperadapt_gemm",
+            "unmerged")
+        # its tensor-map cache on the decode path, outside the counted
+        # runs: the x⊙r planes (the kept scratch) and W are its TMA sources
+        check_map_encodes(decode_map_encodes(
+            torch, api, GEN, params, adapters, tokens, cfg, peft,
+            kh.map_counts), 2 * per_forward, "hyperadapt_gemm")
 
     # outside the counted runs: the frozen model, and the plain versions
     base = serve.generate(params, None, tokens, cfg, None, 4)
@@ -2758,7 +2896,7 @@ def phase_serve_method(torch, execute, ops, serve, api, phase, method):
                    (("unmerged", un), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches",
-                             "ep_routes")},
+                             "ep_routes", "hg_routes")},
                 traces=traces)
 
 
@@ -3200,6 +3338,21 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                                     True),
             per_forward, bk["forwards"], P, 1), "householder_gemm_batched",
             "bank")
+    if method == "delora":
+        from repro_torch.kernels import batched as kb
+        check_fwd_routes(bk["dl_routes"], served_fwd_routes(
+            ops, "delora_gemm_batched",
+            lambda s: kb.delora_route(torch.bfloat16, 960, 960, METHOD_RANK,
+                                      True),
+            per_forward, bk["forwards"], P, 1), "delora_gemm_batched",
+            "bank")
+        # its tensor-map cache on the bank's decode path, outside the
+        # counted runs: x (the caller's activations) and W are its TMA
+        # sources
+        check_map_encodes(decode_map_encodes(
+            torch, api, GEN, params, bank, tokens, cfg, peft,
+            kb.delora_map_counts, tenant_ids=ids), 2 * per_forward,
+            "delora_gemm_batched")
     if method == "hyperadapt":
         from repro_torch.kernels import batched as kb
         check_fwd_routes(bk["ha_routes"], served_fwd_routes(
@@ -3208,7 +3361,7 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
             per_forward, bk["forwards"], P, 1), "hyperadapt_gemm_batched",
             "bank")
         # its tensor-map cache on the bank's decode path, outside the
-        # counted runs: xr, a scratch allocated a call, is a TMA source
+        # counted runs: xr, the kept scratch, is a TMA source
         check_map_encodes(decode_map_encodes(
             torch, api, GEN, params, bank, tokens, cfg, peft,
             kb.hyperadapt_map_counts, tenant_ids=ids), 2 * per_forward,
@@ -3283,7 +3436,7 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
                    (("bank", bk), ("merged", mg))
                    for k in ("prefill_s", "per_token_s", "peak_gb",
                              "forwards", "merge_s", "counters", "launches",
-                             "bank_routes", "ha_routes")},
+                             "bank_routes", "ha_routes", "dl_routes")},
                 trace=trace)
 
 
@@ -3548,6 +3701,7 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
         routes = ops.routes()
         dx_routes = ops.routes("reflect_gemm_dx")
         ep_routes = ops.routes("etherplus_gemm")
+        hg_routes = ops.routes("hyperadapt_gemm")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(tr.state[k])
                  for k in ("adapters", "opt_state", "step")}
@@ -3574,6 +3728,11 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
             # B·S rows, bf16: the forward, its remat recompute and the
             # backward's y0 recompute all on the wgmma route
             check_dx_routes(ep_routes, launches, "etherplus_gemm", "kernels")
+        if launches["hyperadapt_gemm"]:
+            # B·S rows, bf16: the forward, its remat recompute and the
+            # backward's z and y0 all on the wgmma route
+            check_dx_routes(hg_routes, launches, "hyperadapt_gemm",
+                            "kernels")
         losses = [m["loss"] for m in log]
         check(len(losses) == steps
               and all(map(math.isfinite, losses + [m["grad_norm"]
@@ -3704,7 +3863,8 @@ def phase_train(torch, execute, ops, phase, method, mode="activation",
                 grad_norms=[m["grad_norm"] for m in log],
                 plain_grad_norms=[m["grad_norm"] for m in ref_log],
                 counters=counters, launches=launches, routes=routes,
-                dx_routes=dx_routes, ep_routes=ep_routes, trace=trace)
+                dx_routes=dx_routes, ep_routes=ep_routes,
+                hg_routes=hg_routes, trace=trace)
 
 
 def phase_blockgemm(torch, execute, ops, method, weight):
@@ -3883,6 +4043,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
         dx_routes = ops.routes("householder_gemm_batched_bwd")
         bank_routes = ops.routes("householder_gemm_batched")
         ha_routes = ops.routes("hyperadapt_gemm_batched")
+        dl_routes = ops.routes("delora_gemm_batched")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         final = {k: snapshot(state[k]) for k in ("bank", "opt_state")}
         final_step = state["step"].clone()
@@ -3906,6 +4067,11 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
             # bf16: the forward, its remat recompute and the backward's z
             # and y0 all on the wgmma route
             check_dx_routes(ha_routes, launches, "hyperadapt_gemm_batched",
+                            "kernels")
+        if launches["delora_gemm_batched"]:
+            # bf16, r = METHOD_RANK: the forward, its remat recompute and
+            # the backward's dx all on the wgmma route
+            check_dx_routes(dl_routes, launches, "delora_gemm_batched",
                             "kernels")
         check(all(map(math.isfinite, losses + norms)),
               f"bank train losses {losses} / grad norms {norms} not finite")
@@ -4016,7 +4182,7 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
                 loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
                 update_rel=upd_rel, counters=counters, launches=launches,
                 dx_routes=dx_routes, bank_routes=bank_routes,
-                ha_routes=ha_routes, trace=trace)
+                ha_routes=ha_routes, dl_routes=dl_routes, trace=trace)
 
 
 def print_modes(weight, activation, card):
@@ -4097,6 +4263,7 @@ def phase_registry(torch, execute, ops):
     ``ssd_chunked`` under grad on ``cuda`` must raise NotPortedError."""
     from repro_torch import NotPortedError
     from repro_torch.kernels import batched as kb
+    from repro_torch.kernels import hyperadapt_gemm as kh
     print(f"== phase 16: the registry, {len(execute.FUNCTIONS)} forward ops "
           f"dispatched on cuda under autograd at {REGISTRY_LINEAR[0]}×"
           f"{REGISTRY_LINEAR[1]}, B={TRAIN_B} S={TRAIN_S}, n={TRAIN_BLOCKS}, "
@@ -4137,17 +4304,24 @@ def phase_registry(torch, execute, ops):
                         launches[k] += c
                     cuda_launches = {k: c for k, c in lc.items() if c}
                     cuda_ms = wall
-                    # the scaled wgmma core's kernel: every launch (the
-                    # forward and the backward's z and y0) on its rule's
-                    # route (f32: simt)
-                    kernel = "hyperadapt_gemm_batched"
-                    if lc[kernel]:
-                        check_fwd_routes(ops.routes(kernel), {
-                            **dict.fromkeys(ops.routes(kernel), 0),
-                            f"{kernel}." + kb.hyperadapt_route(
-                                getattr(torch, dtype), *REGISTRY_LINEAR,
-                                True): lc[kernel]}, kernel,
-                            f"registry {op} {dtype}")
+                    # the scaled wgmma core's kernels: every launch (the
+                    # forward and the backward's z and y0, or dx) on its
+                    # rule's route (f32: simt)
+                    dt = getattr(torch, dtype)
+                    for kernel, rule in (
+                            ("hyperadapt_gemm_batched",
+                             kb.hyperadapt_route(dt, *REGISTRY_LINEAR,
+                                                 True)),
+                            ("hyperadapt_gemm",
+                             kh.route(dt, *REGISTRY_LINEAR, True)),
+                            ("delora_gemm_batched",
+                             kb.delora_route(dt, *REGISTRY_LINEAR,
+                                             METHOD_RANK, True))):
+                        if lc[kernel]:
+                            check_fwd_routes(ops.routes(kernel), {
+                                **dict.fromkeys(ops.routes(kernel), 0),
+                                f"{kernel}.{rule}": lc[kernel]}, kernel,
+                                f"registry {op} {dtype}")
                 got[backend] = (out.detach(), [leaves[i].grad for i in train])
             (y, dk), (py, dp) = got["cuda"], got["torch"]
             method_op = op.startswith(("delora", "hyperadapt"))
@@ -4558,24 +4732,35 @@ def main() -> int:
                                    "epilogue_ms", "ms",
                                    "matmul_ms", "bound_ms")}
             for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
-    # the HyperAdapt bank's forward (and backward GEMMs) on the wgmma core
-    # of csrc/scaled_wgmma.cuh: each path's launches by route, and every
-    # bf16 phase-2 row's route and each forced route's ms
+    # HyperAdapt's forwards, through a bank and with one tenant, and the
+    # DeLoRA bank's (with their backward GEMMs) on the wgmma core of
+    # csrc/scaled_wgmma.cuh: each path's launches by route, and every bf16
+    # phase-2 row's route, each forced route's ms and (DeLoRA) the
+    # low-rank epilogue's ms both ways with the row tiles that staged
+    # (counted on the device) and all row tiles
+    from repro_torch.kernels import hyperadapt_gemm as kh
     for name, routes, by_path in (
             ("hyperadapt_gemm_batched", kb.HA_ROUTES,
              {"hyperadapt bank serve":
                   served_bank["hyperadapt"]["bank_ha_routes"],
               "hyperadapt bank train":
-                  trained_bank["hyperadapt"]["ha_routes"]}),):
+                  trained_bank["hyperadapt"]["ha_routes"]}),
+            ("hyperadapt_gemm", kh.ROUTES,
+             {"hyperadapt serve": served_m["hyperadapt"]["unmerged_hg_routes"],
+              "hyperadapt train": trained_m["hyperadapt"]["hg_routes"]}),
+            ("delora_gemm_batched", kb.DL_ROUTES,
+             {"delora bank serve": served_bank["delora"]["bank_dl_routes"],
+              "delora bank train": trained_bank["delora"]["dl_routes"]})):
         entry = next(k for k in kernels if k["name"] == name)
         entry["wgmma_core"] = "src/repro_torch/csrc/scaled_wgmma.cuh"
         entry["routes"] = list(routes)
         entry["routes_by_path"] = by_path
         entry["by_row"] = [
             {k: r.get(k) for k in ("t", "b", "s", "d", "f", "r", "route",
-                                   "route_ms", "ms", "matmul_ms",
-                                   "bound_ms")}
-            for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+                                   "route_ms", "lowrank_ms", "staged_tiles",
+                                   "ms", "matmul_ms", "bound_ms")}
+            for r in rows if r["kernel"] in (name, f"{name}_bwd")
+            and r["dtype"] == "bfloat16" and r.get("route")]
     # rows 5, 6 and 10-13 at phase 2's train-size rows (T = 2048; a
     # bank's B·S = 16·128): the forwards of the bank, ETHER+, DeLoRA and
     # HyperAdapt train paths, beside torch.matmul

@@ -76,11 +76,9 @@ int run_wgmma(const void* x, const void* w, const void* r, const void* c,
   if (!sw::takes(K, N, ptrs, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
-  const long long chunks = static_cast<long long>(M) * K / 8;
-  sw::scale_rows_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256,
-                          0, s>>>(static_cast<const bf16*>(x),
-                                  static_cast<const float*>(r),
-                                  static_cast<bf16*>(xr), tn, M, K);
+  sw::scale_rows_kernel<<<sw::scale_blocks(M, K), 256, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(r),
+      static_cast<bf16*>(xr), tn, M, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sw::Args args{};
@@ -89,12 +87,8 @@ int run_wgmma(const void* x, const void* w, const void* r, const void* c,
   args.tn = tn;
   args.M = M, args.K = K, args.N = N;
   if (c == nullptr)
-    return static_cast<int>(
-        w_t ? sw::launch<sw::kWK, sw::kPlain>(xr, w, args, s)
-            : sw::launch<sw::kWN, sw::kPlain>(xr, w, args, s));
-  return static_cast<int>(
-      w_t ? sw::launch<sw::kWK, sw::kColScale>(xr, w, args, s)
-          : sw::launch<sw::kWN, sw::kColScale>(xr, w, args, s));
+    return static_cast<int>(sw::launch<sw::kPlain>(xr, w, w_t, args, s));
+  return static_cast<int>(sw::launch<sw::kColScale>(xr, w, w_t, args, s));
 }
 
 }  // namespace

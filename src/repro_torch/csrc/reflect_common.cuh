@@ -197,8 +197,8 @@ enum Fuse {
 // The operands of a Fuse variant: rs (K,), cs (N,) f32 for kFuseScale; la
 // (K, r), lb (r, N) f32 row-major and ls (r,) in A's dtype for
 // kFuseLowRank.  Under BANK each is a bank with the tenant axis first
-// (rs (A, K), cs (A, N); ls (A, r), lb (A, r, N) and h (M, r) f32 for
-// kFuseRowLowRank), read at each row's tenant.
+// (rs (A, K), cs (A, N); ls (A, r), lb by its strides and h (M, r) f32
+// for kFuseRowLowRank), read at each row's tenant.
 struct Side {
   const float* rs = nullptr;
   const float* cs = nullptr;
@@ -207,6 +207,11 @@ struct Side {
   const void* ls = nullptr;
   const float* h = nullptr;
   int r = 0;
+  // kFuseRowLowRank: lb_t[q, col] = lb[t·lb_ten + q·lb_q + col·lb_c], the
+  // bank read where it lies (b (A, r, N): r·N, N, 1; DeLoRA's dx reads
+  // a (A, N, r) down its columns: N·r, 1, r)
+  long long lb_ten = 0;
+  int lb_q = 0, lb_c = 1;
 };
 
 // The largest r the kFuseLowRank GEMM takes: h (BM × r) and the la tile
@@ -395,15 +400,16 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
       const long long ten = row_tenant(tn, m);
       const float* hm = sd.h + static_cast<long long>(m) * sd.r;
       const TA* lst = ls + ten * sd.r;
-      const float* lbt = sd.lb + ten * sd.r * N;
+      const float* lbt = sd.lb + ten * sd.lb_ten;
       for (int q = 0; q < sd.r; ++q) {
         const float hv = __ldg(hm + q) * to_f32(lst[q]);
+        const float* lbq = lbt + static_cast<long long>(q) * sd.lb_q;
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int col = n0 + tx + j * TX;
           if (col < N)
-            lr[i][j] = fmaf(hv, __ldg(lbt + static_cast<long long>(q) * N +
-                                      col),
+            lr[i][j] = fmaf(hv, __ldg(lbq + static_cast<long long>(col) *
+                                                sd.lb_c),
                             lr[i][j]);
         }
       }

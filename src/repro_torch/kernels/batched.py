@@ -46,8 +46,12 @@ TILE_ROWS = 128
 # x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, stream
 _EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
 # x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, w_t, dtype,
-# stream
-_DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
+# route, stage, staged, stream
+_DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 8 + (_P, _P)
+# delora_gemm_batched's routes (:func:`delora_route`) and the largest rank
+# its wgmma route's low-rank epilogue takes (``sw::kMaxRank``)
+DL_ROUTES = ("wgmma", "simt")
+LOWRANK_MAX_RANK = 64
 # x, w, r, c, ids, ids64, seq, tenants, xr, y, M, K, N, w_t, dtype, route,
 # stream
 _HG = (_P,) * 5 + (_I,) * 3 + (_P, _P) + (_I,) * 6 + (_P,)
@@ -153,26 +157,59 @@ def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
     return err, out
 
 
+def delora_route(dtype: torch.dtype, d: int, f: int, r: int,
+                 aligned: bool) -> str:
+    """delora_gemm_batched's route for x (·, ·, d), a w of d × f (either
+    layout) of ``dtype`` and rank r, at every B and S; ``aligned``: x, w
+    and both banks start on 16 bytes.  ``wgmma`` where the scaled core takes the call
+    (:func:`householder_gemm.wgmma_takes` with no reflection blocks) and
+    its low-rank epilogue takes r (≤ ``LOWRANK_MAX_RANK``), else
+    ``simt``.  The rank-r term is per row, so rows need no tile of their
+    own sequence."""
+    return ("wgmma" if hh.wgmma_takes(dtype, d, f, 0, aligned)
+            and r <= LOWRANK_MAX_RANK else "simt")
+
+
+def delora_map_counts() -> dict[str, int]:
+    """delora_gemm_batched's wgmma route's tensor-map cache
+    (:func:`build.map_counts`): two lookups a call."""
+    return build.map_counts("delora_gemm_batched", "dg_map_counts")
+
+
 @_on_device
 def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                         a_bank: torch.Tensor, b_bank: torch.Tensor,
                         s_bank: torch.Tensor, ids: torch.Tensor,
-                        w_t: bool = False):
+                        w_t: bool = False, dx: bool = False, on=None,
+                        stage: bool = True, staged=None):
     """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]: x (B, S, d), w (d, f)
     (with ``w_t`` the (f, d) matrix read transposed in place), a_bank
-    (A, d, r) f32, b_bank (A, r, f) f32, s_bank (A, r) in x's dtype."""
-    b, s, d = x.shape
-    f = w.shape[0] if w_t else w.shape[1]
+    (A, d, r) f32, b_bank (A, r, f) f32, s_bank (A, r) in x's dtype, on
+    route ``on`` (:func:`delora_route`'s when None).  With ``dx`` the
+    backward's dx = x[b]·wᵀ + ((x[b]·b_tᵀ)·s_t)·a_tᵀ (with ``w_t``): x the
+    cotangent (B, S, f), w the forward's (d, f) read transposed and the
+    forward's banks as they lie (no transposed copies).  ``stage``
+    (wgmma): stage the epilogue's bank tile in shared memory where a
+    tile's rows name one tenant (the same bits either way); ``staged``
+    (wgmma), an int32 (2,) tensor on x's device: the kernel adds the row
+    tiles that staged to [0] and every row tile to [1].  Returns
+    (cudaError_t, y, the route taken)."""
+    b, s, k = x.shape
+    n = w.shape[0] if w_t else w.shape[1]
     r = a_bank.shape[2]
     m = b * s
+    bits = x.data_ptr() | w.data_ptr() | a_bank.data_ptr() | b_bank.data_ptr()
+    on = delora_route(x.dtype, k, n, r, not bits & 15) if on is None else on
     fn = build.function("delora_gemm_batched", "delora_gemm_batched", _DG)
-    y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
-    h = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    stream = _dx.stream(x.device)
+    y = torch.empty((b, s, n), dtype=x.dtype, device=x.device)
+    h = _scratch(_HS, x, stream, m * r, torch.float32)
     err = fn(x.data_ptr(), w.data_ptr(), a_bank.data_ptr(),
              b_bank.data_ptr(), s_bank.data_ptr(), *_tenants(x, ids, a_bank),
-             h.data_ptr(), y.data_ptr(), m, d, f, r, int(w_t),
-             DTYPE_CODE[x.dtype], _stream())
-    return err, y
+             h.data_ptr(), y.data_ptr(), m, k, n, r, int(w_t) | 2 * int(dx),
+             DTYPE_CODE[x.dtype], int(on == "wgmma"), int(stage),
+             None if staged is None else staged.data_ptr(), stream)
+    return err, y, on
 
 
 def hyperadapt_route(dtype: torch.dtype, d: int, f: int,
@@ -202,20 +239,29 @@ def hyperadapt_map_counts() -> dict[str, int]:
     return build.map_counts("hyperadapt_gemm_batched", "hg_map_counts")
 
 
-# the wgmma route's bf16 scratch, x⊙r_t as hi and lo planes, one buffer a
-# (device, stream) grown to the largest call: each call's prologue writes
-# it before the GEMM reads it, in stream order, and it keeps one address,
-# so its tensor maps stay in the map cache
+# the kept scratches, one buffer a (device, stream) each, grown to the
+# largest call: the wgmma routes' bf16 x⊙r as hi and lo planes (the HyperAdapt
+# bank's and the single tenant's) and DeLoRA's (M, r) f32 h.  Each call's
+# prologue writes its scratch before the next kernel reads it, in stream
+# order, and it keeps one address, so no call allocates and the planes'
+# tensor maps stay in the map cache
 _XR: dict = {}
+_HS: dict = {}
 
 
-def _xr_scratch(x: torch.Tensor, stream: int) -> torch.Tensor:
+def _scratch(store: dict, x: torch.Tensor, stream: int, numel: int,
+             dtype: torch.dtype) -> torch.Tensor:
     key = (x.device.index, stream)
-    buf = _XR.get(key)
-    if buf is None or buf.numel() < 2 * x.numel():
-        buf = _XR[key] = torch.empty(2 * x.numel(), dtype=x.dtype,
-                                     device=x.device)
+    buf = store.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = store[key] = torch.empty(numel, dtype=dtype, device=x.device)
     return buf
+
+
+def xr_scratch(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The kept scratch of the wgmma routes' x⊙r planes (hi and lo) on
+    ``stream``, at least 2·x.numel() elements of x's dtype."""
+    return _scratch(_XR, x, stream, 2 * x.numel(), x.dtype)
 
 
 @_on_device
@@ -234,7 +280,7 @@ def hyperadapt_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                         _HG)
     stream = _dx.stream(x.device)
     y = torch.empty((b, s, f), dtype=x.dtype, device=x.device)
-    xr = _xr_scratch(x, stream).data_ptr() if on == "wgmma" else None
+    xr = xr_scratch(x, stream).data_ptr() if on == "wgmma" else None
     err = fn(x.data_ptr(), w.data_ptr(), r_bank.data_ptr(),
              None if c_bank is None else c_bank.data_ptr(),
              *_tenants(x, ids, r_bank), xr, y.data_ptr(), b * s, d, f,

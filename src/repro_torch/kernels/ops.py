@@ -42,8 +42,10 @@ or ``simt``), and ``routes("reflect_gemm_dx")`` and
 or ``simt``, rank-2 calls included), ``routes("etherplus_gemm")`` and
 ``routes("householder_gemm_batched")`` the forwards of ETHER+ and of the
 bank (``wgmma`` or ``simt``; the backward's y0 recompute included), and
-``routes("hyperadapt_gemm_batched")`` the HyperAdapt bank's (``wgmma`` or
-``simt``; its backward's z and y0 included).  The
+``routes("hyperadapt_gemm_batched")`` and ``routes("hyperadapt_gemm")``
+HyperAdapt's, through a bank and with one tenant (``wgmma`` or ``simt``;
+the backward's z and y0 included), and ``routes("delora_gemm_batched")``
+the DeLoRA bank's (``wgmma`` or ``simt``; its backward's dx included).  The
 rank-r and per-feature cotangents of DeLoRA and HyperAdapt (and their
 scatter-add over a bank's ids) are a few thin PyTorch ops beside the
 kernels, as the JAX package leaves them to XLA.
@@ -90,14 +92,17 @@ _LAUNCHES = {"householder_gemm": 0, "ether_merge": 0, "reflect_gemm_dx": 0,
 # launches by route of the kernels that have routes
 # (``householder_gemm.ROUTES``, ``flash_attention.ROUTES``, the dXr
 # backwards' ``reflect_gemm_dx.ROUTES``, ``etherplus_gemm.ROUTES``, the
-# bank forward's ``batched.GEMM_ROUTES`` and ``batched.HA_ROUTES``)
+# bank forward's ``batched.GEMM_ROUTES``, ``batched.HA_ROUTES`` and
+# ``batched.DL_ROUTES``, ``hyperadapt_gemm.ROUTES``)
 _ROUTES = {"householder_gemm": dict.fromkeys(_hh.ROUTES, 0),
            "flash_attention": dict.fromkeys(_fa.ROUTES, 0),
            "reflect_gemm_dx": dict.fromkeys(_dx.ROUTES, 0),
            "householder_gemm_batched_bwd": dict.fromkeys(_dx.ROUTES, 0),
            "etherplus_gemm": dict.fromkeys(_ep.ROUTES, 0),
            "householder_gemm_batched": dict.fromkeys(_bk.GEMM_ROUTES, 0),
-           "hyperadapt_gemm_batched": dict.fromkeys(_bk.HA_ROUTES, 0)}
+           "hyperadapt_gemm_batched": dict.fromkeys(_bk.HA_ROUTES, 0),
+           "hyperadapt_gemm": dict.fromkeys(_hg.ROUTES, 0),
+           "delora_gemm_batched": dict.fromkeys(_bk.DL_ROUTES, 0)}
 _F32 = torch.float32
 _ID_DTYPES = (torch.int32, torch.int64)
 
@@ -120,7 +125,8 @@ def routes(op: str = "householder_gemm") -> dict[str, int]:
     ``<op>.<route>``; they add up to its entry in :func:`launches`.  ``op``
     is ``householder_gemm``, ``flash_attention``, ``reflect_gemm_dx``,
     ``householder_gemm_batched_bwd``, ``etherplus_gemm``,
-    ``householder_gemm_batched`` or ``hyperadapt_gemm_batched``."""
+    ``householder_gemm_batched``, ``hyperadapt_gemm_batched``,
+    ``hyperadapt_gemm`` or ``delora_gemm_batched``."""
     return {f"{op}.{r}": v for r, v in _ROUTES[op].items()}
 
 
@@ -510,15 +516,18 @@ def delora_gemm_bwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 def hyperadapt_gemm(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
                     c: torch.Tensor) -> torch.Tensor:
     """((x·r)·w)·c; x: (..., d); w: (d, f); r: (d,) f32; c: (f,) f32.
-    Leading dims of x are flattened into the kernel's row axis."""
+    Leading dims of x are flattened into the kernel's row axis.  On the
+    card it launches the route :func:`hyperadapt_gemm.route` picks
+    (``wgmma`` or ``simt``), counted in ``routes("hyperadapt_gemm")``."""
     _check("hyperadapt_gemm", x, w, _hyperadapt_side(x, w, r, c))
     d, f = w.shape
     lead = x.shape[:-1]
     x2 = x.view(-1, d)
     if x.device.type == "cpu":
         return ref.ref_hyperadapt_gemm(x2, w, r, c).view(*lead, f)
-    err, y = _hg.launch(x2, w, r, c)
+    err, y, on = _hg.launch(x2, w, r, c)
     _launched("hyperadapt_gemm", err)
+    _ROUTES["hyperadapt_gemm"][on] += 1
     return y.view(*lead, f)
 
 
@@ -548,10 +557,12 @@ def hyperadapt_gemm_bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
         return ref.ref_hyperadapt_gemm_bwd(x, w, r, c, g, need_dw=need_dw)
     d, f = w.shape
     x2, g2 = x.view(-1, d), g.view(-1, f)
-    err, z = _hg.launch(g2, w, c, w_t=True)
+    err, z, on = _hg.launch(g2, w, c, w_t=True)
     _launched("hyperadapt_gemm", err)
-    err, y0 = _hg.launch(x2, w, r)
+    _ROUTES["hyperadapt_gemm"][on] += 1
+    err, y0, on = _hg.launch(x2, w, r)
     _launched("hyperadapt_gemm", err)
+    _ROUTES["hyperadapt_gemm"][on] += 1
     xf, gf, zf = x2.float(), g2.float(), z.float()
     dw = None
     if need_dw:
@@ -773,7 +784,9 @@ def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                         ids: torch.Tensor) -> torch.Tensor:
     """x[b]·w + ((x[b]·a_t)·s_t)·b_t, t = ids[b]; x: (B, S, d); w: (d, f);
     a_bank: (A, d, r) f32; b_bank: (A, r, f) f32; s_bank: (A, r) in x's
-    dtype, r ≥ 1; ids: (B,) int32 or int64."""
+    dtype, r ≥ 1; ids: (B,) int32 or int64.  On the card it launches the
+    route :func:`batched.delora_route` picks (``wgmma`` or ``simt``),
+    counted in ``routes("delora_gemm_batched")``."""
     d, f = _dims(x, w)
     a = _bank_size(a_bank, 3)
     r = a_bank.shape[2] if a_bank.dim() == 3 and a_bank.shape[2] else -1
@@ -783,8 +796,9 @@ def delora_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                  "s_bank": (s_bank, (a, r), x.dtype)})
     if x.device.type == "cpu":
         return ref.ref_delora_gemm_batched(x, w, a_bank, b_bank, s_bank, ids)
-    err, y = _bk.delora_gemm_batched(x, w, a_bank, b_bank, s_bank, ids)
+    err, y, on = _bk.delora_gemm_batched(x, w, a_bank, b_bank, s_bank, ids)
     _launched("delora_gemm_batched", err)
+    _ROUTES["delora_gemm_batched"][on] += 1
     return y
 
 
@@ -875,11 +889,11 @@ def delora_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
     """(dx, dw, da_bank, db_bank, ds_bank) of :func:`delora_gemm_batched`
     under cotangent g (B, S, f), composed as the JAX package's
     ``ops.delora_gemm_batched_bwd``: dx = g·wᵀ + ((g·b_tᵀ)·s_t)·a_tᵀ on the
-    bank forward kernel with w read transposed in place (the banks'
-    transposes are small copies); dW = xᵀg on ``reflect_gemm_dw`` with a
-    zero hyperplane, only when ``need_dw`` (else None); the adapters'
-    cotangents rank-r contractions per sequence, scatter-added over the
-    ids."""
+    bank forward kernel with w read transposed in place and the banks
+    read where they lie (no transposed copies); dW = xᵀg on
+    ``reflect_gemm_dw`` with a zero hyperplane, only when ``need_dw``
+    (else None); the adapters' cotangents rank-r contractions per
+    sequence, scatter-added over the ids."""
     d, f = _dims(x, w)
     a = _bank_size(a_bank, 3)
     r = a_bank.shape[2] if a_bank.dim() == 3 and a_bank.shape[2] else -1
@@ -891,10 +905,10 @@ def delora_gemm_batched_bwd(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ref_delora_gemm_batched_bwd(x, w, a_bank, b_bank, s_bank,
                                                ids, g, need_dw=need_dw)
-    err, dx = _bk.delora_gemm_batched(
-        g, w, b_bank.transpose(1, 2).contiguous(),
-        a_bank.transpose(1, 2).contiguous(), s_bank, ids, w_t=True)
+    err, dx, on = _bk.delora_gemm_batched(g, w, a_bank, b_bank, s_bank, ids,
+                                          w_t=True, dx=True)
     _launched("delora_gemm_batched", err)
+    _ROUTES["delora_gemm_batched"][on] += 1
     dw = None
     if need_dw:
         err, dw = _dw.launch(x.view(-1, d), _zero_u(d, x.device),

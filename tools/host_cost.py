@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Host cost of a decode step's ``householder_gemm`` calls (or, with
-``--op``, ``hyperadapt_gemm_batched``'s) on two source trees, in turns,
-on one card.
+``--op``, ``hyperadapt_gemm``'s, ``hyperadapt_gemm_batched``'s or
+``delora_gemm_batched``'s) on two source trees, in turns, on one card.
 
     python3 tools/host_cost.py BASE_SRC NEW_SRC [--rounds R] [--op OP]
 
@@ -12,7 +12,8 @@ Each run is a process of its own with that tree's ``src`` on
 a drift of the host during the call falls on both trees alike.  A run
 builds its tree's kernel (into that tree's ``_build``) and runs this
 repo's ``chip_smoke.host_cost`` on that tree's ``ops`` and ``execute``
-(HyperAdapt from a BANK_TENANTS-tenant bank at S = 1):
+(the banks of BANK_TENANTS tenants at S = 1, HyperAdapt's one tenant at
+T = B rows):
 whole decode steps of calls through each (at least HOST_CALLS calls),
 cycling through a step's adapted linears (smollm-360m's 224, each weight
 with its own adapter, each layer's inputs at addresses of their own), each
@@ -68,7 +69,9 @@ def main(argv) -> int:
     ap.add_argument("new")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--op", default="householder_gemm",
-                    choices=("householder_gemm", "hyperadapt_gemm_batched"))
+                    choices=("householder_gemm", "hyperadapt_gemm",
+                             "hyperadapt_gemm_batched",
+                             "delora_gemm_batched"))
     args = ap.parse_args(argv)
     print(f"card: {card()}", flush=True)
     runs = []

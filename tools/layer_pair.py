@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Layer sums of ``hyperadapt_gemm_batched`` on two source trees, in
-turns, on one card.
+"""Layer sums of rows 11-13 (``delora_gemm_batched``, ``hyperadapt_gemm``,
+``hyperadapt_gemm_batched``) on two source trees, in turns, on one card.
 
     python3 tools/layer_pair.py BASE_SRC NEW_SRC [--rounds R]
 
@@ -9,13 +9,15 @@ example the parent commit unpacked with ``git archive`` and this tree).
 Each run is a process of its own with that tree's ``src`` on
 ``PYTHONPATH``, in the order base, new, new, base, R times over.  A run
 times, with this repo's ``chip_smoke.py`` constants and its ``timed_ms``
-(CUDA events, weights rotated past the L2), the op through the tree's
+(CUDA events, weights rotated past the L2), each op through the tree's
 ``ops`` wrapper summed over one smollm-360m layer's seven linears, bf16,
-at decode (the bank's B sequences of S = 1) and at train size (the
-bank's 16 sequences of 128), the bank of BANK_TENANTS tenants read at
-BANK_IDS; beside it, ``torch.matmul`` of the same product; and, where
-the tree's launcher names routes (``batched.HA_ROUTES``), each route
-forced.  Prints the card's name and power limit, each run's
+at decode (the bank's B sequences of S = 1; one tenant's T = B rows) and
+at train size (the bank's 16 sequences of 128; one tenant's T = 2,048
+rows), the banks of BANK_TENANTS tenants read at BANK_IDS, DeLoRA at
+rank METHOD_RANK; beside them, ``torch.matmul`` of the same product;
+and, where the tree's launchers name routes (``batched.HA_ROUTES``,
+``batched.DL_ROUTES``, ``hyperadapt_gemm.ROUTES``), each route forced.
+Prints the card's name and power limit, each run's
 sums, and last a JSON line with every run and each tree's median.  Exits
 non-zero if a run fails.
 """
@@ -34,6 +36,7 @@ import torch
 sys.path.append(sys.argv[1])
 import chip_smoke as cs
 from repro_torch.kernels import batched as kb
+from repro_torch.kernels import hyperadapt_gemm as kh
 from repro_torch.kernels import ops
 gen = torch.Generator(device="cuda").manual_seed(7)
 
@@ -65,6 +68,24 @@ for size, (nb, ns) in (("decode", (cs.B, 1)), ("train", (16, 128))):
                     xb, w, rb, cb, ids, on=on) for w in ws])
         add("matmul bank", mult, [lambda w=w: torch.matmul(xb, w)
                                   for w in ws])
+        r = cs.METHOD_RANK
+        ab, bb = randn(a_n, d, r), randn(a_n, r, f)
+        sb = (randn(a_n, r).abs() + 0.1).bfloat16()
+        add("delora_gemm_batched", mult, [
+            lambda w=w: ops.delora_gemm_batched(xb, w, ab, bb, sb, ids)
+            for w in ws])
+        for on in getattr(kb, "DL_ROUTES", ()):
+            add(f"delora_gemm_batched {on}", mult, [
+                lambda w=w, on=on: kb.delora_gemm_batched(
+                    xb, w, ab, bb, sb, ids, on=on) for w in ws])
+        x1 = xb.view(nb * ns, d)
+        r1, c1 = rb[0].contiguous(), cb[0].contiguous()
+        add("hyperadapt_gemm", mult, [
+            lambda w=w: ops.hyperadapt_gemm(x1, w, r1, c1) for w in ws])
+        for on in getattr(kh, "ROUTES", ()):
+            add(f"hyperadapt_gemm {on}", mult, [
+                lambda w=w, on=on: kh.launch(x1, w, r1, c1, on=on)
+                for w in ws])
         del ws
     out[size] = sums
 print(json.dumps(out))

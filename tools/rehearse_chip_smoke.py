@@ -134,6 +134,22 @@ def fake_card():
         lambda x, w, r, c, ids, w_t=False, on=None: (
             0, ref.ref_hyperadapt_gemm_batched(x, w.T if w_t else w, r, c,
                                                ids), on or "simt"))
+
+    def dl(x, w, a, b, s, ids, w_t=False, dx=False, on=None, stage=True,
+           staged=None):
+        if dx:   # the backward's dx: the banks as the forward holds them
+            a, b = b.transpose(1, 2), a.transpose(1, 2)
+        if staged is not None:   # the tiles the rule stages, as counted
+            import chip_smoke
+            got, tiles = chip_smoke.staged_tiles(ids, x.shape[1], a.shape[0])
+            staged += torch.tensor([got if stage else 0, tiles],
+                                   dtype=staged.dtype)
+        return (0, ref.ref_delora_gemm_batched(x, w.T if w_t else w, a, b, s,
+                                               ids), on or "simt")
+    batched.delora_gemm_batched = dl
+    from repro_torch.kernels import hyperadapt_gemm
+    hyperadapt_gemm.launch = lambda x, w, r, c=None, w_t=False, on=None: (
+        0, ref.ref_hyperadapt_gemm(x, w.T if w_t else w, r, c), on or "simt")
     from repro_torch.kernels import etherplus_gemm
     etherplus_gemm.launch = (
         lambda x, w, u1, v1, u2=None, v2=None, on=None, epi=None: (
@@ -187,7 +203,9 @@ def small(cs, failed):
     cs.QWEN_P = 20
     cs.HOST_CALLS = 20
     from repro_torch.kernels import batched, householder_gemm
+    from repro_torch.kernels import hyperadapt_gemm
     householder_gemm.map_counts = batched.hyperadapt_map_counts = \
+        batched.delora_map_counts = hyperadapt_gemm.map_counts = \
         lambda: {"lookups": 0, "encodes": 0}
     cs.QWEN_LINEARS = {"qwen2.5-32b": [(80, 80), (80, 16), (80, 216),
                                        (216, 80)]}

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """How far ``chip_smoke.py``'s training on the kernels lands from its plain
 path, on each bf16 route of the forward and of the ``reflect_gemm_dx``
-backward, over seeds: phase 4 (ETHER), phase 6 (two-sided ETHER+) or
-phase 14 (ETHER, or with ``--method hyperadapt`` HyperAdapt, through a
-bank).
+backward, over seeds: phase 4 (ETHER), phase 6 (two-sided ETHER+), phase
+10 (HyperAdapt) or phase 14 (ETHER, or with ``--method hyperadapt`` or
+``delora`` HyperAdapt or DeLoRA, through a bank).
 
-    python3 tools/train_gap.py [--phase 4|6|14] [--method ether|hyperadapt]
-                               [--seeds 0 1 2]
+    python3 tools/train_gap.py [--phase 4|6|10|14]
+                               [--method ether|hyperadapt|delora]
+                               [--seeds 0 1 2] [--witnesses]
 
 Two parts, on one card:
 
@@ -14,14 +15,15 @@ Two parts, on one card:
    adapted linears, T = TRAIN_B·TRAIN_S rows, n = TRAIN_BLOCKS, bf16,
    seeded inputs; phase 14 a BANK_TENANTS-tenant bank read at
    BANK_TRAIN_IDS), the phase's forward kernel (``householder_gemm``,
-   ``etherplus_gemm`` two-sided, ``householder_gemm_batched``,
-   ``hyperadapt_gemm_batched``) with each
+   ``etherplus_gemm`` two-sided, ``hyperadapt_gemm``,
+   ``householder_gemm_batched``, ``hyperadapt_gemm_batched``,
+   ``delora_gemm_batched`` at rank METHOD_RANK) with each
    route forced (``wgmma``, ``simt``), against its plain
    version: the share of outputs not bitwise the plain version's, the
    relative Frobenius norm of the difference, and each one's (the plain
    version's too) relative Frobenius distance from the float64 product.
 2. The phase's training (TRAIN_STEPS AdamW steps: through the port's
-   ``Trainer`` for phases 4 and 6, through ``steps.make_bank_train_step``
+   ``Trainer`` for phases 4, 6 and 10, through ``steps.make_bank_train_step``
    for phase 14), with the model, adapters (or bank) and data drawn from
    each seed (seed 0 is the phase's own run): on the plain path, on the
    kernels on the rules' routes (``auto``), on the kernels with each
@@ -33,10 +35,19 @@ Two parts, on one card:
    adapters' (or bank's) update's difference, against the plain run, and
    the ``wgmma`` run's against the others.
 
+With ``--witnesses`` (phase 14 DeLoRA) two more plain runs a seed, and
+each run's gap from them: ``plain_f32``, the plain path in float32 (the
+same weights, widened exactly, and the same bank and data), a training
+nearer the exact one than any bf16 run; and ``plain_h64``, the plain path
+with each h = x·a_t (and dx's g·b_tᵀ) summed in float64 and rounded once
+to float32, as the ``wgmma`` route sums it.
+
 A route is forced by replacing the route rule for the run:
 ``householder_gemm.route``, ``etherplus_gemm.route``,
-``batched.gemm_route`` or ``batched.hyperadapt_route`` (the forward;
-HyperAdapt's z and y0 run on the forward kernel, so they follow it),
+``hyperadapt_gemm.route``, ``batched.gemm_route``,
+``batched.hyperadapt_route`` or ``batched.delora_route`` (the forward;
+HyperAdapt's z and y0 and DeLoRA's dx run on the forward kernel, so they
+follow it),
 ``reflect_gemm_dx.route`` (the backward, which the ETHER bank's backward
 consults too).  Prints a line a
 measurement, the card's name and power limit, and last a JSON line.
@@ -65,6 +76,7 @@ from repro_torch.core.transforms import resolve_blocks  # noqa: E402
 from repro_torch.kernels import batched as kb  # noqa: E402
 from repro_torch.kernels import etherplus_gemm as ep  # noqa: E402
 from repro_torch.kernels import householder_gemm as hh  # noqa: E402
+from repro_torch.kernels import hyperadapt_gemm as kh  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 
@@ -72,9 +84,11 @@ from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 # the forward op
 PHASES = {(4, "ether"): (hh, "route", "householder_gemm"),
           (6, "etherplus"): (ep, "route", "etherplus_gemm"),
+          (10, "hyperadapt"): (kh, "route", "hyperadapt_gemm"),
           (14, "ether"): (kb, "gemm_route", "householder_gemm_batched"),
           (14, "hyperadapt"): (kb, "hyperadapt_route",
-                               "hyperadapt_gemm_batched")}
+                               "hyperadapt_gemm_batched"),
+          (14, "delora"): (kb, "delora_route", "delora_gemm_batched")}
 
 
 @contextmanager
@@ -132,6 +146,31 @@ def forward_rows(gen, phase, method) -> list:
             exact = blockwise(blockwise(x, u1, v1) @ w.double(), u2, v2)
             args, plain_fn, op = (x, w, u1, v1, u2, v2), \
                 ref.ref_etherplus_gemm, ops.etherplus_gemm
+        elif phase == 10:
+            r = 1 + cs.HA_SPREAD * torch.randn(d, generator=gen,
+                                               device="cuda")
+            c = 1 + cs.HA_SPREAD * torch.randn(f, generator=gen,
+                                               device="cuda")
+            exact = ((x.double() * r.double()) @ w.double()) * c.double()
+            args, plain_fn, op = (x, w, r, c), ref.ref_hyperadapt_gemm, \
+                ops.hyperadapt_gemm
+        elif method == "delora":
+            rk, a_n = cs.METHOD_RANK, cs.BANK_TENANTS
+            ab = torch.randn(a_n, d, rk, generator=gen, device="cuda")
+            bb = torch.randn(a_n, rk, f, generator=gen, device="cuda")
+            # the method's scale, (λ/r)/(‖a_j‖‖b_j‖), in the activations'
+            # dtype
+            sb = ((cs.DELORA_LAM / rk) / (ab.norm(dim=1) * bb.norm(dim=2))
+                  ).bfloat16()
+            ids = torch.tensor(cs.BANK_TRAIN_IDS, dtype=torch.int32,
+                               device="cuda")
+            xs = x.view(cs.TRAIN_B, cs.TRAIN_S, d)
+            sel = ids.long()
+            exact = xs.double() @ w.double() + (
+                (xs.double() @ ab[sel].double())
+                * sb[sel][:, None].double()) @ bb[sel].double()
+            args, plain_fn, op = (xs, w, ab, bb, sb, ids), \
+                ref.ref_delora_gemm_batched, ops.delora_gemm_batched
         elif method == "hyperadapt":
             rb = 1 + cs.HA_SPREAD * torch.randn(cs.BANK_TENANTS, d,
                                                 generator=gen, device="cuda")
@@ -177,9 +216,9 @@ def forward_rows(gen, phase, method) -> list:
 
 
 def train(seed: int, backend: str, tmp: str, method: str) -> dict:
-    """Phase 4's (``method`` "ether") or phase 6's ("etherplus") training
-    from ``seed`` on ``backend``: its log and the adapters before and
-    after."""
+    """Phase 4's (``method`` "ether"), phase 6's ("etherplus") or phase
+    10's ("hyperadapt") training from ``seed`` on ``backend``: its log and
+    the adapters before and after."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs import get_config, peft_targets
     from repro_torch.core.transforms import PEFTConfig
@@ -243,6 +282,44 @@ def bank_setup(seed: int, method: str) -> dict:
                                 cs.TRAIN_WARMUP))}
 
 
+def widened(setup: dict) -> dict:
+    """``setup`` in float32: its config's dtypes and its weights widened
+    (exactly); the bank (float32 already), ids, data and optimizer as
+    they are."""
+    cfg = dataclasses.replace(setup["cfg"], param_dtype="float32",
+                              compute_dtype="float32")
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(widen(v) for v in tree)
+        return tree.float() if tree.is_floating_point() else tree
+    return {**setup, "cfg": cfg, "params": widen(setup["params"])}
+
+
+@contextmanager
+def plain_h64():
+    """The plain path's DeLoRA bank forward (and, through it, its
+    backward's dx) with h summed in float64 and rounded once to float32,
+    then scaled by s in float32: the ``wgmma`` route's prologue."""
+    from repro_torch.core import execute
+
+    def h64(x, w, a_bank, b_bank, s_bank, ids):
+        h = torch.einsum("bsd,bdr->bsr", x.double(),
+                         ref.gather(a_bank, ids).double()).float()
+        h = h * ref.gather(s_bank, ids).float()[:, None, :]
+        return (x.float() @ w.float() + torch.einsum(
+            "bsr,brf->bsf", h, ref.gather(b_bank, ids).float())).to(x.dtype)
+    key = ("delora_gemm_batched", "torch")
+    was = execute._REGISTRY[key], ref.ref_delora_gemm_batched
+    execute._REGISTRY[key] = ref.ref_delora_gemm_batched = h64
+    try:
+        yield
+    finally:
+        execute._REGISTRY[key], ref.ref_delora_gemm_batched = was
+
+
 def bank_train(setup: dict, backend: str) -> dict:
     """Phase 14's training on ``backend``: its losses and gradient norms
     (a log, as the Trainer's), and the bank before and after."""
@@ -282,14 +359,19 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", type=int, choices=sorted({p for p, _ in PHASES}),
                     default=4)
-    ap.add_argument("--method", choices=("ether", "hyperadapt"),
+    ap.add_argument("--method", choices=("ether", "hyperadapt", "delora"),
                     help="phase 14's method (default ether)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--witnesses", action="store_true",
+                    help="phase 14 DeLoRA: also the plain path in float32 "
+                         "and with h summed in float64")
     args = ap.parse_args(argv)
-    method = {4: "ether", 6: "etherplus"}.get(
+    method = {4: "ether", 6: "etherplus", 10: "hyperadapt"}.get(
         args.phase, args.method or "ether")
     if (args.phase, method) not in PHASES:
         ap.error(f"phase {args.phase} does not train {method}")
+    if args.witnesses and (args.phase, method) != (14, "delora"):
+        ap.error("--witnesses is phase 14 DeLoRA's")
     module, name, fwd = PHASES[args.phase, method]
     # ETHER's and ETHER+'s backward runs reflect_gemm_dx's routes
     dx_bwd = method in ("ether", "etherplus")
@@ -353,6 +435,16 @@ def main(argv) -> int:
                                                  runs["simt_bwd"]),
                            simt_bwd_routes=simt_bwd_routes)
                 keys += ["simt_bwd_vs_plain", "wgmma_vs_simt_bwd"]
+            if args.witnesses:
+                runs["plain_f32"] = bank_train(widened(setup), "torch")
+                with plain_h64():
+                    runs["plain_h64"] = run("torch")
+                for k in ("plain", "wgmma", "simt", "plain_h64"):
+                    row[f"{k}_vs_plain_f32"] = gap(runs[k], runs["plain_f32"])
+                    keys.append(f"{k}_vs_plain_f32")
+                for k in ("wgmma", "simt", "plain"):
+                    row[f"{k}_vs_plain_h64"] = gap(runs[k], runs["plain_h64"])
+                    keys.append(f"{k}_vs_plain_h64")
             row["losses"] = {k: [m["loss"] for m in r["log"]]
                              for k, r in runs.items()}
             print(f"seed {seed}: " + "; ".join(

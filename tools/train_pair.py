@@ -3,8 +3,8 @@
 turn, on one card, with the host cost of their forward kernels' calls.
 
     python3 tools/train_pair.py BASE_SRC NEW_SRC [--rounds R]
-                                [--single etherplus|delora]
-                                [--bank ether|hyperadapt]
+                                [--single etherplus|delora|hyperadapt]
+                                [--bank ether|hyperadapt|delora]
 
 BASE_SRC and NEW_SRC are the ``src`` directories of two checkouts (for
 example the parent commit unpacked with ``git archive`` and this tree).
@@ -15,26 +15,30 @@ alike.  Each tree builds its kernels into its own ``_build`` on its first
 run.  A run takes, with this repo's ``chip_smoke.py`` constants:
 
 - ``chip_smoke.py`` phase 6's training (``--single etherplus``, the
-  default; ``delora``: phase 8's): smollm-360m at full width, ETHER+
-  two-sided (DeLoRA rank METHOD_RANK), n_blocks TRAIN_BLOCKS, B·S =
+  default; ``delora``: phase 8's; ``hyperadapt``: phase 10's):
+  smollm-360m at full width, ETHER+ two-sided (DeLoRA rank METHOD_RANK),
+  n_blocks TRAIN_BLOCKS, B·S =
   TRAIN_B·TRAIN_S, AdamW, backend ``auto``, TRAIN_STEPS steps through the
   tree's ``Trainer``, deterministic algorithms on; the steady step ms is
   the mean of steps 2 on, as the Trainer logs them (host clock);
 - phase 14's: the same model through a bank of BANK_TENANTS ETHER
-  (``--bank hyperadapt``: HyperAdapt) tenants, ids BANK_TRAIN_IDS,
+  (``--bank hyperadapt``: HyperAdapt; ``delora``: DeLoRA) tenants, ids
+  BANK_TRAIN_IDS,
   TRAIN_STEPS steps of the tree's ``make_bank_train_step``, each step
   timed on the host to its loss's read-back;
 - the host µs a call of the two methods' forward ops
-  (``ops.etherplus_gemm`` two-sided or ``ops.delora_gemm``;
-  ``ops.householder_gemm_batched`` or ``ops.hyperadapt_gemm_batched``)
+  (``ops.etherplus_gemm`` two-sided, ``ops.delora_gemm`` or
+  ``ops.hyperadapt_gemm``; ``ops.householder_gemm_batched``,
+  ``ops.hyperadapt_gemm_batched`` or ``ops.delora_gemm_batched``)
   at those steps' shapes: one step's
   224 adapted linears, each weight with its own hyperplanes, each layer's
   seven calls timed from a synchronize to the return of its last call
   (the host's time, not the device's), summed over HOST_ROUNDS passes
   after one pass of warm-up;
-- with ``--bank hyperadapt``, where the tree's wgmma route has a
-  tensor-map cache (``batched.hyperadapt_map_counts``), the maps encoded
-  in each bank step and in the timed host calls.
+- with ``--bank hyperadapt`` or ``delora``, where the tree's wgmma route
+  has a tensor-map cache (``batched.hyperadapt_map_counts``,
+  ``batched.delora_map_counts``), the maps encoded in each bank step and
+  in the timed host calls.
 
 Prints the card's name and power limit, each run's numbers, and last a
 JSON line with every run and each tree's median and range.  Exits
@@ -74,10 +78,10 @@ stream = SyntheticLMStream(vocab=cfg.vocab, batch=cs.TRAIN_B,
                            seq_len=cs.TRAIN_S, seed=0)
 torch.use_deterministic_algorithms(True)
 out = {}
-# the HyperAdapt bank's tensor-map cache, where the tree's wgmma route has
-# one: maps encoded in each bank step and in the timed host calls
-counts = (getattr(kb, "hyperadapt_map_counts", None)
-          if banked == "hyperadapt" else None)
+# the bank's tensor-map cache, where the tree's wgmma route has one: maps
+# encoded in each bank step and in the timed host calls
+counts = getattr(kb, {"hyperadapt": "hyperadapt_map_counts",
+                      "delora": "delora_map_counts"}.get(banked, "-"), None)
 
 def encodes():
     return counts()["encodes"] if counts else 0
@@ -143,7 +147,7 @@ def randn(*shape):
     return torch.randn(*shape, generator=gen, device="cuda")
 
 r = cs.METHOD_RANK
-makers = {
+singles = {
     "etherplus": ("etherplus_gemm", lambda x, k, f: (
         x.view(rows, k), (randn(k, f) / k ** .5).bfloat16(),
         randn(n, k // n), randn(n, k // n),
@@ -152,13 +156,20 @@ makers = {
     "delora": ("delora_gemm", lambda x, k, f: (
         x.view(rows, k), (randn(k, f) / k ** .5).bfloat16(), randn(k, r),
         randn(r, f), (randn(r).abs() + 0.1).bfloat16())),
+    "hyperadapt": ("hyperadapt_gemm", lambda x, k, f: (
+        x.view(rows, k), (randn(k, f) / k ** .5).bfloat16(),
+        1 + 0.3 * randn(k), 1 + 0.3 * randn(f)))}
+banks = {
     "ether": ("householder_gemm_batched", lambda x, k, f: (
         x, (randn(k, f) / k ** .5).bfloat16(), randn(a_n, n, k // n), ids)),
     "hyperadapt": ("hyperadapt_gemm_batched", lambda x, k, f: (
         x, (randn(k, f) / k ** .5).bfloat16(), 1 + 0.3 * randn(a_n, k),
-        1 + 0.3 * randn(a_n, f), ids))}
-for key, (name, make) in (("single", makers[single]),
-                          ("bank", makers[banked])):
+        1 + 0.3 * randn(a_n, f), ids)),
+    "delora": ("delora_gemm_batched", lambda x, k, f: (
+        x, (randn(k, f) / k ** .5).bfloat16(), randn(a_n, k, r),
+        randn(a_n, r, f), (randn(a_n, r).abs() + 0.1).bfloat16(), ids))}
+for key, (name, make) in (("single", singles[single]),
+                          ("bank", banks[banked])):
     fn = getattr(ops, name)
     layers = []
     for _ in range(cfg.n_layers):
@@ -215,8 +226,9 @@ def main(argv) -> int:
     ap.add_argument("new")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--single", default="etherplus",
-                    choices=("etherplus", "delora"))
-    ap.add_argument("--bank", default="ether", choices=("ether", "hyperadapt"))
+                    choices=("etherplus", "delora", "hyperadapt"))
+    ap.add_argument("--bank", default="ether",
+                    choices=("ether", "hyperadapt", "delora"))
     args = ap.parse_args(argv)
     print(f"card: {card()}; {args.single} and a {args.bank} bank",
           flush=True)
