@@ -699,8 +699,10 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
     """Phase 2, host: µs a decode step's ``op`` call costs the host through
     ``ops.<op>`` and ``execute.dispatch``: ``householder_gemm`` (n =
     N_BLOCKS), ``hyperadapt_gemm`` (one tenant, T = B), or
-    ``hyperadapt_gemm_batched`` or ``delora_gemm_batched`` (r =
-    METHOD_RANK) through a BANK_TENANTS-tenant bank, ids BANK_IDS, S = 1.
+    ``hyperadapt_gemm_batched``, ``delora_gemm_batched`` (r =
+    METHOD_RANK) or ``etherplus_reflect_batched`` (n = N_BLOCKS; two
+    calls a linear, on x over d and on its output over f) through a
+    BANK_TENANTS-tenant bank, ids BANK_IDS, S = 1.
     The calls cycle through one step's traffic: ARCH's 7 adapted
     linears a layer (q, k, v, o, gate, up, down) over all its layers, each
     weight with its own adapter, and each layer's four inputs (q/k/v's,
@@ -716,6 +718,7 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
     of the timed calls are
     recorded too: 0 when the map cache holds a step's maps."""
     from repro_torch.configs import get_config
+    from repro_torch.core.transforms import resolve_blocks
     from repro_torch.kernels import batched as kb
     from repro_torch.kernels import householder_gemm as hh
     from repro_torch.kernels import hyperadapt_gemm as kh
@@ -729,7 +732,9 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
              "hyperadapt_gemm": f"T={B}",
              "hyperadapt_gemm_batched": f"B={B} S=1, A={BANK_TENANTS}",
              "delora_gemm_batched": f"B={B} S=1, r={METHOD_RANK}, "
-                                    f"A={BANK_TENANTS}"}[op]
+                                    f"A={BANK_TENANTS}",
+             "etherplus_reflect_batched": f"B={B} S=1, n={N_BLOCKS}, "
+                                          f"A={BANK_TENANTS}"}[op]
     print(f"== phase 2: host cost of a decode step's {op} calls ({ARCH}: "
           f"{len(layer)} x {cfg.n_layers} linears, {shape}, bf16)",
           flush=True)
@@ -755,11 +760,21 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
         return (1 + 0.3 * randn(BANK_TENANTS, k),
                 1 + 0.3 * randn(BANK_TENANTS, f), ids)
 
+    def planes(k):
+        """An ETHER+ bank's u and v over k (n = N_BLOCKS, as resolved)."""
+        n = resolve_blocks(N_BLOCKS, k)
+        return randn(BANK_TENANTS, n, k // n), randn(BANK_TENANTS, n, k // n)
+
     calls = []
     for _ in range(cfg.n_layers):
         xs = [randn(B, w).bfloat16() for w in (d, q, d, ff)]
         if op.endswith("_batched"):
             xs = [x.view(B, 1, -1) for x in xs]
+        if op == "etherplus_reflect_batched":
+            for i, k, f in layer:
+                calls += [(xs[i], *planes(k), ids),
+                          (randn(B, 1, f).bfloat16(), *planes(f), ids)]
+            continue
         calls += [(xs[i], (randn(k, f) / k ** .5).bfloat16(), *adapter(k, f))
                   for i, k, f in layer]
     counts = {"householder_gemm": getattr(hh, "map_counts", None),
@@ -767,10 +782,12 @@ def host_cost(torch, ops, execute, op="householder_gemm"):
               "hyperadapt_gemm_batched": getattr(kb, "hyperadapt_map_counts",
                                                  None),
               "delora_gemm_batched": getattr(kb, "delora_map_counts",
-                                             None)}[op]
+                                             None),
+              "etherplus_reflect_batched": None}[op]
     steps = -(-HOST_CALLS // len(calls))
     out = {"arch": ARCH, "op": op, "linears": len(calls), "t": B,
-           "n": N_BLOCKS if op == "householder_gemm" else None,
+           "n": (N_BLOCKS if op in ("householder_gemm",
+                                    "etherplus_reflect_batched") else None),
            "calls": steps * len(calls)}
     for name, fn in (
             ("ops", getattr(ops, op)),
@@ -1411,7 +1428,8 @@ def staged_tiles(ids, seq, count):
 def bank_kernel_rows(torch, ops, ref):
     """Phase 2, multi-tenant banks: householder_gemm_batched,
     etherplus_reflect_batched (a linear's two sides: H⁺ on x over d, then
-    on y0 = x·W over f, timed together), delora_gemm_batched (r ∈
+    on y0 = x·W over f, timed together; also at phase 14's train shape,
+    TRAIN_B × TRAIN_S with n = TRAIN_BLOCKS), delora_gemm_batched (r ∈
     METHOD_RANKS) and hyperadapt_gemm_batched on smollm-360m's four
     linear shapes, n = 8, at BANK_ROWS, with a BANK_TENANTS-tenant bank
     and ids BANK_IDS (a repeat and A − 1), every tenant drawn apart from
@@ -1429,6 +1447,7 @@ def bank_kernel_rows(torch, ops, ref):
           f"(A={BANK_TENANTS}, ids {BANK_IDS})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     wide = torch.Generator(device="cuda").manual_seed(6)
+    train = torch.Generator(device="cuda").manual_seed(8)
     rows = []
     a_n = BANK_TENANTS
 
@@ -1629,6 +1648,43 @@ def bank_kernel_rows(torch, ops, ref):
                             2 * m * d * f + 2 * m * r * (d + f) + m * r,
                             dtype))))
                 ha_row(dtype, es, x, w, ws, rb, cb, ids, common)
+            # etherplus_reflect_batched at phase 14's train shape (n =
+            # TRAIN_BLOCKS), from a generator of its own (the other rows'
+            # inputs stay as they were)
+            b, s = TRAIN_B, TRAIN_S
+            ids = torch.tensor((BANK_TRAIN_IDS * b)[:b], dtype=torch.int32,
+                               device="cuda")
+            tenants, m = len(set(ids.tolist())), b * s
+            n_in, n_tr = TRAIN_BLOCKS, resolve_blocks(TRAIN_BLOCKS, f)
+            tu, tv = (torch.randn(a_n, n_in, d // n_in, generator=train,
+                                  device="cuda") for _ in range(2))
+            tu2, tv2 = (torch.randn(a_n, n_tr, f // n_tr, generator=train,
+                                    device="cuda") for _ in range(2))
+            x = torch.randn(b, s, d, generator=train, device="cuda").to(dt)
+            y0 = torch.matmul(x, w)
+            ops.reset_launches()
+            got = torch.cat([
+                ops.etherplus_reflect_batched(x, tu, tv, ids).flatten(),
+                ops.etherplus_reflect_batched(y0, tu2, tv2, ids).flatten()])
+            check(ops.launches()["etherplus_reflect_batched"] == 2,
+                  f"etherplus_reflect_batched launched {ops.launches()}")
+            want = torch.cat([
+                ref.ref_etherplus_reflect_batched(x, tu, tv, ids).flatten(),
+                ref.ref_etherplus_reflect_batched(y0, tu2, tv2, ids)
+                .flatten()])
+            add("etherplus_reflect_batched", dtype, got, want, n=n_in,
+                r=None, b=b, s=s, t=m, d=d, f=f,
+                matmul_ms=timed_ms(torch, [lambda w=w: torch.matmul(x, w)
+                                           for w in ws]),
+                ms=timed_ms(torch, [lambda: (
+                    ops.etherplus_reflect_batched(x, tu, tv, ids),
+                    ops.etherplus_reflect_batched(y0, tu2, tv2, ids))]),
+                plain_ms=timed_ms(torch, [lambda: (
+                    ref.ref_etherplus_reflect_batched(x, tu, tv, ids),
+                    ref.ref_etherplus_reflect_batched(y0, tu2, tv2, ids))]),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    2 * m * (d + f) * es + 8 * b + 8 * (d + f) * tenants,
+                    8 * m * (d + f), dtype))))
             if dtype == "bfloat16":
                 # the wide decode row, from a generator of its own (the
                 # other rows' inputs stay as they were)
@@ -2450,6 +2506,19 @@ FWD_KERNELS = {
                             ("sw::", "gemm_kernel<", ", 2>"))}
 
 
+# the ETHER+ bank reflections, rows 7 and 25, by kernel name: the tile
+# kernels of csrc/rank2_tiles.cuh (the backward's ĝ sums and norm chain
+# included), and the per-row kernels of reflect_common.cuh that ran them
+# before (and still run other rows), which an ETHER+ bank trace must not
+# show
+RANK2_KERNELS = {
+    "etherplus_reflect_batched": (("r2t::", "rank2_tile_kernel<"),),
+    "etherplus_reflect_batched_bwd": (("r2t::", "rank2_tile_bwd_kernel<"),
+                                      ("r2t::", "bank_ghat_kernel"))}
+PER_ROW_KERNELS = ("rank2_rows_kernel<", "reflect_bwd_kernel<",
+                   "seq_ghat_kernel", "bank_chain_kernel")
+
+
 def trace_tables(events, steps):
     """Per step, from a Chrome trace's complete ("X") events: the device's
     busy ms (its kernels, copies and sets) and its busiest kernels; the
@@ -2482,6 +2551,13 @@ def trace_tables(events, steps):
                                if any(all(k in name for k in keys)
                                       for keys in pats))
                        for op, pats in FWD_KERNELS.items()},
+            "rank2_ms": {op: sum(ms for name, ms in dev.items()
+                                 if any(all(k in name for k in keys)
+                                        for keys in pats))
+                         for op, pats in RANK2_KERNELS.items()},
+            "per_row_kernels": sorted(
+                name for name in dev
+                if any(k in name for k in PER_ROW_KERNELS)),
             "top_level_ops": {k: len(v) / steps for k, v in top.items()},
             "top_level_cpu_us": {k: sum(v) / max(len(v), 1)
                                  for k, v in top.items()},
@@ -2513,6 +2589,20 @@ def trace_steps(torch, run, steps):
     return {"profiled_wall_ms": (t1 - t0) * 1e3 / steps,
             **trace_tables(events, steps),
             "processing_s": time.perf_counter() - t1}
+
+
+def check_rank2_trace(t, want, what):
+    """An ETHER+ bank trace: rows 7 and 25 (``want``) on the tile kernels
+    of csrc/rank2_tiles.cuh, and no per-row kernel of reflect_common.cuh;
+    prints the tile kernels' device ms a step beside the busy ms."""
+    ms = t["rank2_ms"]
+    print(f"[{what}] rows 7 and 25 on the tile kernels, device ms a step: "
+          + ", ".join(f"{op} {ms[op]:.3f}" for op in want)
+          + f" (busy {t['device_busy_ms']:.2f}); per-row kernels traced: "
+          f"{t['per_row_kernels']}", flush=True)
+    check(all(ms[op] > 0 for op in want) and not t["per_row_kernels"],
+          f"{what}: the tile kernels took {ms}; per-row kernels traced "
+          f"{t['per_row_kernels']}")
 
 
 def print_trace(name, t, unprofiled_ms):
@@ -3429,6 +3519,9 @@ def phase_serve_bank(torch, execute, ops, serve, api, method):
     trace = trace_decode(torch, api, TRACE_STEPS, params, bank, tokens, cfg,
                          peft, tenant_ids=ids)
     print_trace(f"{method} bank", trace, bk["per_token_s"] * 1e3)
+    if method == "etherplus":
+        check_rank2_trace(trace, ("etherplus_reflect_batched",),
+                          f"{method} bank decode")
     return dict(bank_vs_plain=plain_err, rows_vs_single_tenant=rows_err,
                 other_tenant_min=apart, bank_bytes=bank.size_bytes(),
                 overhead=overhead, build_s=build_s, scale=scale,
@@ -4165,6 +4258,8 @@ def phase_bank_train(torch, execute, ops, api, method, single, card):
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
     print_trace(f"{method} bank train", trace, steady_ms)
+    if method == "etherplus":
+        check_rank2_trace(trace, tuple(RANK2_KERNELS), f"{method} bank train")
     print(f"[{method}] bank vs single-tenant activation step on {card}: "
           f"{steady_ms:.1f} vs {single['steady_ms']:.1f} ms, "
           f"{tokens / steady_ms * 1e3:.0f} vs {single['tokens_per_s']:.0f} "
@@ -4781,6 +4876,27 @@ def main() -> int:
                       + (f", B={bank_b} S={bank_s}" if "batched" in name
                          else "")
                       + ("" if n is None else f", n={n}") + ", bf16",
+            **{k: summary[k] for k in ("ms", "plain_ms", "matmul_ms",
+                                       "bound_ms", "bound_by",
+                                       "max_abs_err")}}
+    # rows 7 and 25 on csrc/rank2_tiles.cuh: the forward's layer sums at
+    # the bank prefill (16 × 128, n 8) and phase 14's train shape (8 ×
+    # 128, n 32), and both ops' device ms a step in phase 14's ETHER+ trace
+    bank_b, bank_s = max(BANK_ROWS, key=lambda bs: bs[0] * bs[1])
+    ep_trace = trained_bank["etherplus"]["trace"]
+    for name in ("etherplus_reflect_batched", "etherplus_reflect_batched_bwd"):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["core"] = "src/repro_torch/csrc/rank2_tiles.cuh"
+        entry["bank_train_ms_a_step"] = ep_trace["rank2_ms"][name]
+        entry["bank_train_busy_ms_a_step"] = ep_trace["device_busy_ms"]
+    entry = next(k for k in kernels
+                 if k["name"] == "etherplus_reflect_batched")
+    for key, n, t in (("prefill", N_BLOCKS, bank_b * bank_s),
+                      ("train_size", TRAIN_BLOCKS, TRAIN_B * TRAIN_S)):
+        summary = layer_summary(rows, entry["name"], n, t)
+        entry[key] = {
+            "shapes": f"sum over the 7 linears of one smollm-360m layer (both "
+                      f"sides of each), T={t}, n={n}, A={BANK_TENANTS}, bf16",
             **{k: summary[k] for k in ("ms", "plain_ms", "matmul_ms",
                                        "bound_ms", "bound_by",
                                        "max_abs_err")}}

@@ -18,53 +18,47 @@
 // outputs; du_bank, dv_bank what the JAX op's _bank_grad makes of them.
 //
 // What bounds it on an H100 SXM (3.35 TB/s at 700 W): bytes.  It reads x
-// and G and writes dx, ~20 flops per element; at the train step of
-// smollm-360m (B·S = 1024) gate_proj's output (d = 2560) is 3 × 5.2 MB
-// in bf16, about 4.7 µs.
+// and G and writes dx, ~20 flops per element, far below the tensor
+// cores' 295 a byte, so it uses none; at the train step of smollm-360m
+// (B·S = 1024) gate_proj's output (d = 2560) is 3 × 5.2 MB in bf16, about
+// 4.7 µs.
 //
-// What the design does about that — a simple kernel that is right first:
-//  * It is the single-tenant etherplus_reflect_bwd over a bank:
-//    reflect_common.cuh's reflect_bwd_kernel under RANK2 and BANK, one
-//    warp per (row tile, block), each tile inside one sequence (its last
-//    tile ragged) and reading its tenant's hyperplanes; each tile writes
-//    its ĝu and ĝv partials.
-//  * seq_ghat_kernel sums each sequence's partials in order, both
-//    directions in one launch, and bank_chain_kernel sums per (tenant,
-//    block) the ĝ_seq of the sequences its id names, in order, and applies
-//    the norm chain (an exact zero for a tenant no id names).  No float
-//    atomics: a train step gives the same bits every run.
+// The design is rank2_tiles.cuh's: rank2_tile_bwd_kernel, one CTA per
+// tile of rows of one sequence (and column chunk), the tenant's û and v̂
+// formed once in shared memory, x and G in with 16-byte cp.async, dx out
+// with 16-byte stores, each tile's ĝ partials summed over its rows in
+// order and written once; then bank_ghat_kernel, one launch for ĝ_seq
+// and the bank's du and dv in a fixed order.  No float atomics: a train
+// step gives the same bits every run.  The header's note states every
+// sum's order.
 //
 // C interface, bound with ctypes: etherplus_reflect_batched_bwd(...)
-// launches the three kernels on the given stream, allocates nothing and
+// launches the two kernels on the given stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include "reflect_common.cuh"
-
-using namespace reflect;
-
-// Row tiles of one sequence of `seq` rows: `part` holds 2·B times this
-// many (n, db) partials.
-extern "C" int etherplus_reflect_batched_bwd_row_tiles(int seq) {
-  return row_tiles(seq);
-}
+#include "rank2_tiles.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (x, G and dx alike).  ids: B = M / seq
-// ids, int64 when ids64, else int32; tenants = A.  part is f32 scratch
-// of 2·B·etherplus_reflect_batched_bwd_row_tiles(seq)·n·db floats,
-// written before it is read; ghat (2, B, n, db) f32 (ĝu_seq, then
-// ĝv_seq), du and dv (A, n, db) f32 are outputs.
-extern "C" int etherplus_reflect_batched_bwd(const void* x, const void* u,
-                                             const void* v, const void* g,
-                                             const void* ids, int ids64,
-                                             int seq, int tenants, void* part,
-                                             void* ghat, void* dx, void* du,
-                                             void* dv, int M, int n, int db,
-                                             int dtype, void* stream) {
+// ids, int64 when ids64, else int32; tenants = A.  rows, bpc, vec and
+// staged: the launch geometry (kernels/batched.py, rank2_geometry), which
+// this checks.  part is f32 scratch of 2·B·⌈seq/rows⌉·n·db floats, written
+// before it is read; ghat (2, B, n, db) f32 (ĝu_seq, then ĝv_seq), du and
+// dv (A, n, db) f32 are outputs.
+extern "C" int etherplus_reflect_batched_bwd(
+    const void* x, const void* u, const void* v, const void* g,
+    const void* ids, int ids64, int seq, int tenants, void* part, void* ghat,
+    void* dx, void* du, void* dv, int M, int n, int db, int dtype, int rows,
+    int bpc, int vec, int staged, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq < 1 || tenants < 1 || M % seq)
+  const int es = dtype == 1 ? 2 : 4;
+  const int tiles = seq > 0 && rows > 0 ? (seq + rows - 1) / rows : 0;
+  const int chunks = bpc > 0 ? (n + bpc - 1) / bpc : 0;
+  const r2t::Geometry geo{M,     n,   db,     seq, rows,
+                          tiles, bpc, chunks, vec,  staged};
+  if (tenants < 1 || (dtype != 0 && dtype != 1) ||
+      !r2t::check_geometry(geo, es, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tenants tn{ids, ids64, seq, tenants};
-  const int K = n * db;
+  const reflect::Tenants tn{ids, ids64, seq, tenants};
   const float* uf = static_cast<const float*>(u);
   const float* vf = static_cast<const float*>(v);
   float* pf = static_cast<float*>(part);
@@ -72,15 +66,11 @@ extern "C" int etherplus_reflect_batched_bwd(const void* x, const void* u,
   float* duf = static_cast<float*>(du);
   float* dvf = static_cast<float*>(dv);
   if (dtype == 0)
-    return static_cast<int>(launch_reflect_bwd_bank<float, float, true>(
+    return static_cast<int>(r2t::launch_backward<float>(
         static_cast<const float*>(x), static_cast<const float*>(g), uf, vf,
-        static_cast<float*>(dx), pf, gf, duf, dvf, M, K, n, db, tn, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        launch_reflect_bwd_bank<__nv_bfloat16, __nv_bfloat16, true>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const __nv_bfloat16*>(g), uf, vf,
-            static_cast<__nv_bfloat16*>(dx), pf, gf, duf, dvf, M, K, n, db,
-            tn, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+        static_cast<float*>(dx), pf, gf, duf, dvf, geo, tn, s));
+  return static_cast<int>(r2t::launch_backward<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g), uf, vf,
+      static_cast<__nv_bfloat16*>(dx), pf, gf, duf, dvf, geo, tn, s));
 }

@@ -2,8 +2,8 @@
 // reflect_gemm_dx, reflect_gemm_dw, etherplus_gemm, delora_gemm,
 // hyperadapt_gemm and the bank variants householder_gemm_batched,
 // delora_gemm_batched, hyperadapt_gemm_batched) and its row kernels
-// (etherplus_merge, etherplus_reflect_bwd, etherplus_reflect_batched,
-// method_merge): dtype conversions, a warp sum, the per-row tenant of a
+// (etherplus_merge, etherplus_reflect_bwd, method_merge; rank2_tiles.cuh,
+// the ETHER+ bank reflections, takes its helpers): dtype conversions, a warp sum, the per-row tenant of a
 // multi-tenant bank, the block-projection prologue, the one
 // register-tiled f32 SIMT GEMM that every product runs on (with DeLoRA's
 // and HyperAdapt's fused variants), the per-row rank-2 update and the
@@ -509,14 +509,13 @@ cudaError_t launch_gemm(const TA* a, int lda, const TB* b, int ldb, TC* c,
 // in f32 from Y in TI, written once in TO (out must not alias Y).  The
 // two-sided etherplus_gemm epilogue (Y the GEMM's f32 result) and the
 // right ETHER+ merge (Y = W) run on it.  The warp reads its db elements
-// of Y twice, the second time from L1.  Under BANK u and v are (A, n, db)
-// banks and row t takes its tenant's (`tn`): etherplus_reflect_batched.
-template <typename TI, typename TO, bool BANK = false>
+// of Y twice, the second time from L1.  (The bank's etherplus_reflect_batched
+// runs rank2_tiles.cuh's tile kernel instead.)
+template <typename TI, typename TO>
 __global__ void rank2_rows_kernel(const TI* __restrict__ y,
                                   const float* __restrict__ u,
                                   const float* __restrict__ v,
-                                  TO* __restrict__ out, int M, int n, int db,
-                                  Tenants tn) {
+                                  TO* __restrict__ out, int M, int n, int db) {
   const int warps = blockDim.x / 32;
   const long long pair =
       static_cast<long long>(blockIdx.x) * warps + threadIdx.x / 32;
@@ -524,12 +523,8 @@ __global__ void rank2_rows_kernel(const TI* __restrict__ y,
   if (pair >= static_cast<long long>(M) * n) return;  // whole warps exit
   const int j = static_cast<int>(pair % n);
   const long long off = pair * db;  // (t·n + j)·db = t·(n·db) + j·db
-  // block j of the hyperplanes (under BANK, of row t's tenant)
-  const int t = static_cast<int>(pair / n);
-  const long long hj =
-      (BANK ? static_cast<long long>(row_tenant(tn, t)) * n : 0) + j;
-  const float* uj = u + hj * db;
-  const float* vj = v + hj * db;
+  const float* uj = u + static_cast<long long>(j) * db;
+  const float* vj = v + static_cast<long long>(j) * db;
   float su = 0.f, sv = 0.f;
   for (int c = lane; c < db; c += 32) {
     su = fmaf(uj[c], uj[c], su);
@@ -550,15 +545,14 @@ __global__ void rank2_rows_kernel(const TI* __restrict__ y,
                                 pv * (vj[c] / nv));
 }
 
-template <typename TI, typename TO, bool BANK = false>
+template <typename TI, typename TO>
 cudaError_t launch_rank2_rows(const TI* y, const float* u, const float* v,
-                              TO* out, int M, int n, int db, cudaStream_t s,
-                              const Tenants& tn = Tenants{}) {
+                              TO* out, int M, int n, int db, cudaStream_t s) {
   constexpr int kThreads = 256;
   const long long pairs = static_cast<long long>(M) * n;
-  rank2_rows_kernel<TI, TO, BANK>
+  rank2_rows_kernel<TI, TO>
       <<<static_cast<unsigned>((pairs + kThreads / 32 - 1) / (kThreads / 32)),
-         kThreads, 0, s>>>(y, u, v, out, M, n, db, tn);
+         kThreads, 0, s>>>(y, u, v, out, M, n, db);
   return cudaGetLastError();
 }
 

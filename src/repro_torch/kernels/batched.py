@@ -27,6 +27,8 @@ the bank's (A, n, db) f32 gradients.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -43,8 +45,9 @@ _HH = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 7 + (_P,)
 # route's rows a tile
 GEMM_ROUTES = ("wgmma", "simt")
 TILE_ROWS = 128
-# x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, stream
-_EP = (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P)
+# x, u, v, ids, ids64, seq, tenants, out, M, n, db, dtype, rows, bpc, vec,
+# staged, stream
+_EP = (_P, _P, _P, _P, _I, _I, _I, _P) + (_I,) * 8 + (_P,)
 # x, w, a, b, s, ids, ids64, seq, tenants, h, y, M, K, N, r, w_t, dtype,
 # route, stage, staged, stream
 _DG = (_P,) * 6 + (_I,) * 3 + (_P, _P) + (_I,) * 8 + (_P, _P)
@@ -64,8 +67,19 @@ _HB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 8 + (_P,)
 # stream
 _HW = (_P,) * 4 + (_I,) * 3 + (_P,) * 3 + (_I,) * 6 + (_P,)
 # x, u, v, g, ids, ids64, seq, tenants, part, ghat, dx, du, dv, M, n, db,
-# dtype, stream
-_EB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 4 + (_P,)
+# dtype, rows, bpc, vec, staged, stream
+_EB = (_P,) * 5 + (_I,) * 3 + (_P,) * 5 + (_I,) * 8 + (_P,)
+# The ETHER+ bank reflections' tiles (csrc/rank2_tiles.cuh): the card's
+# SMs, a forward tile's most rows, the backward's rows a tile
+# (reflect_common.cuh's kRowsPerTile), a column chunk's most columns (whole
+# blocks), a tile's shared memory (two CTAs an SM) and the most a CTA may
+# ask for
+SMS = 132
+TILE_MAX_ROWS = 32
+BWD_TILE_ROWS = 32
+CHUNK_COLS = 4096
+TILE_SMEM = 100 * 1024
+SMEM_MAX = 232448
 
 
 def _tenants(x: torch.Tensor, ids: torch.Tensor, bank: torch.Tensor):
@@ -142,10 +156,87 @@ def householder_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     return err, y, on
 
 
+def _tile_smem(rows: int, bpc: int, db: int, es: int, bwd: bool,
+               staged: bool) -> int:
+    """A tile CTA's shared memory (rank2_tiles.cuh's smem_bytes)."""
+    w = bpc * db
+    tile = -(-rows * w * es // 16) * 16 * (2 if bwd else 1) if staged else 0
+    return tile + 2 * (-(-4 * w // 16) * 16) + (16 * rows * bpc if bwd else 0)
+
+
+def _chunk_sizes(n: int, db: int, vw: int) -> list[int]:
+    """The blocks a column chunk may take, most first: every count up to
+    CHUNK_COLS columns (one block at least), in steps that keep each
+    chunk's rows on 16 bytes (``vw`` elements) where d allows it."""
+    most = max(1, min(n, CHUNK_COLS // db))
+    unit = vw // math.gcd(db, vw)
+    if n * db % vw or unit > most:
+        return list(range(most, 0, -1))
+    return list(range(most - most % unit, 0, -unit))
+
+
+@functools.lru_cache(maxsize=4096)
+def rank2_geometry(b: int, s: int, n: int, db: int, es: int, bwd: bool,
+                   aligned: bool):
+    """The tile kernels' launch for b sequences of s rows, n blocks of db
+    and ``es``-byte elements (the backward when ``bwd``); ``aligned``: the
+    activations (and G) start on 16 bytes.  (rows, bpc, vec, staged):
+    ``rows`` a tile: the backward's BWD_TILE_ROWS (or s, if fewer), the
+    tiles whose ĝ partials the per-row kernel summed before, so that every
+    sum keeps its order; the forward's the largest power of two up to
+    TILE_MAX_ROWS and s whose B·⌈s/rows⌉ tiles still fill the SMS.  ``bpc``
+    the blocks a column chunk: the most (every block up to CHUNK_COLS
+    columns, :func:`_chunk_sizes`) whose CTAs still fill the SMS, else the
+    fewest, within TILE_SMEM of shared memory.  ``vec``: 16-byte loads and
+    stores (d and the chunk a multiple of 16 bytes, the tiles staged).
+    ``staged``: the tiles in shared memory (one block's at least fits),
+    else the CTA reads and writes device memory directly.  None where
+    even one block's hyperplanes do not fit in shared memory."""
+    vw = 16 // es
+    sizes = _chunk_sizes(n, db, vw)
+
+    def fits(rows, bpc, budget=TILE_SMEM):
+        return _tile_smem(rows, bpc, db, es, bwd, True) <= budget
+
+    if bwd:
+        rows = min(s, BWD_TILE_ROWS)
+    else:
+        rows = 1
+        while (2 * rows <= min(s, TILE_MAX_ROWS)
+               and b * -(-s // (2 * rows)) >= SMS
+               and fits(2 * rows, sizes[0])):
+            rows *= 2
+    tiles = b * -(-s // rows)
+    room = [k for k in sizes if fits(rows, k)]
+    staged = bool(room) or fits(rows, 1, SMEM_MAX)
+    if not staged and _tile_smem(rows, 1, db, es, bwd, False) > SMEM_MAX:
+        return None
+    full = [k for k in room if tiles * -(-n // k) >= SMS]
+    bpc = full[0] if full else room[-1] if room else 1
+    vec = staged and aligned and n * db % vw == 0 and bpc * db % vw == 0
+    return rows, bpc, int(vec), int(staged)
+
+
+def _geometry(x: torch.Tensor, u_bank: torch.Tensor, bwd: bool,
+              g: torch.Tensor = None) -> tuple:
+    """:func:`rank2_geometry` of these operands (g: the backward's
+    cotangent); raises ValueError where it is None."""
+    b, s, _ = x.shape
+    _, n, db = u_bank.shape
+    aligned = x.data_ptr() % 16 == 0 and (g is None or g.data_ptr() % 16 == 0)
+    geo = rank2_geometry(b, s, n, db, x.element_size(), bwd, aligned)
+    if geo is None:
+        raise ValueError(f"the ETHER+ bank reflection takes blocks whose "
+                         f"hyperplanes fit in shared memory; db = {db} does "
+                         f"not")
+    return geo
+
+
 @_on_device
 def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
                               v_bank: torch.Tensor, ids: torch.Tensor):
-    """H⁺_{ids[b]} x[b]: x (B, S, d), u_bank/v_bank (A, n, db) f32."""
+    """H⁺_{ids[b]} x[b]: x (B, S, d), u_bank/v_bank (A, n, db) f32, on
+    csrc/rank2_tiles.cuh's tile kernel at :func:`rank2_geometry`."""
     b, s, _ = x.shape
     _, n, db = u_bank.shape
     fn = build.function("etherplus_reflect_batched",
@@ -153,7 +244,7 @@ def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), u_bank.data_ptr(), v_bank.data_ptr(),
              *_tenants(x, ids, u_bank), out.data_ptr(), b * s, n, db,
-             DTYPE_CODE[x.dtype], _stream())
+             DTYPE_CODE[x.dtype], *_geometry(x, u_bank, False), _stream())
     return err, out
 
 
@@ -364,21 +455,21 @@ def etherplus_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
                                   g: torch.Tensor):
     """(dx, ĝu_seq, ĝv_seq, du_bank, dv_bank) of H⁺_{ids[b]} x[b] under g
     (B, S, d): x (B, S, d), u_bank/v_bank (A, n, db) f32; ĝu_seq, ĝv_seq
-    (B, n, db) f32."""
+    (B, n, db) f32; on csrc/rank2_tiles.cuh's tile kernel at
+    :func:`rank2_geometry`, then its ĝ and norm-chain kernel."""
     b, s, d = x.shape
     _, n, db = u_bank.shape
-    tiles = b * build.function("etherplus_reflect_batched_bwd",
-                               "etherplus_reflect_batched_bwd_row_tiles",
-                               (_I,))(s)
+    geo = _geometry(x, u_bank, True, g)
     fn = build.function("etherplus_reflect_batched_bwd",
                         "etherplus_reflect_batched_bwd", _EB)
     dx = torch.empty_like(x)
     ghat = torch.empty((2, b, n, db), dtype=torch.float32, device=x.device)
     du, dv = torch.empty_like(u_bank), torch.empty_like(v_bank)
-    # f32 scratch: the row tiles' ĝu partials (tiles, d), then ĝv's
+    # f32 scratch: each tile's ĝu partials (B·⌈S/rows⌉, d), then ĝv's
+    tiles = b * -(-s // geo[0])
     part = torch.empty((2 * tiles * d,), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), u_bank.data_ptr(), v_bank.data_ptr(),
              g.data_ptr(), *_tenants(x, ids, u_bank), part.data_ptr(),
              ghat.data_ptr(), dx.data_ptr(), du.data_ptr(), dv.data_ptr(),
-             b * s, n, db, DTYPE_CODE[x.dtype], _stream())
+             b * s, n, db, DTYPE_CODE[x.dtype], *geo, _stream())
     return err, dx, ghat[0], ghat[1], du, dv

@@ -765,7 +765,9 @@ def etherplus_reflect_batched(x: torch.Tensor, u_bank: torch.Tensor,
                               v_bank: torch.Tensor,
                               ids: torch.Tensor) -> torch.Tensor:
     """H⁺_{ids[b]} x[b]; x: (B, S, d); u_bank/v_bank: (A, n, db) f32 of one
-    shape with n·db = d; ids: (B,) int32 or int64."""
+    shape with n·db = d; ids: (B,) int32 or int64.  On the card it
+    launches csrc/rank2_tiles.cuh's tile kernel at
+    :func:`batched.rank2_geometry`."""
     d = x.shape[-1] if x.dim() else -1
     shape = _planes(u_bank, d)
     _check_bank("etherplus_reflect_batched", x, None, ids,
@@ -866,7 +868,9 @@ def etherplus_reflect_batched_bwd(x: torch.Tensor, u_bank: torch.Tensor,
                                   g: torch.Tensor):
     """(dx, du_bank, dv_bank) of :func:`etherplus_reflect_batched` under
     cotangent g (B, S, d), the bank gradients as
-    :func:`householder_gemm_batched_bwd` forms them."""
+    :func:`householder_gemm_batched_bwd` forms them.  On the card it
+    launches csrc/rank2_tiles.cuh's tile kernel and its ĝ and norm-chain
+    kernel, one launch counted."""
     d = x.shape[-1] if x.dim() else -1
     shape = _planes(u_bank, d)
     _check_bank("etherplus_reflect_batched_bwd", x, None, ids,

@@ -29,8 +29,8 @@ standalone reflection rows), ``registry`` (phase 16: every forward op
 dispatched under autograd; here the ``cuda`` backend is let through on
 CPU tensors, so its wrappers take their plain versions), ``flashrows``
 (phase 2's flash attention rows), ``qwen`` (phase 17's qwen2.5-32b
-serving, at the smoke config), ``host`` (phase 2's host cost of a
-decode step's ``householder_gemm`` calls).
+serving, at the smoke config), ``host`` or ``host:<op>`` (phase 2's
+host cost of a decode step's ``householder_gemm`` calls, or ``op``'s).
 """
 
 import os
@@ -217,7 +217,8 @@ def small(cs, failed):
         "flash_ms": 0.0,
         "top_level_ops": {"aten": 0}, "top_level_cpu_us": {"aten": 0.0},
         "top_level_cpu_ms": 0.0, "processing_s": 0.0, "dxr_ms": {},
-        "fwd_ms": {}})[1]
+        "fwd_ms": {}, "rank2_ms": dict.fromkeys(cs.RANK2_KERNELS, 0.0),
+        "per_row_kernels": []})[1]
 
 
 def main(parts):
@@ -293,7 +294,7 @@ def main(parts):
         elif name == "qwen":
             cs.phase_serve_qwen(torch, execute, ops, serve, api)
         elif name == "host":
-            cs.host_cost(torch, ops, execute)
+            cs.host_cost(torch, ops, execute, method or "householder_gemm")
         else:
             raise SystemExit(f"unknown part {part!r}")
     if not parts:

@@ -2,12 +2,17 @@
 """How far ``chip_smoke.py``'s training on the kernels lands from its plain
 path, on each bf16 route of the forward and of the ``reflect_gemm_dx``
 backward, over seeds: phase 4 (ETHER), phase 6 (two-sided ETHER+), phase
-10 (HyperAdapt) or phase 14 (ETHER, or with ``--method hyperadapt`` or
-``delora`` HyperAdapt or DeLoRA, through a bank).
+10 (HyperAdapt) or phase 14 (ETHER, or with ``--method hyperadapt``,
+``delora`` or ``etherplus`` HyperAdapt, DeLoRA or ETHER+, through a
+bank).
 
     python3 tools/train_gap.py [--phase 4|6|10|14]
-                               [--method ether|hyperadapt|delora]
-                               [--seeds 0 1 2] [--witnesses]
+                               [--method ether|hyperadapt|delora|etherplus]
+                               [--seeds 0 1 2] [--witnesses] [--src DIR]
+
+``--src`` runs the port of another checkout (its ``src`` directory, for
+example the parent commit unpacked with ``git archive``) under this
+checkout's ``chip_smoke.py`` constants.
 
 Two parts, on one card:
 
@@ -17,7 +22,9 @@ Two parts, on one card:
    BANK_TRAIN_IDS), the phase's forward kernel (``householder_gemm``,
    ``etherplus_gemm`` two-sided, ``hyperadapt_gemm``,
    ``householder_gemm_batched``, ``hyperadapt_gemm_batched``,
-   ``delora_gemm_batched`` at rank METHOD_RANK) with each
+   ``delora_gemm_batched`` at rank METHOD_RANK; for the ETHER+ bank
+   both sides of a linear through ``etherplus_reflect_batched``, which
+   has one route) with each
    route forced (``wgmma``, ``simt``), against its plain
    version: the share of outputs not bitwise the plain version's, the
    relative Frobenius norm of the difference, and each one's (the plain
@@ -65,7 +72,10 @@ import tempfile
 from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [os.path.join(REPO, "src"), REPO]
+# the port under test: this checkout's, or --src's
+SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
+       else os.path.join(REPO, "src"))
+sys.path[:0] = [os.path.abspath(SRC), REPO]
 # before CUDA starts: cuBLAS picks deterministic kernels, as in phase 4
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -81,14 +91,15 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reflect_gemm_dx as kdx  # noqa: E402
 
 # (phase, method): the forward's module, the name of its route rule and
-# the forward op
+# the forward op (no rule: the op has one route)
 PHASES = {(4, "ether"): (hh, "route", "householder_gemm"),
           (6, "etherplus"): (ep, "route", "etherplus_gemm"),
           (10, "hyperadapt"): (kh, "route", "hyperadapt_gemm"),
           (14, "ether"): (kb, "gemm_route", "householder_gemm_batched"),
           (14, "hyperadapt"): (kb, "hyperadapt_route",
                                "hyperadapt_gemm_batched"),
-          (14, "delora"): (kb, "delora_route", "delora_gemm_batched")}
+          (14, "delora"): (kb, "delora_route", "delora_gemm_batched"),
+          (14, "etherplus"): (None, None, "etherplus_reflect_batched")}
 
 
 @contextmanager
@@ -171,6 +182,31 @@ def forward_rows(gen, phase, method) -> list:
                 * sb[sel][:, None].double()) @ bb[sel].double()
             args, plain_fn, op = (xs, w, ab, bb, sb, ids), \
                 ref.ref_delora_gemm_batched, ops.delora_gemm_batched
+        elif method == "etherplus":
+            n_out = resolve_blocks(n, f)
+            ub, vb = (torch.randn(cs.BANK_TENANTS, n, d // n, generator=gen,
+                                  device="cuda") for _ in range(2))
+            u2b, v2b = (torch.randn(cs.BANK_TENANTS, n_out, f // n_out,
+                                    generator=gen, device="cuda")
+                        for _ in range(2))
+            ids = torch.tensor(cs.BANK_TRAIN_IDS, dtype=torch.int32,
+                               device="cuda")
+            xs = x.view(cs.TRAIN_B, cs.TRAIN_S, d)
+            sel = ids.long()
+            exact = blockwise(
+                blockwise(xs, ub[sel][:, None], vb[sel][:, None])
+                @ w.double(), u2b[sel][:, None], v2b[sel][:, None])
+
+            def plain_fn(xs, w, ub, vb, u2b, v2b, ids):
+                return ref.ref_etherplus_reflect_batched(
+                    ref.ref_etherplus_reflect_batched(xs, ub, vb, ids) @ w,
+                    u2b, v2b, ids)
+
+            def op(xs, w, ub, vb, u2b, v2b, ids):
+                return ops.etherplus_reflect_batched(
+                    ops.etherplus_reflect_batched(xs, ub, vb, ids) @ w,
+                    u2b, v2b, ids)
+            args = (xs, w, ub, vb, u2b, v2b, ids)
         elif method == "hyperadapt":
             rb = 1 + cs.HA_SPREAD * torch.randn(cs.BANK_TENANTS, d,
                                                 generator=gen, device="cuda")
@@ -195,11 +231,13 @@ def forward_rows(gen, phase, method) -> list:
         plain = plain_fn(*args)
         ops.reset_launches()
         got = {}
-        for on in ("wgmma", "simt"):
+        for on in ("wgmma", "simt") if module else ():
             with forced(module, name, on):
                 got[on] = op(*args)
+        if module is None:
+            got["kernels"] = op(*args)
         row = {"d": d, "f": f, "t": t, "n": n,
-               "routes": ops.routes(fwd),
+               "routes": ops.routes(fwd) if module else ops.launches()[fwd],
                "plain_vs_exact": frob(plain, exact)}
         for key, y in got.items():
             row[key] = {"differs": (y != plain).float().mean().item(),
@@ -359,9 +397,13 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", type=int, choices=sorted({p for p, _ in PHASES}),
                     default=4)
-    ap.add_argument("--method", choices=("ether", "hyperadapt", "delora"),
+    ap.add_argument("--method",
+                    choices=("ether", "hyperadapt", "delora", "etherplus"),
                     help="phase 14's method (default ether)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--src", default=os.path.join(REPO, "src"),
+                    help="the src directory of the port to run (read "
+                         "before the imports, above)")
     ap.add_argument("--witnesses", action="store_true",
                     help="phase 14 DeLoRA: also the plain path in float32 "
                          "and with h summed in float64")
@@ -373,17 +415,19 @@ def main(argv) -> int:
     if args.witnesses and (args.phase, method) != (14, "delora"):
         ap.error("--witnesses is phase 14 DeLoRA's")
     module, name, fwd = PHASES[args.phase, method]
-    # ETHER's and ETHER+'s backward runs reflect_gemm_dx's routes
-    dx_bwd = method in ("ether", "etherplus")
+    # ETHER's and ETHER+'s backward runs reflect_gemm_dx's routes (not
+    # the ETHER+ bank's, whose backward is etherplus_reflect_batched_bwd)
+    dx_bwd = method == "ether" or (args.phase, method) == (6, "etherplus")
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired):
         smi = "unknown"
-    print(f"card: {smi}; phase {args.phase}, {method}", flush=True)
+    print(f"card: {smi}; phase {args.phase}, {method}; port {SRC}",
+          flush=True)
     torch.use_deterministic_algorithms(True)
-    out = {"card": smi, "phase": args.phase, "method": method,
+    out = {"card": smi, "phase": args.phase, "method": method, "src": SRC,
            "forward": forward_rows(
                torch.Generator(device="cuda").manual_seed(4), args.phase,
                method),
@@ -404,6 +448,20 @@ def main(argv) -> int:
             runs, routes = {"plain": run("torch")}, {}
             ops.reset_launches()
             auto = run("auto")
+            if module is None:      # one route: the kernels against plain
+                row = {"seed": seed, "launches": ops.launches()[fwd],
+                       "kernels_vs_plain": gap(auto, runs["plain"]),
+                       "losses": {"plain": [m["loss"] for m in
+                                            runs["plain"]["log"]],
+                                  "kernels": [m["loss"] for m in
+                                              auto["log"]]}}
+                g = row["kernels_vs_plain"]
+                print(f"seed {seed}: kernels_vs_plain loss {g['loss']:.3e} "
+                      f"grad_norm {g['grad_norm']:.3e} update "
+                      f"{g['update']:.3e}; {fwd} launches {row['launches']}",
+                      flush=True)
+                out["train"].append(row)
+                continue
             routes["auto"] = ops.routes(fwd)
             took = [k.split(".", 1)[1] for k, v in routes["auto"].items()
                     if v]
